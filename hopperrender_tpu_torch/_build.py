@@ -1,0 +1,126 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+On first use, nvcc compiles every `csrc/*.cu` into ONE shared library with a
+plain C interface, under `build/hopperrender_tpu_torch/` beside the package,
+and ctypes loads it. The library's name carries a hash of the sources and the
+flags, so editing a source triggers a rebuild and an unchanged tree reuses the
+library. No PyTorch header is included, so a build takes seconds, not the
+minutes `torch.utils.cpp_extension.load` needs.
+
+Every C entry point launches on the stream it is given, allocates nothing,
+does not synchronise, and returns `cudaGetLastError()` as an int; `check`
+turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "hopperrender_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> argtypes. Pointers and the stream are c_void_p: left
+# undeclared, ctypes would pass them as 32-bit ints and cut them.
+SIGNATURES = {
+    # (in, out, low_h, low_w, stream)
+    "hrt_blur_flow": (_P, _P, _I, _I, _P),
+    # (src12_y, src12_uv, src21_y, src21_uv, flow, ts, n_t, out_y, out_uv,
+    #  dim_y, dim_x, low_h, low_w, res_scalar, mode, is_hdr, black, white, stream)
+    "hrt_warp_frames": (_P, _P, _P, _P, _P, _P, _I, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float   # 0.0 when an up-to-date library was reused
+    ptxas_log: str         # nvcc's -Xptxas -v report (registers, spills)
+
+
+_lock = threading.Lock()
+_loaded: KernelLibrary | None = None
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.h"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libhrt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(so: Path) -> tuple[float, str]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    start = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError as exc:
+        raise RuntimeError(f"nvcc not found ({cmd[0]}): the CUDA toolkit is "
+                           "needed to build the kernels") from exc
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    seconds = time.perf_counter() - start
+    log = proc.stdout + proc.stderr
+    so.with_suffix(".log").write_text(log)
+    os.replace(tmp, so)   # atomic: a concurrent loader never sees half a file
+    return seconds, log
+
+
+def load() -> KernelLibrary:
+    """The kernel library, built on the first call of the process if needed."""
+    global _loaded
+    with _lock:
+        if _loaded is None:
+            so = _library_path()
+            if so.exists():
+                seconds, log_path = 0.0, so.with_suffix(".log")
+                log = log_path.read_text() if log_path.exists() else ""
+            else:
+                seconds, log = _compile(so)
+            lib = ctypes.CDLL(str(so))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.hrt_error_string.argtypes = [ctypes.c_int]
+            lib.hrt_error_string.restype = ctypes.c_char_p
+            _loaded = KernelLibrary(lib=lib, path=so, build_seconds=seconds,
+                                    ptxas_log=log)
+        return _loaded
+
+
+def check(code: int, name: str) -> None:
+    """Raise when a kernel's launch returned a CUDA error."""
+    if code != 0:
+        msg = load().lib.hrt_error_string(code).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")

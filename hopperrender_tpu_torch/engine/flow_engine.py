@@ -1,0 +1,286 @@
+"""OpticalFlowEngine — device-resident interpolation engine on PyTorch.
+
+PyTorch port of hopperrender_tpu/engine/flow_engine.py (ref: opticalFlowCalc.h,
+opticalFlowCalcSDR.cpp, opticalFlowCalcHDR.cpp), with the surface FrameServer
+calls:
+
+  * 3-deep frame ring on the device; slot 2 = newest frame N, slot 1 = N-1,
+    slot 0 = N-2 (ref: opticalFlowCalcSDR.cpp:19-29).
+  * Flow is computed between slots 1 and 2 while warping reads slots 0 and 1
+    with the PREVIOUS pair's blurred flow: the 1-pair pipeline that gives the
+    filter its 2-source-frame latency (ref: opticalFlowCalcSDR.cpp:79-80,121-123).
+  * The scene-change scalar stays on the device until fetch_total_frame_delta.
+  * Flow and warp times come from CUDA events on a GPU (host clock on the CPU)
+    and feed 240-frame avg/peak windows (ref: opticalFlowCalcSDR.cpp:118-138).
+
+The flow blur is kernel K1 and every warp of modes 0/1/2 is kernel K2 (one
+launch for all T outputs of a source interval). The JAX engine's strip and
+band machinery (contexts, tier plans, apron tiers, chain bounds) exists
+because a TPU has no fast per-lane gather; Hopper gathers natively, so none of
+it is carried over.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from hopperrender_tpu import config
+from hopperrender_tpu_torch.ops import warp_kernel
+from hopperrender_tpu_torch.ops import flow as flow_ops
+from hopperrender_tpu_torch.ops import warp as warp_ops
+
+RADIUS_BUCKETS = (5, 8, 12, flow_ops.MAX_R)
+
+
+def estimate_device_bytes(frame_height: int, frame_width: int, *, is_hdr: bool,
+                          max_calc_res: int = config.MAX_CALC_RES) -> int:
+    """Device-memory need of one engine: the 3-frame ring, the flow double
+    buffer, the cost volume's int64 working set (about eight live
+    (16, low_h, low_w) int64 temporaries per pyramid step) and one interval's
+    warp outputs (T <= 5) with the plain versions' int32 temporaries. An
+    estimate for the pre-check only; chip_smoke.py reports the measured peak
+    (torch.cuda.max_memory_allocated)."""
+    e = 2 if is_hdr else 1
+    _, low_h, low_w = config.calc_flow_dims(frame_height, frame_width, max_calc_res)
+    frame = frame_height * frame_width * 3 // 2
+    cost_volume = 8 * flow_ops.MAX_R * low_h * low_w * 8
+    return 3 * frame * e + 2 * 2 * low_h * low_w * 2 + cost_volume + 5 * frame * e + 8 * frame * 4
+
+
+class CalcTimeWindow:
+    """avg/peak over CALC_TIME_INTERVAL frames (ref: opticalFlowCalcSDR.cpp:128-138)."""
+
+    def __init__(self, interval: int = config.CALC_TIME_INTERVAL):
+        self.interval = interval
+        self.current = 0.0
+        self.avg = 0.0
+        self.peak = 0.0
+        self._count = 0
+        self._sum = 0.0
+
+    def record(self, seconds: float) -> None:
+        self.current = seconds
+        if self._count >= self.interval:
+            self.avg = self._sum / self._count
+            self._count = 0
+            self._sum = 0.0
+            self.peak = seconds
+        self._count += 1
+        self._sum += seconds
+        if seconds > self.peak:
+            self.peak = seconds
+
+
+class OpticalFlowEngine:
+    """Single-device interpolation engine (SDR uint8 NV12 planes / HDR uint16 P010).
+
+    device: the torch device that holds every tensor; "cuda" by default, and
+    construction raises when it names CUDA and no CUDA device exists (there
+    is no silent CPU fallback)."""
+
+    def __init__(
+        self,
+        frame_height: int,
+        frame_width: int,
+        *,
+        is_hdr: bool = False,
+        delta_scalar: int = config.DEFAULT_DELTA_SCALAR,
+        neighbor_scalar: int = config.DEFAULT_NEIGHBOR_SCALAR,
+        black_level: float = float(config.DEFAULT_BLACK_LEVEL),
+        white_level: float = float(config.DEFAULT_WHITE_LEVEL),
+        max_calc_res: int = config.MAX_CALC_RES,
+        num_iterations: int = config.NUM_ITERATIONS,
+        device: str | torch.device = "cuda",
+    ):
+        if frame_height % 2 or frame_width % 2:
+            raise ValueError("NV12/P010 frames require even dimensions")
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("OpticalFlowEngine: device 'cuda' requested but no "
+                                   "CUDA device is available (pass device='cpu' to run "
+                                   "the plain PyTorch versions)")
+            need = estimate_device_bytes(frame_height, frame_width, is_hdr=is_hdr,
+                                         max_calc_res=max_calc_res)
+            free, _ = torch.cuda.mem_get_info(self.device)
+            if need > 0.95 * free:
+                raise RuntimeError(
+                    f"engine needs ~{need / 1e9:.2f} GB but {free / 1e9:.2f} GB of device "
+                    f"memory is free for {frame_width}x{frame_height} "
+                    f"{'HDR' if is_hdr else 'SDR'}")
+        self.h = frame_height
+        self.w = frame_width
+        self.is_hdr = is_hdr
+        self.res_scalar, self.low_h, self.low_w = config.calc_flow_dims(
+            frame_height, frame_width, max_calc_res)
+        self.search_radius = config.MIN_SEARCH_RADIUS
+        self.num_iterations = num_iterations  # 0 = auto (ref: config.h:6)
+        self.delta_scalar = delta_scalar
+        self.neighbor_scalar = neighbor_scalar
+        self.black_level = black_level
+        self.white_level = white_level
+        self.frame_count = 0
+        self.total_frame_delta = 0
+        self._pending_delta_raw: torch.Tensor | None = None
+        self.ofc_time = CalcTimeWindow()
+        self.warp_time = CalcTimeWindow()
+        self._ofc_start = None
+
+        self._dtype = torch.uint16 if is_hdr else torch.uint8
+        zeros = lambda shape, dtype: warp_ops.from_int32(
+            torch.zeros(shape, dtype=torch.int32, device=self.device), dtype)
+        self._frames_y = [zeros((self.h, self.w), self._dtype) for _ in range(3)]
+        self._frames_uv = [zeros((self.h // 2, self.w), self._dtype) for _ in range(3)]
+        # blurred[0] = previous pair's flow (consumed by warp); blurred[1] = newest.
+        self._blurred = [zeros((2, self.low_h, self.low_w), torch.int16) for _ in range(2)]
+
+    # -- timing ---------------------------------------------------------------
+
+    def _clock(self):
+        """A start mark: a recorded CUDA event on a GPU, the host clock on the CPU."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.device))
+            return ev
+        return time.perf_counter()
+
+    def _elapsed(self, start) -> float:
+        """Seconds from `start` to the end of the work queued so far (waits for it)."""
+        if self.device.type == "cuda":
+            end = self._clock()
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3
+        return time.perf_counter() - start
+
+    # -- streaming API (mirrors OpticalFlowCalc) ------------------------------
+
+    def _to_device(self, plane, shape) -> torch.Tensor:
+        """A copy of one plane on the engine's device (never a view of the
+        caller's buffer, which the caller may reuse)."""
+        if isinstance(plane, torch.Tensor):
+            if plane.dtype != self._dtype:
+                raise ValueError(f"plane dtype {plane.dtype} != expected {self._dtype}")
+            t = plane.to(self.device, copy=True).contiguous()
+        else:
+            dt = np.uint16 if self.is_hdr else np.uint8
+            t = torch.tensor(np.asarray(plane, dtype=dt), device=self.device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"plane shape {tuple(t.shape)} != expected {shape}")
+        return t
+
+    def update_frame(self, y, uv) -> None:
+        """Ingest frame N and rotate the ring (ref: opticalFlowCalcSDR.cpp:19-29).
+        Accepts host ndarrays or torch tensors."""
+        y_dev = self._to_device(y, (self.h, self.w))
+        uv_dev = self._to_device(uv, (self.h // 2, self.w))
+        self._frames_y = [self._frames_y[1], self._frames_y[2], y_dev]
+        self._frames_uv = [self._frames_uv[1], self._frames_uv[2], uv_dev]
+        self.frame_count += 1
+        self._ofc_start = self._clock()
+
+    def _radius_bucket(self) -> int:
+        """Cost-volume depth for the current search radius: fewer layers at the
+        scaler's low end, a handful of distinct shapes overall."""
+        return next(b for b in RADIUS_BUCKETS if self.search_radius <= b)
+
+    def calculate_optical_flow(self) -> None:
+        """Compute flow for the newest pair (slots 1, 2); swap the flow double
+        buffer so warping uses the previous pair's flow
+        (ref: opticalFlowCalcSDR.cpp:44-139)."""
+        _, blurred, delta_raw = flow_ops.pyramid_flow(
+            self._frames_y[1], self._frames_uv[1], self._frames_y[2], self._frames_uv[2],
+            self.search_radius, self.delta_scalar, self.neighbor_scalar,
+            low_h=self.low_h, low_w=self.low_w, res_scalar=self.res_scalar,
+            is_hdr=self.is_hdr, num_iterations=self.num_iterations,
+            num_layers=self._radius_bucket())
+        self._blurred = [self._blurred[1], blurred]
+        self._pending_delta_raw = delta_raw
+        start = self._ofc_start if self._ofc_start is not None else self._clock()
+        self.ofc_time.record(self._elapsed(start))
+
+    def fetch_total_frame_delta(self) -> int:
+        """Sync point for the scene-change scalar; normalisation is truncating
+        integer division (ref: opticalFlowCalcSDR.cpp:92-94 /10,
+        opticalFlowCalcHDR.cpp:93 /6)."""
+        if self._pending_delta_raw is not None:
+            norm = self.low_h * self.low_w * (6 if self.is_hdr else 10)
+            self.total_frame_delta = int(self._pending_delta_raw) // norm
+            self._pending_delta_raw = None
+        return self.total_frame_delta
+
+    def _levels(self) -> tuple[float, float]:
+        """HDR pre-scales levels x256 (ref: opticalFlowCalcHDR.cpp:151-152)."""
+        if self.is_hdr:
+            return self.black_level * 256.0, self.white_level * 256.0
+        return self.black_level, self.white_level
+
+    def _warp(self, scalars: list[float], mode: int):
+        """K2 over slots 0, 1 with the previous pair's flow: (T, H, W), (T, H/2, W)."""
+        if any(s > 1.0 for s in scalars):
+            raise ValueError("Blending scalar is greater than 1.0")
+        black, white = self._levels()
+        ts = torch.tensor(scalars, dtype=torch.float32, device=self.device)
+        return warp_kernel.warp_frames(
+            self._frames_y[0], self._frames_uv[0], self._frames_y[1], self._frames_uv[1],
+            self._blurred[0], ts, black, white,
+            res_scalar=self.res_scalar, mode=int(mode), is_hdr=self.is_hdr)
+
+    def warp_frames(self, blending_scalar: float, frame_output_mode: int):
+        """One output: warp slots 0, 1 with the previous pair's flow
+        (ref: opticalFlowCalcSDR.cpp:141-168). Returns device (y, uv)."""
+        start = self._clock()
+        y, uv = self._warp([float(blending_scalar)], frame_output_mode)
+        self.warp_time.record(self._elapsed(start))
+        return y[0], uv[0]
+
+    def warp_frames_batch(self, blending_scalars, frame_output_mode: int):
+        """All of one source interval's outputs in ONE K2 launch (a (T,)
+        blending-scalar vector). Outputs equal T warp_frames calls. Returns a
+        list of device (y, uv) pairs."""
+        scalars = [float(s) for s in blending_scalars]
+        if not scalars:
+            return []
+        start = self._clock()
+        y, uv = self._warp(scalars, frame_output_mode)
+        # The scaler consumes per-output warp durations: share the batch evenly.
+        per = self._elapsed(start) / len(scalars)
+        for _ in scalars:
+            self.warp_time.record(per)
+        return [(y[i], uv[i]) for i in range(len(scalars))]
+
+    def copy_frame(self):
+        """Passthrough of the pipeline-latency-matched slot
+        (ref: opticalFlowCalcSDR.cpp:170-183)."""
+        idx = 0 if self.frame_count >= 3 else (1 if self.frame_count >= 2 else 2)
+        black, white = self._levels()
+        start = self._clock()
+        y, uv = warp_ops.copy_frame(self._frames_y[idx], self._frames_uv[idx],
+                                    black, white, is_hdr=self.is_hdr)
+        self.warp_time.record(self._elapsed(start))
+        return y, uv
+
+    def reset_stream(self) -> None:
+        """Seek / new segment: restart the warmup (ref: HopperRender.cpp:840)."""
+        self.frame_count = 0
+
+    def load_state(self, state: dict) -> None:
+        """Continue a stream from another engine's state, given as numpy arrays
+        and ints: `_frames_y` and `_frames_uv` (3 planes each, oldest first),
+        `_blurred` (2 flow planes, previous pair first), `frame_count`,
+        `search_radius`. The JAX engine's fields of the same names export it."""
+        frames_y = [self._to_device(p, (self.h, self.w)) for p in state["_frames_y"]]
+        frames_uv = [self._to_device(p, (self.h // 2, self.w)) for p in state["_frames_uv"]]
+        flow_shape = (2, self.low_h, self.low_w)
+        blurred = [torch.tensor(np.asarray(f, dtype=np.int16), device=self.device)
+                   for f in state["_blurred"]]
+        if len(frames_y) != 3 or len(frames_uv) != 3 or len(blurred) != 2 \
+                or any(tuple(b.shape) != flow_shape for b in blurred):
+            raise ValueError("load_state: expected 3 frames and 2 flow planes of "
+                             f"shape {flow_shape}")
+        self._frames_y, self._frames_uv, self._blurred = frames_y, frames_uv, blurred
+        self.frame_count = int(state["frame_count"])
+        self.search_radius = int(state["search_radius"])
+        self._pending_delta_raw = None

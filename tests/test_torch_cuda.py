@@ -1,0 +1,77 @@
+"""Kernels K1 (flow blur) and K2 (batched warp) against their plain PyTorch
+versions on a CUDA card, exactly, across bit depths, res scalars, modes and
+ragged shapes. Every test skips without a card.
+
+On the card (whose machine may lack jax, which tests/conftest.py imports):
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _frame(rng, h, w, is_hdr, dev):
+    hi = 65536 if is_hdr else 256
+    dt = np.uint16 if is_hdr else np.uint8
+    return (torch.tensor(rng.integers(0, hi, (h, w), dtype=dt), device=dev),
+            torch.tensor(rng.integers(0, hi, (h // 2, w), dtype=dt), device=dev))
+
+
+def _same(a, b):
+    return torch.equal(a.view(torch.int16) if a.dtype == torch.uint16 else a,
+                       b.view(torch.int16) if b.dtype == torch.uint16 else b)
+
+
+@pytest.mark.parametrize("shape", [(3, 2), (11, 13), (34, 48), (270, 480)])
+def test_blur_kernel_matches_plain(dev, shape):
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.integers(-32768, 32768, (2,) + shape).astype(np.int16), device=dev)
+    before = blur_kernel.blur_flow.launches
+    got = blur_kernel.blur_flow(x)
+    assert blur_kernel.blur_flow.launches == before + 1
+    assert torch.equal(got, blur_kernel.blur_flow_reference(x))
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+@pytest.mark.parametrize("rs", [0, 1, 2, 3])
+def test_warp_kernel_matches_plain(dev, is_hdr, rs):
+    rng = np.random.default_rng(2 + rs)
+    h, w = 50, 86                       # not multiples of the flow cell
+    srcs = _frame(rng, h, w, is_hdr, dev) + _frame(rng, h, w, is_hdr, dev)
+    low = (2, -(-h // (1 << rs)), -(-w // (1 << rs)))
+    flow = torch.tensor(rng.integers(-70, 71, low).astype(np.int16), device=dev)
+    s = 256.0 if is_hdr else 1.0
+    ts = torch.tensor([0.0, 0.2, 0.4, 0.6, 0.8, 1.0, 0.3], dtype=torch.float32, device=dev)
+    for mode in (0, 1, 2):
+        kw = dict(res_scalar=rs, mode=mode, is_hdr=is_hdr)
+        ky, kuv = warp_kernel.warp_frames(*srcs, flow, ts, 16 * s, 235 * s, **kw)
+        py, puv = warp_kernel.warp_frames_reference(*srcs, flow, ts, 16 * s, 235 * s, **kw)
+        assert _same(ky, py) and _same(kuv, puv), f"mode {mode}"
+
+
+def test_warp_kernel_rejects_bad_input(dev):
+    rng = np.random.default_rng(3)
+    y, uv = _frame(rng, 32, 64, False, dev)
+    flow = torch.zeros((2, 32, 64), dtype=torch.int16, device=dev)
+    ts = torch.tensor([0.5], device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_kernel.warp_frames(y, uv, y, uv, flow.transpose(1, 2).contiguous().transpose(1, 2),
+                                ts, 0.0, 255.0, res_scalar=0, mode=2, is_hdr=False)
+    with pytest.raises(ValueError, match="one device"):
+        warp_kernel.warp_frames(y, uv, y.cpu(), uv, flow, ts, 0.0, 255.0, res_scalar=0,
+                                mode=2, is_hdr=False)
+    with pytest.raises(ValueError, match="uint16"):
+        warp_kernel.warp_frames(y, uv, y, uv, flow, ts, 0.0, 255.0, res_scalar=0, mode=2,
+                                is_hdr=True)

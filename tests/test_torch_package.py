@@ -1,0 +1,95 @@
+"""Import hygiene of the PyTorch port and its refusal to run without a card:
+the port never loads jax, a CUDA engine or server raises when CUDA is absent,
+and chip_smoke.py exits non-zero without a card and outside the repository."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
+from hopperrender_tpu_torch.server.frame_server import FrameServer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _env(**extra):
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["PYTHONPATH"] = ROOT
+    env.update(extra)
+    return env
+
+
+def test_port_never_imports_jax():
+    code = ("import sys\n"
+            "import hopperrender_tpu_torch, hopperrender_tpu_torch._build\n"
+            "import hopperrender_tpu_torch.engine.flow_engine\n"
+            "import hopperrender_tpu_torch.server.frame_server\n"
+            "import chip_smoke\n"
+            "port = chip_smoke.import_port()\n"
+            "assert port.FrameServer and port.Settings and port.CadenceController\n"
+            "assert port.nv12.synthetic_frame and port.config.MAX_SEARCH_RADIUS\n"
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "hopperrender_tpu")]
+    assert not bad, bad
+
+
+def test_plain_versions_swaps_the_wrappers_and_restores_them():
+    import chip_smoke
+    from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel
+
+    port = chip_smoke.import_port()
+    kernels = blur_kernel.blur_flow, warp_kernel.warp_frames
+    with pytest.raises(KeyError):
+        with chip_smoke.plain_versions(port):
+            assert blur_kernel.blur_flow is blur_kernel.blur_flow_reference
+            assert warp_kernel.warp_frames is warp_kernel.warp_frames_reference
+            raise KeyError("restored on the way out")
+    assert (blur_kernel.blur_flow, warp_kernel.warp_frames) == kernels
+
+
+def test_cuda_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OpticalFlowEngine(64, 96, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FrameServer(96, 64, device="cuda")
+
+
+def _assert_refused(out):
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_refuses_without_cuda():
+    # CUDA_VISIBLE_DEVICES="" hides any card, so this holds on a GPU machine too.
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True,
+                         text=True, timeout=120)
+    _assert_refused(out)
+    assert "is_available() is False" in out.stderr
+
+
+def test_chip_smoke_refuses_outside_the_repository(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    env = _env()
+    del env["PYTHONPATH"]
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    _assert_refused(out)

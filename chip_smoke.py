@@ -12,47 +12,67 @@ sm_90a), then runs these phases, one line each:
      (2, 270, 480), exact;
   4. K2 (batched warp) against its plain version at 4K HDR P010, flow +-64,
      t = (0.4, 0.8) and (0.2, 0.6, 1.0), levels 16/235, modes 0/1/2, exact;
+     4b. K2's raw_blend variant (mode 2 without levels) against its plain
+     version, same sources, t = (0.2, 0.6, 1.0), exact;
+     4c. the HSV flow colour (mode 3) on the card against the same function
+     on the CPU, every (ox, oy) in +-512, SDR and HDR, res_impact 1 and 4,
+     channels 0/1/2, exact;
   5. the served slice: FrameServer at 3840x2160 HDR, 24 -> 60, mode 2, levels
      16/235, search radius 16, ten panning frames through the kernels; the
      output count against the cadence controller's, the kernels' launch
      counters, every output against the same stream run with the plain
-     versions, and the mode-0/1/2 golden fixtures replayed byte for byte;
+     versions, and all five golden fixtures replayed byte for byte;
+     5b. served mode 3 (HSV flow) the same way: ten frames through K1 and
+     K2's raw_blend variant;
+     5c. served modes 4, 5 and 6, six frames each (mode 4 runs K1 only,
+     modes 5/6 K1 and K2);
   6. the numbers: served wall time per source frame (host clock around
      push_frame), flow time per source frame, warp time per output, copy
      time, each kernel's time against its plain version's, peak memory, and
      a torch.profiler pass over three more served frames: device busy time,
-     idle share and launches per source frame, and device time by kind.
+     idle share and launches per source frame, and device time by kind;
+     the warp time per output of modes 3-6 (CUDA events) from 5b/5c.
 
-Then one JSON line of the kernels, nvidia-smi's line, and as the last line
-{"ok": true, "device": {...}}. Any failure raises: the script exits non-zero
-and prints no result. It imports nothing of JAX and nothing of the JAX
-package itself: the shared framework-free modules come through the port.
+Before each served path every launch counter is set to 0, and after it each
+kernel of that path must have launched. Then one JSON line of the kernels
+(with each one's bound: the least time the card could take for its work),
+nvidia-smi's line, and as the last line {"ok": true, "device": {...}}. Any
+failure raises: the script exits non-zero and prints no result. It imports
+nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
+import statistics
+import subprocess
+import sys
+import time
+import types
 
-# hopperrender_tpu/__init__.py imports jax when JAX_PLATFORMS is set; the
-# port imports that package's framework-free modules and must not load jax.
-os.environ.pop("JAX_PLATFORMS", None)
-
-import contextlib  # noqa: E402
-import json  # noqa: E402
-import statistics  # noqa: E402
-import subprocess  # noqa: E402
-import sys  # noqa: E402
-import time  # noqa: E402
-import types  # noqa: E402
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W = 2160, 3840           # 4K
 LOW = (2, 270, 480)         # its flow grid (res_scalar 3)
 P010_MASK = 0xFFC0          # 10-bit samples, MSB-aligned in 16 bits
 N_PROFILED = 3              # served frames run under torch.profiler in phase 6
+FIXTURES = ("480p-sdr", "4k-sdr", "4k-hdr", "1080p-sdr", "live")
+
+# The bound of a kernel: the larger of its bytes (each input read once, each
+# output written once) over the memory rate and its operations over the
+# float32 CUDA-core rate, from the H100 SXM data sheet.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# Arithmetic operations per output element, integer and float alike: K1's
+# separable 8x8 box sum (7 + 7 adds) and its truncating division; K2's flow
+# lookup and back-projection (~10), two warped positions (~16 each: product,
+# round, mirror, clamp, index), the blend (~4) and, for mode 2, the levels
+# (~4). The raw_blend variant has no levels.
+OPS_PER_ELEMENT = {"blur_flow": 16, "warp_frames": 50, "warp_frames_raw_blend": 46}
 
 
 def log(line: str) -> None:
@@ -60,13 +80,13 @@ def log(line: str) -> None:
 
 
 def import_port() -> types.SimpleNamespace:
-    """Everything the run uses, imported through hopperrender_tpu_torch only
-    (the server module re-exports config, Settings, CadenceController and
-    nv12, the JAX package's framework-free modules)."""
-    from hopperrender_tpu_torch import _build
+    """Everything the run uses, imported from hopperrender_tpu_torch only."""
+    from hopperrender_tpu_torch import _build, config
+    from hopperrender_tpu_torch.config import Settings
     from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel
-    from hopperrender_tpu_torch.server.frame_server import (
-        CadenceController, FrameServer, Settings, config, nv12)
+    from hopperrender_tpu_torch.server.control import CadenceController
+    from hopperrender_tpu_torch.server.frame_server import FrameServer
+    from hopperrender_tpu_torch.vio import nv12
     return types.SimpleNamespace(
         _build=_build, blur_kernel=blur_kernel, warp_kernel=warp_kernel,
         CadenceController=CadenceController, FrameServer=FrameServer, Settings=Settings,
@@ -80,7 +100,7 @@ def plain_versions(port):
     engine's warp) look them up at call time."""
     kernels = port.blur_kernel.blur_flow, port.warp_kernel.warp_frames
     port.blur_kernel.blur_flow = port.blur_kernel.blur_flow_reference
-    port.warp_kernel.warp_frames = port.warp_kernel.warp_frames_reference
+    port.warp_kernel.warp_frames = port.warp_kernel.warp_frames_reference  # raw_blend too
     try:
         yield
     finally:
@@ -186,6 +206,49 @@ def replay_fixture(path: str, device) -> None:
             raise AssertionError(f"{name}: {what} differ from the fixture")
 
 
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(name: str, bytes_moved: int, n_elements: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a kernel call that moves bytes_moved and
+    computes n_elements output elements."""
+    bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    ops_ms = 1e3 * n_elements * OPS_PER_ELEMENT[name] / OPS_PER_S
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def reset_launches(k1, k2) -> None:
+    k1.launches = k2.launches = k2.raw_launches = 0
+
+
+def read_launches(k1, k2) -> dict[str, int]:
+    return {"blur_flow": k1.launches, "warp_frames": k2.launches,
+            "warp_frames_raw_blend": k2.raw_launches}
+
+
+def cadence_count(port, n_frames: int) -> int:
+    """Outputs the cadence controller gives n_frames source frames at 24 -> 60."""
+    cadence = port.CadenceController(24.0, 60.0)
+    expected = 0
+    for i in range(n_frames):
+        n = cadence.begin_source_frame(i * cadence.source_frame_time)
+        for _ in range(n):
+            cadence.next_output_timing()
+            cadence.advance_blending()
+        expected += n
+    return expected
+
+
+def require_same_stream(outs, plain_outs, what: str) -> None:
+    if len(plain_outs) != len(outs):
+        raise AssertionError(f"{what}: the plain-version stream gave another output count")
+    for i, (k, p) in enumerate(zip(outs, plain_outs)):
+        if (k.start_time, k.end_time, k.interpolated) != (p.start_time, p.end_time, p.interpolated) \
+                or not np.array_equal(k.y, p.y) or not np.array_equal(k.uv, p.uv):
+            raise AssertionError(f"{what}: served output {i} differs from the plain-version stream")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs a CUDA card",
@@ -252,6 +315,41 @@ def main() -> int:
     log(f"phase 4 K2 warp_frames {W}x{H} P010, flow +-64, modes 0/1/2, t (0.4, 0.8) and "
         f"(0.2, 0.6, 1.0): {n_checked} outputs equal to the plain version; max |err| {k2_err}")
 
+    # -- 4b. K2's raw_blend variant against its plain version ------------------
+    t3 = torch.tensor((0.2, 0.6, 1.0), dtype=torch.float32, device=dev)
+    raw_kw = dict(res_scalar=3, mode=2, is_hdr=True, raw_blend=True)
+    ky, kuv = warp_kernel.warp_frames(*src, flow, t3, black, white, **raw_kw)
+    py, puv = warp_kernel.warp_frames_reference(*src, flow, t3, black, white, **raw_kw)
+    raw_err = max(require_equal(ky, py, "K2 raw_blend Y"),
+                  require_equal(kuv, puv, "K2 raw_blend UV"))
+    levelled = warp_kernel.warp_frames(*src, flow, t3, black, white, res_scalar=3, mode=2,
+                                       is_hdr=True)[0]
+    if max_abs_err(levelled, ky) == 0:
+        raise AssertionError("K2 raw_blend equals the levelled mode 2")
+    torch.cuda.synchronize()
+    log(f"phase 4b K2 raw_blend {W}x{H} P010, flow +-64, t (0.2, 0.6, 1.0): Y and UV equal to "
+        f"the plain version; max |err| {raw_err}")
+
+    # -- 4c. the HSV colour on the card against the CPU ------------------------
+    from hopperrender_tpu_torch.ops.warp import _visualize_flow
+    v = torch.arange(-512, 513, dtype=torch.int16)
+    ox, oy = (a.reshape(-1) for a in torch.meshgrid(v, v, indexing="xy"))
+    n_colour = 0
+    for is_hdr in (False, True):
+        curr = torch.tensor(rng.integers(0, 65536 if is_hdr else 256, ox.shape[0]),
+                            dtype=torch.int32)
+        for impact in (1, 4):
+            for channel in (0, 1, 2):
+                chan = torch.full(ox.shape, channel, dtype=torch.int32)
+                cpu = _visualize_flow(ox, oy, curr, chan, impact, is_hdr)
+                gpu = _visualize_flow(ox.to(dev), oy.to(dev), curr.to(dev), chan.to(dev),
+                                      impact, is_hdr)
+                require_equal(gpu.cpu(), cpu, f"HSV colour hdr {is_hdr} res_impact {impact} "
+                                              f"channel {channel}")
+                n_colour += cpu.numel()
+    log(f"phase 4c HSV colour: {n_colour} values (every (ox, oy) in +-512, SDR and HDR, "
+        f"res_impact 1 and 4, channels 0/1/2) equal on the card and the CPU")
+
     # -- 5. served slice ----------------------------------------------------------
     settings = dict(target_fps=60.0, use_display_fps=False, frame_output=2, black_level=16,
                     white_level=235, auto_quality=False)
@@ -286,27 +384,20 @@ def main() -> int:
         return outs, wall_s, flow_s, warp_s, copy_s
 
     torch.cuda.reset_peak_memory_stats(dev)
-    k1.launches = k2.launches = 0
+    reset_launches(k1, k2)
     srv = new_server()
     outs, wall_s, flow_s, warp_s, copy_s = serve(srv, frames[:10])
     torch.cuda.synchronize()
-    launches = {"blur_flow": k1.launches, "warp_frames": k2.launches}
+    launches = read_launches(k1, k2)
     peak_bytes = torch.cuda.max_memory_allocated(dev)
 
-    cadence = port.CadenceController(24.0, 60.0)
-    expected = 0
-    for i in range(10):
-        n = cadence.begin_source_frame(i * cadence.source_frame_time)
-        for _ in range(n):
-            cadence.next_output_timing()
-            cadence.advance_blending()
-        expected += n
+    expected = cadence_count(port, 10)
     n_interp = sum(o.interpolated for o in outs)
     if len(outs) != expected:
         raise AssertionError(f"served {len(outs)} outputs, the cadence gives {expected}")
     if n_interp == 0:
         raise AssertionError("no interpolated output")
-    if min(launches.values()) == 0:
+    if min(launches["blur_flow"], launches["warp_frames"]) == 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     for o in outs:
         if o.y.shape != (H, W) or o.uv.shape != (H // 2, W) or o.y.dtype != np.uint16:
@@ -316,17 +407,11 @@ def main() -> int:
 
     with plain_versions(port):
         plain_outs = serve(new_server(), frames[:10])[0]
-    if (k1.launches, k2.launches) != (launches["blur_flow"], launches["warp_frames"]):
+    if read_launches(k1, k2) != launches:
         raise AssertionError("the plain-version stream launched a kernel")
-    if len(plain_outs) != len(outs):
-        raise AssertionError("the plain-version stream gave another output count")
-    for i, (k, p) in enumerate(zip(outs, plain_outs)):
-        if (k.start_time, k.end_time, k.interpolated) != (p.start_time, p.end_time, p.interpolated) \
-                or not np.array_equal(k.y, p.y) or not np.array_equal(k.uv, p.uv):
-            raise AssertionError(f"served output {i} differs from the plain-version stream")
+    require_same_stream(outs, plain_outs, "mode 2")
 
-    fixtures = [os.path.join(ROOT, "tests", "fixtures", f"golden_{n}.npz")
-                for n in ("480p-sdr", "4k-sdr", "4k-hdr")]
+    fixtures = [os.path.join(ROOT, "tests", "fixtures", f"golden_{n}.npz") for n in FIXTURES]
     missing = [p for p in fixtures if not os.path.exists(p)]
     if missing:
         raise FileNotFoundError(f"golden fixtures missing: {missing}")
@@ -337,14 +422,51 @@ def main() -> int:
         f"plain-version stream; golden {', '.join(os.path.basename(p) for p in fixtures)} "
         f"replayed byte for byte")
 
+    # -- 5b / 5c. served visualisation modes --------------------------------------
+    # The kernels each mode's path runs (mode 4 needs the flow only).
+    path_kernels = {3: ("blur_flow", "warp_frames_raw_blend"), 4: ("blur_flow",),
+                    5: ("blur_flow", "warp_frames"), 6: ("blur_flow", "warp_frames")}
+    viz_warp_ms, viz_launches = {}, {}
+    for mode, n_frames in ((3, 10), (4, 6), (5, 6), (6, 6)):
+        viz_settings = port.Settings(**{**settings, "frame_output": mode})
+
+        def viz_server(st=viz_settings):
+            return port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev, settings=st)
+
+        reset_launches(k1, k2)
+        vouts, _, _, vwarp_s, _ = serve(viz_server(), frames[:n_frames])
+        torch.cuda.synchronize()
+        got = read_launches(k1, k2)
+        viz_launches[mode] = got
+        missing = [k for k in path_kernels[mode] if got[k] == 0]
+        if missing:
+            raise AssertionError(f"mode {mode}: kernels of the path never launched: {missing} "
+                                 f"({got})")
+        expected = cadence_count(port, n_frames)
+        if len(vouts) != expected or not any(o.interpolated for o in vouts):
+            raise AssertionError(f"mode {mode}: {len(vouts)} outputs (cadence {expected}), "
+                                 f"{sum(o.interpolated for o in vouts)} interpolated")
+        with plain_versions(port):
+            plain_vouts = serve(viz_server(), frames[:n_frames])[0]
+        if read_launches(k1, k2) != got:
+            raise AssertionError(f"mode {mode}: the plain-version stream launched a kernel")
+        require_same_stream(vouts, plain_vouts, f"mode {mode}")
+        viz_warp_ms[mode] = 1e3 * statistics.median(vwarp_s)
+        log(f"phase 5{'b' if mode == 3 else 'c'} served mode {mode} {W}x{H} HDR 24->60 r16: "
+            f"{len(vouts)} outputs (cadence {expected}), "
+            f"{sum(o.interpolated for o in vouts)} interpolated, launches {got}, all equal "
+            f"to the plain-version stream")
+
     # -- 6. numbers ------------------------------------------------------------------
     k1_ms, k1_plain_ms = time_pair(lambda: k1(offsets),
                                    lambda: blur_kernel.blur_flow_reference(offsets), 200, 50)
-    t3 = torch.tensor((0.2, 0.6, 1.0), dtype=torch.float32, device=dev)
     kw = dict(res_scalar=3, mode=2, is_hdr=True)
     k2_ms, k2_plain_ms = time_pair(
         lambda: k2(*src, flow, t3, black, white, **kw),
         lambda: warp_kernel.warp_frames_reference(*src, flow, t3, black, white, **kw), 50, 3)
+    raw_ms, raw_plain_ms = time_pair(
+        lambda: k2(*src, flow, t3, black, white, **raw_kw),
+        lambda: warp_kernel.warp_frames_reference(*src, flow, t3, black, white, **raw_kw), 50, 3)
 
     # The served stream goes on for N_PROFILED more frames under torch.profiler.
     from torch.profiler import ProfilerActivity, profile
@@ -369,7 +491,22 @@ def main() -> int:
         f"under the profiler, device busy {1e3 * per_frame(busy_s):.3f} ms/source frame, idle "
         f"{100 * (1 - busy_s / prof_wall):.1f}%, {per_frame(n_events):.0f} device "
         f"events/source frame; device ms/source frame by kind: {by_kind}")
+    log(f"phase 6 numbers [{card}]: K2 raw_blend {raw_ms:.4f} ms vs plain {raw_plain_ms:.4f} ms "
+        f"per T=3 call at {W}x{H} HDR; warp ms/output (median, CUDA events, one warp per "
+        f"output) " + ", ".join(f"mode {m} {t:.3f}" for m, t in viz_warp_ms.items()))
 
+    # Bounds from this run's inputs: K1 reads and writes one (2, 270, 480) int16
+    # flow; K2 reads both source frames and the flow once and writes T outputs.
+    k2_out = 3 * nbytes(src[0], src[1])
+    k2_bytes = nbytes(*src, flow, t3) + k2_out
+    k2_elems = 3 * (src[0].numel() + src[1].numel())
+    bounds = {"blur_flow": bound("blur_flow", 2 * nbytes(offsets), offsets.numel()),
+              "warp_frames": bound("warp_frames", k2_bytes, k2_elems),
+              "warp_frames_raw_blend": bound("warp_frames_raw_blend", k2_bytes, k2_elems)}
+
+    # library_ms is null: no single PyTorch call computes either function
+    # (grid_sample has neither the clamped remapping mirror nor C rounding;
+    # avg_pool2d neither the symmetric mirror nor the truncating division).
     kernels = [
         {"name": "blur_flow", "route": "cuda",
          "source": "hopperrender_tpu_torch/csrc/blur_flow.cu",
@@ -381,11 +518,20 @@ def main() -> int:
          "replaces": "hopperrender_tpu/ops/warp_band.py:695",
          "launches": launches["warp_frames"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "warp_frames_raw_blend", "route": "cuda",
+         "source": "hopperrender_tpu_torch/csrc/warp_frame.cu",
+         "replaces": "hopperrender_tpu/ops/warp_band.py:695 (variant raw_blend)",
+         "launches": viz_launches[3]["warp_frames_raw_blend"], "max_abs_err": raw_err,
+         "ms": raw_ms, "plain_ms": raw_plain_ms},
     ]
+    for k in kernels:
+        k["bound_ms"], k["bound_by"] = bounds[k["name"]]
+        k["library_ms"] = None
     log(json.dumps({"kernels": kernels}))
     log(card)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was loaded")
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "hopperrender_tpu")]
+    if loaded:
+        raise AssertionError(f"the JAX package or jax was loaded: {sorted(loaded)[:5]}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-On first use, nvcc compiles every `csrc/*.cu` into ONE shared library with a
+On first use, nvcc compiles every `csrc/*.cu` (one nvcc process per source,
+all started together) and links the objects into ONE shared library with a
 plain C interface, under `build/hopperrender_tpu_torch/` beside the package,
 and ctypes loads it. The library's name carries a hash of the sources and the
 flags, so editing a source triggers a rebuild and an unchanged tree reuses the
@@ -26,8 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "hopperrender_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes. Pointers and the stream are c_void_p: left
@@ -36,9 +37,10 @@ SIGNATURES = {
     # (in, out, low_h, low_w, stream)
     "hrt_blur_flow": (_P, _P, _I, _I, _P),
     # (src12_y, src12_uv, src21_y, src21_uv, flow, ts, n_t, out_y, out_uv,
-    #  dim_y, dim_x, low_h, low_w, res_scalar, mode, is_hdr, black, white, stream)
+    #  dim_y, dim_x, low_h, low_w, res_scalar, mode, raw_blend, is_hdr, black, white,
+    #  stream)
     "hrt_warp_frames": (_P, _P, _P, _P, _P, _P, _I, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 
@@ -74,23 +76,44 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libhrt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_nvcc(cmds: list[list[str]]) -> str:
+    """Run the nvcc commands side by side; their joined output, or raise."""
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for cmd in cmds]
+    except FileNotFoundError as exc:
+        raise RuntimeError(f"nvcc not found ({cmds[0][0]}): the CUDA toolkit is "
+                           "needed to build the kernels") from exc
+    log, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        log.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(log)
+
+
 def _compile(so: Path) -> tuple[float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    tag = f"{so.stem}.{os.getpid()}"
+    tmp = so.with_name(f".{tag}.tmp")
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [so.with_name(f".{tag}.{src.stem}.o") for src in srcs]
     start = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as exc:
-        raise RuntimeError(f"nvcc not found ({cmd[0]}): the CUDA toolkit is "
-                           "needed to build the kernels") from exc
-    if proc.returncode != 0:
+        log = _run_nvcc([[nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                          str(src)] for src, obj in zip(srcs, objs)])
+        log += _run_nvcc([[nvcc_path(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *(str(o) for o in objs)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
     so.with_suffix(".log").write_text(log)
     os.replace(tmp, so)   # atomic: a concurrent loader never sees half a file
     return seconds, log

@@ -13,7 +13,11 @@
 //     y offsets halved on UV, each through the remapping mirror clamped to
 //     [1, dim - 2]; UV keeps the output's chroma parity: (new_cx & ~1) + (cx & 1);
 //   * mode 0 takes the 1->2 sample, mode 1 the 2->1 sample, mode 2 blends
-//     trunc(v12 * (1 - t) + v21 * t) and applies the black/white levels.
+//     trunc(v12 * (1 - t) + v21 * t) and applies the black/white levels;
+//   * kRaw (mode 2 only) stores the blend without levels: the TPU kernel's
+//     raw_blend variant (warp_band.py, "Mode-3 feeder"), which the HSV
+//     overlay of mode 3 colours. Identity levels would not give the blend
+//     back: the level arithmetic is not exact in float32.
 //
 // Float rules. The JAX package is the reference, so every float operation is
 // pinned to the rounding the JAX package's compiled code performs:
@@ -27,8 +31,9 @@
 //   * __fdiv_rn (IEEE division) in the levels; float -> int truncates.
 //
 // What bounds it on an H100: device-memory bytes. Each output element reads
-// one (modes 0/1) or two (mode 2) source samples and writes one; at 4K HDR that
-// is about 75 MB per mode-2 output, some 22 us at 3.35 TB/s. The flow planes
+// one (modes 0/1) or two (mode 2, raw or not) source samples and writes one. At
+// 4K HDR a T=3 call must read both sources once (49.8 MB) and write 74.6 MB:
+// some 37 us at 3.35 TB/s. The flow planes
 // (518 KB) stay in L2. The TPU kernel's machinery (u32 lane packing, band DMAs
 // with aprons, select chains, padded warp contexts built per source frame)
 // existed because the TPU has no fast per-lane gather; Hopper gathers
@@ -59,7 +64,7 @@ __device__ __forceinline__ int round_c(float x) {
                                     : ceilf(__fsub_rn(x, 0.5f)));
 }
 
-template <typename T, int kMode, bool kUV>
+template <typename T, int kMode, bool kUV, bool kRaw>
 __global__ void __launch_bounds__(256) warp_plane_kernel(
     const T* __restrict__ src12, const T* __restrict__ src21,
     const int16_t* __restrict__ flow, const float* __restrict__ ts,
@@ -114,19 +119,23 @@ __global__ void __launch_bounds__(256) warp_plane_kernel(
   } else {
     const float blended = truncf(__fmaf_rn(static_cast<float>(v12), fs21,
                                            __fmul_rn(static_cast<float>(v21), fs12)));
-    float v;
-    if (kUV) {  // ops/warp.py::_apply_levels_uv: fma((v - mid) / white, peak, mid)
-      v = __fmaf_rn(__fdiv_rn(__fsub_rn(blended, mid), white), peak, mid);
-    } else {    // ops/warp.py::_apply_levels_y: (v - black) / (white - black) * peak
-      v = __fmul_rn(__fdiv_rn(__fsub_rn(blended, black), __fsub_rn(white, black)), peak);
+    if (kRaw) {
+      res = static_cast<int>(blended);  // in [0, peak]: a blend of two samples
+    } else {
+      float v;
+      if (kUV) {  // ops/warp.py::_apply_levels_uv: fma((v - mid) / white, peak, mid)
+        v = __fmaf_rn(__fdiv_rn(__fsub_rn(blended, mid), white), peak, mid);
+      } else {    // ops/warp.py::_apply_levels_y: (v - black) / (white - black) * peak
+        v = __fmul_rn(__fdiv_rn(__fsub_rn(blended, black), __fsub_rn(white, black)), peak);
+      }
+      res = static_cast<int>(fminf(fmaxf(v, 0.0f), peak));  // clip, then truncate
     }
-    res = static_cast<int>(fminf(fmaxf(v, 0.0f), peak));  // clip, then truncate
   }
   out[static_cast<size_t>(blockIdx.z) * plane_h * dim_x + static_cast<size_t>(cy) * dim_x + cx] =
       static_cast<T>(res);
 }
 
-template <typename T, int kMode>
+template <typename T, int kMode, bool kRaw>
 cudaError_t launch_mode(const void* s12y, const void* s12uv, const void* s21y,
                         const void* s21uv, const int16_t* flow, const float* ts,
                         int n_t, void* out_y, void* out_uv, int dim_y, int dim_x,
@@ -134,36 +143,45 @@ cudaError_t launch_mode(const void* s12y, const void* s12uv, const void* s21y,
                         float peak, float mid, cudaStream_t stream) {
   const dim3 block(32, 8);
   const dim3 grid_y((dim_x + block.x - 1) / block.x, (dim_y + block.y - 1) / block.y, n_t);
-  warp_plane_kernel<T, kMode, false><<<grid_y, block, 0, stream>>>(
+  warp_plane_kernel<T, kMode, false, kRaw><<<grid_y, block, 0, stream>>>(
       static_cast<const T*>(s12y), static_cast<const T*>(s21y), flow, ts,
       static_cast<T*>(out_y), dim_y, dim_x, low_h, low_w, rs, black, white, peak, mid);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int uv_h = dim_y / 2;
   const dim3 grid_uv((dim_x + block.x - 1) / block.x, (uv_h + block.y - 1) / block.y, n_t);
-  warp_plane_kernel<T, kMode, true><<<grid_uv, block, 0, stream>>>(
+  warp_plane_kernel<T, kMode, true, kRaw><<<grid_uv, block, 0, stream>>>(
       static_cast<const T*>(s12uv), static_cast<const T*>(s21uv), flow, ts,
       static_cast<T*>(out_uv), uv_h, dim_x, low_h, low_w, rs, black, white, peak, mid);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_type(int mode, const void* s12y, const void* s12uv,
+cudaError_t launch_type(int mode, bool raw, const void* s12y, const void* s12uv,
                         const void* s21y, const void* s21uv, const int16_t* flow,
                         const float* ts, int n_t, void* out_y, void* out_uv,
                         int dim_y, int dim_x, int low_h, int low_w, int rs,
                         float black, float white, float peak, float mid,
                         cudaStream_t stream) {
+  if (raw) {  // the raw_blend variant exists for mode 2 only
+    if (mode != 2) return cudaErrorInvalidValue;
+    return launch_mode<T, 2, true>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y, out_uv,
+                                   dim_y, dim_x, low_h, low_w, rs, black, white, peak, mid,
+                                   stream);
+  }
   switch (mode) {
     case 0:
-      return launch_mode<T, 0>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y, out_uv,
-                               dim_y, dim_x, low_h, low_w, rs, black, white, peak, mid, stream);
+      return launch_mode<T, 0, false>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y,
+                                      out_uv, dim_y, dim_x, low_h, low_w, rs, black, white,
+                                      peak, mid, stream);
     case 1:
-      return launch_mode<T, 1>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y, out_uv,
-                               dim_y, dim_x, low_h, low_w, rs, black, white, peak, mid, stream);
+      return launch_mode<T, 1, false>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y,
+                                      out_uv, dim_y, dim_x, low_h, low_w, rs, black, white,
+                                      peak, mid, stream);
     case 2:
-      return launch_mode<T, 2>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y, out_uv,
-                               dim_y, dim_x, low_h, low_w, rs, black, white, peak, mid, stream);
+      return launch_mode<T, 2, false>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y,
+                                      out_uv, dim_y, dim_x, low_h, low_w, rs, black, white,
+                                      peak, mid, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -175,20 +193,23 @@ cudaError_t launch_type(int mode, const void* s12y, const void* s12uv,
 // uint16 (HDR); flow: (2, low_h, low_w) int16; ts: (n_t,) float32; outputs
 // (n_t, dim_y, dim_x) and (n_t, dim_y/2, dim_x). All contiguous, on the current
 // device. black/white are the levels in sample units (HDR pre-scaled x256).
+// raw_blend != 0 (mode 2 only) stores the blend without levels.
 extern "C" int hrt_warp_frames(const void* src12_y, const void* src12_uv,
                                const void* src21_y, const void* src21_uv,
                                const void* flow, const void* ts, int n_t,
                                void* out_y, void* out_uv, int dim_y, int dim_x,
                                int low_h, int low_w, int res_scalar, int mode,
-                               int is_hdr, float black, float white, void* stream) {
+                               int raw_blend, int is_hdr, float black, float white,
+                               void* stream) {
   const auto* f = static_cast<const int16_t*>(flow);
   const auto* t = static_cast<const float*>(ts);
   const auto s = static_cast<cudaStream_t>(stream);
+  const bool raw = raw_blend != 0;
   const cudaError_t err =
-      is_hdr ? launch_type<uint16_t>(mode, src12_y, src12_uv, src21_y, src21_uv, f, t, n_t,
+      is_hdr ? launch_type<uint16_t>(mode, raw, src12_y, src12_uv, src21_y, src21_uv, f, t, n_t,
                                      out_y, out_uv, dim_y, dim_x, low_h, low_w, res_scalar,
                                      black, white, 65535.0f, 32768.0f, s)
-             : launch_type<uint8_t>(mode, src12_y, src12_uv, src21_y, src21_uv, f, t, n_t,
+             : launch_type<uint8_t>(mode, raw, src12_y, src12_uv, src21_y, src21_uv, f, t, n_t,
                                     out_y, out_uv, dim_y, dim_x, low_h, low_w, res_scalar,
                                     black, white, 255.0f, 128.0f, s);
   return static_cast<int>(err);

@@ -14,7 +14,9 @@ calls:
     and feed 240-frame avg/peak windows (ref: opticalFlowCalcSDR.cpp:118-138).
 
 The flow blur is kernel K1 and every warp of modes 0/1/2 is kernel K2 (one
-launch for all T outputs of a source interval). The JAX engine's strip and
+launch for all T outputs of a source interval). The visualisation modes are
+composed from them (ops/warp_viz.py): mode 3 colours K2's raw_blend variant,
+modes 5/6 rearrange K2's mode-2 output, mode 4 needs the flow only. The JAX engine's strip and
 band machinery (contexts, tier plans, apron tiers, chain bounds) exists
 because a TPU has no fast per-lane gather; Hopper gathers natively, so none of
 it is carried over.
@@ -27,10 +29,11 @@ import time
 import numpy as np
 import torch
 
-from hopperrender_tpu import config
+from hopperrender_tpu_torch import config
 from hopperrender_tpu_torch.ops import warp_kernel
 from hopperrender_tpu_torch.ops import flow as flow_ops
 from hopperrender_tpu_torch.ops import warp as warp_ops
+from hopperrender_tpu_torch.ops import warp_viz
 
 RADIUS_BUCKETS = (5, 8, 12, flow_ops.MAX_R)
 
@@ -218,15 +221,35 @@ class OpticalFlowEngine:
         return self.black_level, self.white_level
 
     def _warp(self, scalars: list[float], mode: int):
-        """K2 over slots 0, 1 with the previous pair's flow: (T, H, W), (T, H/2, W)."""
+        """The warp of slots 0, 1 with the previous pair's flow, one output per
+        blending scalar: (T, H, W), (T, H/2, W). Modes 0/1/2 are K2; the
+        visualisation modes are composed as the JAX engine composes them
+        (hopperrender_tpu/engine/flow_engine.py::_run_warp)."""
         if any(s > 1.0 for s in scalars):
             raise ValueError("Blending scalar is greater than 1.0")
+        mode = int(mode)
+        if mode not in warp_ops.WARP_MODES:
+            raise ValueError(f"output mode {mode} is not one of {warp_ops.WARP_MODES}")
         black, white = self._levels()
         ts = torch.tensor(scalars, dtype=torch.float32, device=self.device)
-        return warp_kernel.warp_frames(
-            self._frames_y[0], self._frames_uv[0], self._frames_y[1], self._frames_uv[1],
-            self._blurred[0], ts, black, white,
-            res_scalar=self.res_scalar, mode=int(mode), is_hdr=self.is_hdr)
+        flow = self._blurred[0]
+        kw = dict(res_scalar=self.res_scalar, is_hdr=self.is_hdr)
+        if mode == 4:   # grey flow: no source sample
+            y, uv = warp_viz.grey_flow_frame(flow, dim_y=self.h, dim_x=self.w, **kw)
+            return y.expand(len(scalars), -1, -1), uv.expand(len(scalars), -1, -1)
+        srcs = (self._frames_y[0], self._frames_uv[0], self._frames_y[1], self._frames_uv[1])
+        if mode == 3:   # HSV flow over K2's raw mode-2 blend
+            raw_y, raw_uv = warp_kernel.warp_frames(*srcs, flow, ts, black, white, mode=2,
+                                                    raw_blend=True, **kw)
+            return warp_viz.hsv_flow_overlay(raw_y, raw_uv, flow, black, white, **kw)
+        y, uv = warp_kernel.warp_frames(*srcs, flow, ts, black, white,
+                                        mode=2 if mode in (5, 6) else mode, **kw)
+        if mode == 5:
+            return warp_viz.side_by_side_1(srcs[0], srcs[1], y, uv)
+        if mode == 6:
+            return warp_viz.side_by_side_2(srcs[0], srcs[1], srcs[3], y, uv, flow, ts, white,
+                                           **kw)
+        return y, uv
 
     def warp_frames(self, blending_scalar: float, frame_output_mode: int):
         """One output: warp slots 0, 1 with the previous pair's flow
@@ -238,8 +261,8 @@ class OpticalFlowEngine:
 
     def warp_frames_batch(self, blending_scalars, frame_output_mode: int):
         """All of one source interval's outputs in ONE K2 launch (a (T,)
-        blending-scalar vector). Outputs equal T warp_frames calls. Returns a
-        list of device (y, uv) pairs."""
+        blending-scalar vector), any mode. Outputs equal T warp_frames calls.
+        Returns a list of device (y, uv) pairs."""
         scalars = [float(s) for s in blending_scalars]
         if not scalars:
             return []

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from hopperrender_tpu import config
+from hopperrender_tpu_torch import config
 from hopperrender_tpu_torch.ops import blur_kernel
 from hopperrender_tpu_torch.ops.warp import to_int32
 

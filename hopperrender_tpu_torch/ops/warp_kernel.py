@@ -1,10 +1,14 @@
-"""K2: the batched warp (modes 0/1/2) — wrapper of csrc/warp_frame.cu and its
-plain version.
+"""K2: the batched warp (modes 0/1/2, and mode 2's raw_blend variant) —
+wrapper of csrc/warp_frame.cu and its plain version.
 
 Replaces hopperrender_tpu/ops/warp_band.py::warp_frame_band (the TPU kernel)
 with a (T,) blending-scalar vector: all T outputs of a source interval come
-from one call. `warp_frames` launches the CUDA kernel for CUDA tensors and
-takes the plain PyTorch version `warp_frames_reference` only for CPU tensors.
+from one call. raw_blend=True is that kernel's raw_blend variant: mode 2's
+blend stored without levels, which mode 3 colours (ops/warp_viz.py).
+`warp_frames` launches the CUDA kernel for CUDA tensors and takes the plain
+PyTorch version `warp_frames_reference` only for CPU tensors. Its counters:
+`warp_frames.launches` (modes 0/1/2) and `warp_frames.raw_launches` (the
+raw_blend variant).
 """
 
 from __future__ import annotations
@@ -14,12 +18,16 @@ import torch
 from hopperrender_tpu_torch import _build
 from hopperrender_tpu_torch.ops import warp as warp_ops
 
+KERNEL_MODES = (0, 1, 2)
+
 
 def warp_frames_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
                           black_level: float, white_level: float, *,
-                          res_scalar: int, mode: int, is_hdr: bool):
+                          res_scalar: int, mode: int, is_hdr: bool,
+                          raw_blend: bool = False):
     """Plain PyTorch version of K2: ops/warp.warp_frame for each t of the (T,)
     float32 vector ts, stacked to (T, H, W) / (T, H/2, W)."""
+    _check_mode(mode, raw_blend)
     dim_y, dim_x = src12_y.shape
     out_y = torch.empty((len(ts), dim_y, dim_x), dtype=src12_y.dtype, device=flow.device)
     out_uv = torch.empty((len(ts), dim_y // 2, dim_x), dtype=src12_y.dtype, device=flow.device)
@@ -27,13 +35,20 @@ def warp_frames_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
         # Same-dtype copies: on CUDA, a memcpy for uint16 too.
         out_y[i], out_uv[i] = warp_ops.warp_frame(
             src12_y, src12_uv, src21_y, src21_uv, flow, t, black_level, white_level,
-            res_scalar=res_scalar, mode=mode, is_hdr=is_hdr)
+            res_scalar=res_scalar, mode=mode, is_hdr=is_hdr, raw_blend=raw_blend)
     return out_y, out_uv
 
 
-def _check(src12_y, src12_uv, src21_y, src21_uv, flow, ts, *, mode, is_hdr):
-    if mode not in warp_ops.WARP_MODES:
-        raise NotImplementedError(f"output mode {mode} is not ported yet")
+def _check_mode(mode, raw_blend):
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"K2 computes modes {KERNEL_MODES}, not {mode} (modes 3-6 are "
+                         "composed from its outputs: ops/warp_viz.py)")
+    if raw_blend and mode != 2:
+        raise ValueError("raw_blend is a variant of mode 2")
+
+
+def _check(src12_y, src12_uv, src21_y, src21_uv, flow, ts, *, mode, is_hdr, raw_blend):
+    _check_mode(mode, raw_blend)
     dtype = torch.uint16 if is_hdr else torch.uint8
     dim_y, dim_x = src12_y.shape
     if dim_y % 2 or dim_x % 2:
@@ -59,18 +74,18 @@ def _check(src12_y, src12_uv, src21_y, src21_uv, flow, ts, *, mode, is_hdr):
 
 def warp_frames(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
                 black_level: float, white_level: float, *,
-                res_scalar: int, mode: int, is_hdr: bool):
+                res_scalar: int, mode: int, is_hdr: bool, raw_blend: bool = False):
     """K2 wrapper: (T,) blending scalars -> ((T, H, W), (T, H/2, W)) outputs,
     bit-identical to warp_frames_reference. Sources are uint8 (SDR) or uint16
     (HDR); flow is (2, low_h, low_w) int16; levels are in sample units (HDR
     pre-scaled x256). Launches the CUDA kernel for CUDA tensors (on the
     current stream, no synchronisation); CPU tensors take the plain version."""
     tensors = _check(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
-                     mode=mode, is_hdr=is_hdr)
+                     mode=mode, is_hdr=is_hdr, raw_blend=raw_blend)
     if flow.device.type == "cpu":
         return warp_frames_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
                                      black_level, white_level, res_scalar=res_scalar,
-                                     mode=mode, is_hdr=is_hdr)
+                                     mode=mode, is_hdr=is_hdr, raw_blend=raw_blend)
     if flow.device.type != "cuda":
         raise ValueError(f"warp_frames: unsupported device {flow.device}")
     if not all(t.is_contiguous() for t in tensors):
@@ -86,11 +101,15 @@ def warp_frames(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
             src12_y.data_ptr(), src12_uv.data_ptr(), src21_y.data_ptr(),
             src21_uv.data_ptr(), flow.data_ptr(), ts.data_ptr(), n_t,
             out_y.data_ptr(), out_uv.data_ptr(), dim_y, dim_x,
-            flow.shape[1], flow.shape[2], res_scalar, mode, int(is_hdr),
+            flow.shape[1], flow.shape[2], res_scalar, mode, int(raw_blend), int(is_hdr),
             float(black_level), float(white_level), stream)
     _build.check(code, "warp_frames")
-    warp_frames.launches += 1
+    if raw_blend:
+        warp_frames.raw_launches += 1
+    else:
+        warp_frames.launches += 1
     return out_y, out_uv
 
 
 warp_frames.launches = 0
+warp_frames.raw_launches = 0

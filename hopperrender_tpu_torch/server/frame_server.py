@@ -2,9 +2,9 @@
 
 PyTorch port of hopperrender_tpu/server/frame_server.py. The control plane
 (cadence and timestamps, scene gating, auto quality scaler, TooSlow policy,
-side-data passthrough, display-rate polling, NV12/P010 packing) is the JAX
-package's own framework-free code, imported as it is; this module wires it to
-the PyTorch engine.
+side-data passthrough, display-rate polling, NV12/P010 packing) is the port's
+own copy of the JAX package's framework-free code (config.py, server/,
+utils/, vio/); this module wires it to the PyTorch engine.
 
 API:
     server = FrameServer(width, height, source_fps=24.0, settings=Settings(target_fps=60))
@@ -14,10 +14,9 @@ API:
     server.update_settings(target_fps=120)                         # live (iez.h:39-50)
     m = server.metrics()                                           # iez.h:13-37 fields
 
-Output modes 0/1/2 are ported; modes 3-6 raise NotImplementedError.
-
-config, Settings, CadenceController and nv12 are re-exported from here, so a
-caller that drives the server needs no import of the JAX package by name.
+Every output mode 0-6 runs. Modes 0/1/2 warp all of a source interval's
+outputs in one batched K2 launch; the visualisation modes 3-6 warp each
+output on its own, as the JAX server does.
 """
 
 from __future__ import annotations
@@ -27,15 +26,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from hopperrender_tpu import config
-from hopperrender_tpu.config import ActiveState, Settings
-from hopperrender_tpu.server import sidedata as sd
-from hopperrender_tpu.server.control import AutoQualityScaler, CadenceController
-from hopperrender_tpu.server.display import DisplayRatePoller
-from hopperrender_tpu.utils.logging import get_logger
-from hopperrender_tpu.vio import nv12
+from hopperrender_tpu_torch import config
+from hopperrender_tpu_torch.config import ActiveState, Settings
+from hopperrender_tpu_torch.server import sidedata as sd
+from hopperrender_tpu_torch.server.control import AutoQualityScaler, CadenceController
+from hopperrender_tpu_torch.server.display import DisplayRatePoller
+from hopperrender_tpu_torch.utils.logging import get_logger
+from hopperrender_tpu_torch.vio import nv12
 from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
-from hopperrender_tpu_torch.ops.warp import WARP_MODES
+
+BATCHED_MODES = (0, 1, 2)   # the modes whose interval shares one warp launch
 
 log = get_logger("server")
 
@@ -90,12 +90,6 @@ class ServerMetrics:
     batched_warp: bool = False
 
 
-def _check_mode(mode: int) -> None:
-    if mode not in WARP_MODES:
-        raise NotImplementedError(f"output mode {mode} is not ported yet "
-                                  f"(ported: {WARP_MODES})")
-
-
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
@@ -115,7 +109,6 @@ class FrameServer:
         """device: where the engine runs ("cuda" by default; raises without a
         CUDA device)."""
         self.settings = (settings or Settings()).validate()
-        _check_mode(self.settings.frame_output)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("FrameServer: device 'cuda' requested but no CUDA "
@@ -172,7 +165,6 @@ class FrameServer:
         max_calc_res rebuilds the engine lazily on the next frame."""
         old = self.settings
         st = dataclasses.replace(old, **kwargs).validate()
-        _check_mode(st.frame_output)
         self.settings = st
         if "activated" in kwargs:
             self.cadence.set_activated(st.activated)
@@ -279,7 +271,7 @@ class FrameServer:
         warp_idx = [i for i, (_, _, interp) in enumerate(plans) if interp]
         warped: dict[int, tuple] = {}
         batch_per = 0.0
-        if self.batched_warp and len(warp_idx) > 1:
+        if self.batched_warp and mode in BATCHED_MODES and len(warp_idx) > 1:
             pairs = eng.warp_frames_batch([plans[i][0].blending_scalar for i in warp_idx],
                                           mode)
             warped = dict(zip(warp_idx, pairs))

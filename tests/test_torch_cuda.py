@@ -1,6 +1,7 @@
-"""Kernels K1 (flow blur) and K2 (batched warp) against their plain PyTorch
-versions on a CUDA card, exactly, across bit depths, res scalars, modes and
-ragged shapes. Every test skips without a card.
+"""Kernels K1 (flow blur) and K2 (batched warp, and its raw_blend variant)
+against their plain PyTorch versions on a CUDA card, exactly, across bit
+depths, res scalars, modes and ragged shapes; and the HSV colour on the card
+against the CPU. Every test skips without a card.
 
 On the card (whose machine may lack jax, which tests/conftest.py imports):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel
+from hopperrender_tpu_torch.ops import warp as warp_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -59,6 +61,70 @@ def test_warp_kernel_matches_plain(dev, is_hdr, rs):
         ky, kuv = warp_kernel.warp_frames(*srcs, flow, ts, 16 * s, 235 * s, **kw)
         py, puv = warp_kernel.warp_frames_reference(*srcs, flow, ts, 16 * s, 235 * s, **kw)
         assert _same(ky, py) and _same(kuv, puv), f"mode {mode}"
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+@pytest.mark.parametrize("rs", [0, 3])
+def test_warp_kernel_raw_blend_matches_plain(dev, is_hdr, rs):
+    """The raw_blend variant (mode 2's blend, no levels) and its own counter."""
+    rng = np.random.default_rng(20 + rs)
+    h, w = 50, 86
+    srcs = _frame(rng, h, w, is_hdr, dev) + _frame(rng, h, w, is_hdr, dev)
+    low = (2, -(-h // (1 << rs)), -(-w // (1 << rs)))
+    flow = torch.tensor(rng.integers(-70, 71, low).astype(np.int16), device=dev)
+    s = 256.0 if is_hdr else 1.0
+    ts = torch.tensor([0.0, 0.2, 0.6, 1.0, 0.3], dtype=torch.float32, device=dev)
+    kw = dict(res_scalar=rs, mode=2, is_hdr=is_hdr, raw_blend=True)
+    before = warp_kernel.warp_frames.launches, warp_kernel.warp_frames.raw_launches
+    ky, kuv = warp_kernel.warp_frames(*srcs, flow, ts, 16 * s, 235 * s, **kw)
+    assert (warp_kernel.warp_frames.launches, warp_kernel.warp_frames.raw_launches) == \
+        (before[0], before[1] + 1)
+    py, puv = warp_kernel.warp_frames_reference(*srcs, flow, ts, 16 * s, 235 * s, **kw)
+    assert _same(ky, py) and _same(kuv, puv)
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_visualize_flow_cuda_matches_cpu(dev, is_hdr):
+    """The HSV colour's float steps give the same bits on the card as on the
+    CPU (where tests/test_torch_viz.py holds them to jitted JAX)."""
+    v = torch.arange(-512, 513, dtype=torch.int16)
+    ox, oy = (a.reshape(-1) for a in torch.meshgrid(v, v, indexing="xy"))
+    curr = torch.randint(0, 65536 if is_hdr else 256, ox.shape, dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    for impact in (1, 4):
+        for channel in (0, 1, 2):
+            chan = torch.full(ox.shape, channel, dtype=torch.int32)
+            args = (ox, oy, curr, chan)
+            cpu = warp_ops._visualize_flow(*args, impact, is_hdr)
+            gpu = warp_ops._visualize_flow(*(a.to(dev) for a in args), impact, is_hdr)
+            assert torch.equal(gpu.cpu(), cpu), f"res_impact {impact} channel {channel}"
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_engine_viz_modes_match_cpu(dev, is_hdr):
+    """Modes 3-6 through the engine on the card (K1, K2, its raw_blend
+    variant and the compositions of ops/warp_viz.py) equal the same stream
+    on the CPU. 86 wide: an odd half width for mode 6."""
+    from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
+    from hopperrender_tpu_torch.vio import nv12
+    h, w = 50, 86
+    rng = np.random.default_rng(9)
+    frames = [nv12.synthetic_frame(rng, h, w, is_hdr=is_hdr, motion_x=3 * i) for i in range(4)]
+    engines = [OpticalFlowEngine(h, w, is_hdr=is_hdr, black_level=16.0, white_level=235.0,
+                                 device=d) for d in ("cpu", dev)]
+    for eng in engines:
+        eng.search_radius = 8
+        for y, uv in frames:
+            eng.update_frame(y, uv)
+            if eng.frame_count >= 3:
+                eng.calculate_optical_flow()
+    for mode in (3, 4, 5, 6):
+        raw_before = warp_kernel.warp_frames.raw_launches
+        want = engines[0].warp_frames_batch([0.4, 0.8], mode)
+        got = engines[1].warp_frames_batch([0.4, 0.8], mode)
+        assert (warp_kernel.warp_frames.raw_launches > raw_before) == (mode == 3)
+        for (gy, guv), (wy, wuv) in zip(got, want):
+            assert _same(gy.cpu(), wy) and _same(guv.cpu(), wuv), f"mode {mode}"
 
 
 def test_warp_kernel_rejects_bad_input(dev):

@@ -1,6 +1,6 @@
-"""The PyTorch port's engine on the CPU: the mode-0/1/2 golden fixtures replay
-byte for byte, and a stream handed over from the JAX engine (load_state)
-continues with equal flow, scene delta and warped outputs."""
+"""The PyTorch port's engine on the CPU: all five golden fixtures (modes 0-4)
+replay byte for byte, and a stream handed over from the JAX engine
+(load_state) continues with equal flow, scene delta and warped outputs."""
 
 import os
 
@@ -13,8 +13,8 @@ from hopperrender_tpu.vio import nv12
 from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
 
 FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "fixtures")
-# The fixtures whose modes are all ported (0/1/2); 1080p-sdr and live use 3/4.
-PORTED_FIXTURES = ("480p-sdr", "4k-sdr", "4k-hdr")
+# Every fixture: 1080p-sdr holds modes 2 and 3, live mode 4, the rest mode 2.
+PORTED_FIXTURES = ("480p-sdr", "4k-sdr", "4k-hdr", "1080p-sdr", "live")
 
 
 def replay_fixture(path, device="cpu"):
@@ -103,6 +103,7 @@ def test_load_state_continues_jax_stream():
 
 
 def test_batch_equals_single_warps():
+    """Every mode: a batched interval equals one warp per output."""
     rng = np.random.default_rng(3)
     eng = OpticalFlowEngine(32, 48, device="cpu")
     eng.search_radius = 8
@@ -110,11 +111,13 @@ def test_batch_equals_single_warps():
         eng.update_frame(*nv12.synthetic_frame(rng, 32, 48, motion_x=2 * i))
         if eng.frame_count >= 3:
             eng.calculate_optical_flow()
-    batch = eng.warp_frames_batch([0.2, 0.6, 1.0], 2)
-    for t, (by, buv) in zip([0.2, 0.6, 1.0], batch):
-        y, uv = eng.warp_frames(t, 2)
-        assert torch.equal(y, by) and torch.equal(uv, buv)
+    for mode in range(7):
+        batch = eng.warp_frames_batch([0.2, 0.6, 1.0], mode)
+        for t, (by, buv) in zip([0.2, 0.6, 1.0], batch):
+            y, uv = eng.warp_frames(t, mode)
+            assert torch.equal(y, by) and torch.equal(uv, buv), f"mode {mode}"
     with pytest.raises(ValueError):
         eng.warp_frames(1.5, 2)
-    with pytest.raises(NotImplementedError):
-        eng.warp_frames(0.5, 4)
+    for mode in (7, -1):
+        with pytest.raises(ValueError, match="mode"):
+            eng.warp_frames(0.5, mode)

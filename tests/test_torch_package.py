@@ -24,30 +24,63 @@ def _env(**extra):
     return env
 
 
+def _port_modules():
+    """Every module of the port, as a dotted name."""
+    pkg = os.path.join(ROOT, "hopperrender_tpu_torch")
+    mods = []
+    for dirpath, _, files in os.walk(pkg):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    return sorted(mods)
+
+
 def test_port_never_imports_jax():
-    code = ("import sys\n"
-            "import hopperrender_tpu_torch, hopperrender_tpu_torch._build\n"
-            "import hopperrender_tpu_torch.engine.flow_engine\n"
-            "import hopperrender_tpu_torch.server.frame_server\n"
+    """Every port module and chip_smoke, imported with JAX_PLATFORMS set
+    (which makes hopperrender_tpu/__init__.py import jax), leave neither jax
+    nor anything of the JAX package in sys.modules."""
+    mods = _port_modules()
+    assert "hopperrender_tpu_torch.server.control" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
             "import chip_smoke\n"
             "port = chip_smoke.import_port()\n"
             "assert port.FrameServer and port.Settings and port.CadenceController\n"
             "assert port.nv12.synthetic_frame and port.config.MAX_SEARCH_RADIUS\n"
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'hopperrender_tpu' or m.startswith('hopperrender_tpu.'))\n"
+            "assert not bad, bad\n"
             "print('ok')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_env(JAX_PLATFORMS="cpu"), capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
 
-def test_chip_smoke_imports_nothing_of_the_jax_package():
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+def _imported_names(path):
+    """The modules of jax or of the JAX package that a file imports."""
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
-    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "hopperrender_tpu")]
-    assert not bad, bad
+    return [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "hopperrender_tpu")]
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    assert not _imported_names(os.path.join(ROOT, "chip_smoke.py"))
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        assert "JAX_PLATFORMS" not in f.read()
+
+
+def test_port_files_import_nothing_of_the_jax_package():
+    paths = []
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "hopperrender_tpu_torch")):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 15
+    assert {p: _imported_names(p) for p in paths if _imported_names(p)} == {}
 
 
 def test_plain_versions_swaps_the_wrappers_and_restores_them():

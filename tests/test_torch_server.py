@@ -1,6 +1,6 @@
 """The PyTorch port's FrameServer on the CPU: the four pinned-digest streams
-of tests/fixtures/digests.json, and a 24->60 mode-2 stream against the JAX
-FrameServer (outputs, timestamps, interpolated flags)."""
+of tests/fixtures/digests.json, and 24->60 streams of every output mode 2-6
+against the JAX FrameServer (outputs, timestamps, interpolated flags)."""
 
 import hashlib
 import json
@@ -83,9 +83,44 @@ def test_mode2_stream_matches_jax_server(batched):
     assert tsrv.metrics().low_dim_x == jsrv.metrics().low_dim_x
 
 
+@pytest.mark.parametrize("mode", [3, 4, 5, 6])
+def test_viz_mode_stream_matches_jax_server(mode):
+    """24->60 in a visualisation mode, one warp per output (as the JAX server
+    dispatches modes 3-6), against the JAX FrameServer. 50x86 gives an odd
+    half width (43) for mode 6; mode 3 runs HDR."""
+    is_hdr = mode == 3
+    h, w = 50, 86
+    settings = dict(target_fps=60.0, use_display_fps=False, frame_output=mode,
+                    auto_quality=False, black_level=16, white_level=235)
+    jsrv = JaxFrameServer(w, h, source_fps=24.0, is_hdr=is_hdr, settings=Settings(**settings))
+    tsrv = FrameServer(w, h, source_fps=24.0, is_hdr=is_hdr, device="cpu",
+                       settings=Settings(**settings))
+    rng = np.random.default_rng(70 + mode)
+    n_interp = 0
+    for i in range(6):
+        y, uv = nv12.synthetic_frame(rng, h, w, is_hdr=is_hdr, motion_x=4 * i)
+        want = jsrv.push_frame(y, uv)
+        got = tsrv.push_frame(y, uv)
+        assert len(got) == len(want)
+        for g, j in zip(got, want):
+            assert (g.start_time, g.end_time, g.interpolated, g.scene_change) == \
+                (j.start_time, j.end_time, j.interpolated, j.scene_change)
+            np.testing.assert_array_equal(g.y, np.asarray(j.y))
+            np.testing.assert_array_equal(g.uv, np.asarray(j.uv))
+            n_interp += g.interpolated
+    assert n_interp > 0
+    assert tsrv.metrics().low_dim_y == jsrv.metrics().low_dim_y == 50
+
+
 def test_server_refuses_unported_modes():
-    with pytest.raises(NotImplementedError):
-        FrameServer(64, 48, device="cpu", settings=Settings(frame_output=3))
+    """Only the output modes 0-6 exist: 7 and -1 are refused at construction
+    and in a live settings update."""
+    for mode in (7, -1):
+        with pytest.raises(ValueError, match="frame_output"):
+            FrameServer(64, 48, device="cpu", settings=Settings(frame_output=mode))
     srv = FrameServer(64, 48, device="cpu", settings=Settings(use_display_fps=False))
-    with pytest.raises(NotImplementedError):
-        srv.update_settings(frame_output=6)
+    for mode in (7, -1):
+        with pytest.raises(ValueError, match="frame_output"):
+            srv.update_settings(frame_output=mode)
+    srv.update_settings(frame_output=6)
+    assert srv.metrics().frame_output == 6

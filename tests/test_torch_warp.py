@@ -1,5 +1,6 @@
-"""The PyTorch port's warp (plain version of kernel K2) against the JAX package:
-the Pallas band kernel in interpret mode, the reference-formulation warp
+"""The PyTorch port's warp (plain version of kernel K2, its raw_blend variant,
+and the visualisation modes 3-6) against the JAX package: the Pallas band
+kernel in interpret mode, the reference-formulation warp
 (hopperrender_tpu.ops.warp), and the passthrough copy. Every comparison is
 exact (bit for bit)."""
 
@@ -56,6 +57,66 @@ def test_matches_band_kernel_interpret(rng, rs, is_hdr, mode, ts):
         black, white, res_scalar=rs, mode=mode, is_hdr=is_hdr)
     np.testing.assert_array_equal(yt.numpy(), yb)
     np.testing.assert_array_equal(uvt.numpy(), uvb)
+
+
+# Two interpret-mode band programs of the raw_blend variant: a batched T=3
+# SDR call and a scalar HDR one.
+@pytest.mark.parametrize("rs,is_hdr,ts", [(2, False, (0.2, 0.6, 1.0)), (3, True, (0.4,))])
+def test_raw_blend_matches_band_kernel_interpret(rng, rs, is_hdr, ts):
+    """K2's raw_blend plain version against the TPU kernel's raw_blend=True
+    variant: mode 2's blend with no levels."""
+    h, w, apron = 64, 128, 32
+    y1, uv1 = make_frame(rng, h, w, is_hdr)
+    y2, uv2 = make_frame(rng, h, w, is_hdr)
+    flow = make_flow(rng, h >> rs, w >> rs, max_mag=25)
+    black, white = _levels(is_hdr)
+    c1 = warp_strip.build_warp_context(jnp.asarray(y1), jnp.asarray(uv1), apron=apron,
+                                       is_hdr=is_hdr)
+    c2 = warp_strip.build_warp_context(jnp.asarray(y2), jnp.asarray(uv2), apron=apron,
+                                       is_hdr=is_hdr)
+    t_arg = jnp.asarray(ts, jnp.float32) if len(ts) > 1 else jnp.float32(ts[0])
+    yb, uvb = warp_band.warp_frame_band(
+        c1, c2, jnp.asarray(flow), t_arg, jnp.float32(black), jnp.float32(white),
+        res_scalar=rs, mode=2, is_hdr=is_hdr, dim_y=h, dim_x=w, apron=apron,
+        interpret=True, raw_blend=True)
+    yb, uvb = np.asarray(yb).reshape(len(ts), h, w), np.asarray(uvb).reshape(len(ts), h // 2, w)
+    yt, uvt = warp_kernel.warp_frames(
+        _t(y1), _t(uv1), _t(y2), _t(uv2), _t(flow), torch.tensor(ts, dtype=torch.float32),
+        black, white, res_scalar=rs, mode=2, is_hdr=is_hdr, raw_blend=True)
+    np.testing.assert_array_equal(yt.numpy(), yb)
+    np.testing.assert_array_equal(uvt.numpy(), uvb)
+    levelled = warp_kernel.warp_frames(
+        _t(y1), _t(uv1), _t(y2), _t(uv2), _t(flow), torch.tensor(ts, dtype=torch.float32),
+        black, white, res_scalar=rs, mode=2, is_hdr=is_hdr)
+    assert not torch.equal(levelled[0], yt)
+
+
+# (rs, is_hdr, h, w): every res scalar, both bit depths, widths 86 (not a
+# multiple of the flow cell beyond rs 1; odd half width) and 112.
+VIZ_GEOMETRIES = [(0, False, 48, 112), (1, True, 48, 86), (2, False, 50, 86),
+                  (3, True, 64, 112), (2, True, 64, 112), (3, False, 50, 86)]
+
+
+@pytest.mark.parametrize("rs,is_hdr,h,w", VIZ_GEOMETRIES)
+def test_modes_3_to_6_match_reference_warp(rs, is_hdr, h, w):
+    """warp_frame_plane's visualisation modes against the JAX package's
+    jitted reference-formulation warp."""
+    rng = np.random.default_rng(50 + rs + 4 * is_hdr)
+    y1, uv1 = make_frame(rng, h, w, is_hdr)
+    y2, uv2 = make_frame(rng, h, w, is_hdr)
+    flow = make_flow(rng, -(-h >> rs), -(-w >> rs), max_mag=120)
+    black, white = _levels(is_hdr)
+    for mode in (3, 4, 5, 6):
+        t = 0.2 + 0.2 * (mode - 3)
+        yt, uvt = torch_warp.warp_frame(
+            _t(y1), _t(uv1), _t(y2), _t(uv2), _t(flow), t, black, white,
+            res_scalar=rs, mode=mode, is_hdr=is_hdr)
+        yj, uvj = jax_warp.warp_frame(
+            jnp.asarray(y1), jnp.asarray(uv1), jnp.asarray(y2), jnp.asarray(uv2),
+            jnp.asarray(flow), jnp.float32(t), jnp.float32(black), jnp.float32(white),
+            res_scalar=rs, mode=mode, is_hdr=is_hdr)
+        np.testing.assert_array_equal(yt.numpy(), np.asarray(yj), err_msg=f"mode {mode}")
+        np.testing.assert_array_equal(uvt.numpy(), np.asarray(uvj), err_msg=f"mode {mode}")
 
 
 @pytest.mark.parametrize("rs", [0, 1, 2, 3])
@@ -131,9 +192,16 @@ def test_fma_is_single_rounding():
 
 
 def test_unported_modes_raise(rng):
+    """Modes outside 0-6 are refused, and K2 computes only 0/1/2 (with
+    raw_blend for mode 2 alone): the engine composes modes 3-6."""
     y, uv = make_frame(rng, 16, 32)
     flow = make_flow(rng, 16, 32)
-    with pytest.raises(NotImplementedError):
-        warp_kernel.warp_frames(_t(y), _t(uv), _t(y), _t(uv), _t(flow),
-                                torch.tensor([0.5]), 0.0, 255.0, res_scalar=0, mode=3,
-                                is_hdr=False)
+    args = (_t(y), _t(uv), _t(y), _t(uv), _t(flow))
+    for mode in (7, -1):
+        with pytest.raises(ValueError, match="mode"):
+            torch_warp.warp_frame(*args, 0.5, 0.0, 255.0, res_scalar=0, mode=mode,
+                                  is_hdr=False)
+    for mode, raw in ((3, False), (7, False), (-1, False), (1, True)):
+        with pytest.raises(ValueError):
+            warp_kernel.warp_frames(*args, torch.tensor([0.5]), 0.0, 255.0, res_scalar=0,
+                                    mode=mode, is_hdr=False, raw_blend=raw)

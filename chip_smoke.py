@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (hopperrender_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root; needs one CUDA card
+    python3 chip_smoke.py                   # from the repository root; needs one CUDA card
+    python3 chip_smoke.py --parallel-only   # phases 1, 2 and 7; on four cards, 7c
+                                            # adds meshes of a rank per card (NCCL)
 
 Builds the hand-written CUDA kernels from hopperrender_tpu_torch/csrc (nvcc,
 sm_90a), then runs these phases, one line each:
@@ -31,10 +33,25 @@ sm_90a), then runs these phases, one line each:
      time, each kernel's time against its plain version's, peak memory, and
      a torch.profiler pass over three more served frames: device busy time,
      idle share and launches per source frame, and device time by kind;
-     the warp time per output of modes 3-6 (CUDA events) from 5b/5c.
+     the warp time per output of modes 3-6 (CUDA events) from 5b/5c;
+  7. the parallel path:
+     7a. K2's mesh-sharded variant (warp_frames_band) against its plain
+     version for every shard, and the shards stacked against the full K2:
+     4K HDR P010, flow +-64, t (0.2, 0.6, 1.0), modes 0/1/2, levels 16/235,
+     n = 2, 4, 8; and 1080p SDR at n = 8, where UV's rows split unevenly;
+     7b. batched_step on two 4K HDR streams (panning 3 px/frame, radius 16,
+     three steps): outputs, flow and delta against the single-stream path
+     (pyramid_flow + K2), and against the same run on the plain versions;
+     7c. make_multichip_step through launch.run_ranks at 4K HDR, rs 3, mode 2,
+     t_batch 3, on meshes (1, 2) and (2, 1) of ranks sharing this card over
+     gloo (and (1, 4), (2, 2) over NCCL where four cards are visible): each
+     rank writes its outputs to an .npz, held byte for byte to 7b's
+     single-device results; every rank must have launched the band kernel.
+     Its numbers: each mesh's second step (CUDA events in the ranks) and the
+     band kernel against its plain version.
 
 Before each served path every launch counter is set to 0, and after it each
-kernel of that path must have launched. Then one JSON line of the kernels
+kernel of that path must have launched (the ranks of 7c start at 0). Then one JSON line of the kernels
 (with each one's bound: the least time the card could take for its work),
 nvidia-smi's line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises: the script exits non-zero and prints no result. It imports
@@ -43,12 +60,15 @@ nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -72,7 +92,8 @@ OPS_PER_S = 67e12
 # lookup and back-projection (~10), two warped positions (~16 each: product,
 # round, mirror, clamp, index), the blend (~4) and, for mode 2, the levels
 # (~4). The raw_blend variant has no levels.
-OPS_PER_ELEMENT = {"blur_flow": 16, "warp_frames": 50, "warp_frames_raw_blend": 46}
+OPS_PER_ELEMENT = {"blur_flow": 16, "warp_frames": 50, "warp_frames_raw_blend": 46,
+                   "warp_frames_band": 50}
 
 
 def log(line: str) -> None:
@@ -81,30 +102,37 @@ def log(line: str) -> None:
 
 def import_port() -> types.SimpleNamespace:
     """Everything the run uses, imported from hopperrender_tpu_torch only."""
-    from hopperrender_tpu_torch import _build, config
+    from hopperrender_tpu_torch import _build, config, entry
     from hopperrender_tpu_torch.config import Settings
     from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel
+    from hopperrender_tpu_torch.ops import flow as flow_ops
+    from hopperrender_tpu_torch.parallel import launch
+    from hopperrender_tpu_torch.parallel.batched import batched_step
     from hopperrender_tpu_torch.server.control import CadenceController
     from hopperrender_tpu_torch.server.frame_server import FrameServer
     from hopperrender_tpu_torch.vio import nv12
     return types.SimpleNamespace(
         _build=_build, blur_kernel=blur_kernel, warp_kernel=warp_kernel,
         CadenceController=CadenceController, FrameServer=FrameServer, Settings=Settings,
-        config=config, nv12=nv12)
+        config=config, nv12=nv12, entry=entry, flow_ops=flow_ops, launch=launch,
+        batched_step=batched_step)
 
 
 @contextlib.contextmanager
 def plain_versions(port):
-    """Points the K1 and K2 wrappers' module attributes at their plain
-    versions while the block runs; their callers (ops/flow.blur_flow and the
-    engine's warp) look them up at call time."""
-    kernels = port.blur_kernel.blur_flow, port.warp_kernel.warp_frames
+    """Points the K1 and K2 wrappers' module attributes (K2's mesh-sharded
+    variant too) at their plain versions while the block runs; their callers
+    (ops/flow.blur_flow, ops/warp_viz.warp_outputs, parallel/mesh.py) look
+    them up at call time."""
+    wk = port.warp_kernel
+    kernels = port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band
     port.blur_kernel.blur_flow = port.blur_kernel.blur_flow_reference
-    port.warp_kernel.warp_frames = port.warp_kernel.warp_frames_reference  # raw_blend too
+    wk.warp_frames = wk.warp_frames_reference  # raw_blend too
+    wk.warp_frames_band = wk.warp_frames_band_reference
     try:
         yield
     finally:
-        port.blur_kernel.blur_flow, port.warp_kernel.warp_frames = kernels
+        port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band = kernels
 
 
 def device_profile(prof, wall_s: float) -> tuple[float, int, dict[str, float]]:
@@ -218,13 +246,13 @@ def bound(name: str, bytes_moved: int, n_elements: int) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def reset_launches(k1, k2) -> None:
-    k1.launches = k2.launches = k2.raw_launches = 0
+def reset_launches(k1, k2, k2_band) -> None:
+    k1.launches = k2.launches = k2.raw_launches = k2_band.launches = 0
 
 
-def read_launches(k1, k2) -> dict[str, int]:
+def read_launches(k1, k2, k2_band) -> dict[str, int]:
     return {"blur_flow": k1.launches, "warp_frames": k2.launches,
-            "warp_frames_raw_blend": k2.raw_launches}
+            "warp_frames_raw_blend": k2.raw_launches, "warp_frames_band": k2_band.launches}
 
 
 def cadence_count(port, n_frames: int) -> int:
@@ -249,7 +277,225 @@ def require_same_stream(outs, plain_outs, what: str) -> None:
             raise AssertionError(f"{what}: served output {i} differs from the plain-version stream")
 
 
-def main() -> int:
+def band_bound(src, flow, ts, num_shards: int, shard: int) -> tuple[float, str]:
+    """Bound of one warp_frames_band call: it writes T (r_y + r_uv) W samples
+    and reads its rows of both sources, plus a halo of this flow's largest
+    vertical displacement (halved on UV), clipped to the planes, and the flow
+    and ts once."""
+    from hopperrender_tpu_torch.ops.warp import band_rows
+    (h, w), itemsize = src[0].shape, src[0].element_size()
+    halo = int(flow[1].abs().max())
+    n_t, rows_read, rows_out = ts.shape[0], 0, 0
+    for plane_h, plane_halo in ((h, halo), (h // 2, -(-halo // 2))):
+        r = band_rows(plane_h, num_shards)
+        row0 = shard * r
+        rows_out += r
+        rows_read += 2 * (min(plane_h, row0 + r + plane_halo) - max(0, row0 - plane_halo))
+    moved = (n_t * rows_out + rows_read) * w * itemsize + nbytes(flow, ts)
+    return bound("warp_frames_band", moved, n_t * rows_out * w)
+
+
+def parallel_path(port, dev, card: str) -> dict:
+    """Phase 7: K2's mesh-sharded variant against its plain version and the
+    full K2 (7a), batched_step on two 4K HDR streams against the
+    single-stream path (7b), and make_multichip_step on ranks of one card
+    against 7b's results (7c). Returns the band kernel's entry of the
+    `kernels` line."""
+    wk, entry, launch = port.warp_kernel, port.entry, port.launch
+    k1, k2, k2_band = port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band
+
+    # -- 7a. the kernel: every shard against its plain version, the shards
+    # stacked against the full K2, at 4K HDR P010 with flow +-64 (n = 2, 4,
+    # 8) and 1080p SDR (n = 8: UV's 540 rows split into 68-row bands, the
+    # last one 64).
+    rng = np.random.default_rng(7)
+    src = [torch.tensor(rng.integers(0, 1024, shape, dtype=np.uint16) << 6, device=dev)
+           for shape in ((H, W), (H // 2, W)) * 2]
+    flow = torch.tensor(rng.integers(-64, 65, LOW).astype(np.int16), device=dev)
+    t3 = torch.tensor((0.2, 0.6, 1.0), dtype=torch.float32, device=dev)
+    black, white = 16 * 256.0, 235 * 256.0
+    sdr = [torch.tensor(rng.integers(0, 256, shape, dtype=np.uint8), device=dev)
+           for shape in ((1080, 1920), (540, 1920)) * 2]
+    sdr_flow = torch.tensor(rng.integers(-64, 65, (2, 270, 480)).astype(np.int16), device=dev)
+    cases = [(src, flow, black, white, 3, True, n) for n in (2, 4, 8)]
+    cases.append((sdr, sdr_flow, 16.0, 235.0, 2, False, 8))
+    band_err, n_shards = 0, 0
+    for srcs, fl, lo, hi, rs, is_hdr, n in cases:
+        h = srcs[0].shape[0]
+        for mode in (0, 1, 2):
+            kw = dict(res_scalar=rs, mode=mode, is_hdr=is_hdr)
+            full_y, full_uv = k2(*srcs, fl, t3, lo, hi, **kw)
+            bands_y, bands_uv = [], []
+            for shard in range(n):
+                by, buv = k2_band(*srcs, fl, t3, lo, hi, num_shards=n, shard_index=shard, **kw)
+                py, puv = wk.warp_frames_band_reference(*srcs, fl, t3, lo, hi, num_shards=n,
+                                                        shard_index=shard, **kw)
+                what = f"K2 band {h}p n {n} shard {shard} mode {mode}"
+                band_err = max(band_err, require_equal(by, py, what + " Y"),
+                               require_equal(buv, puv, what + " UV"))
+                bands_y.append(by)
+                bands_uv.append(buv)
+                n_shards += 1
+            require_equal(torch.cat(bands_y, 1)[:, :h], full_y, f"K2 bands {h}p n {n} Y")
+            require_equal(torch.cat(bands_uv, 1)[:, :h // 2], full_uv, f"K2 bands {h}p n {n} UV")
+    torch.cuda.synchronize()
+    band_ms, band_plain_ms = time_pair(
+        lambda: k2_band(*src, flow, t3, black, white, res_scalar=3, mode=2, is_hdr=True,
+                        num_shards=2, shard_index=0),
+        lambda: wk.warp_frames_band_reference(*src, flow, t3, black, white, res_scalar=3,
+                                              mode=2, is_hdr=True, num_shards=2, shard_index=0),
+        50, 3)
+    log(f"phase 7a K2 band: {n_shards} shard calls (4K HDR P010 flow +-64 at n = 2, 4, 8; "
+        f"1080p SDR at n = 8), modes 0/1/2, t (0.2, 0.6, 1.0): each equal to its plain "
+        f"version, the shards stacked equal to the full K2; max |err| {band_err}")
+
+    # -- 7b. batched_step: two 4K HDR streams panning 3 px/frame, radius 16,
+    # three steps, against the single-stream path (pyramid_flow + K2) and
+    # against itself on the plain versions.
+    cfg = port.config
+    n_frames, blend = 5, (0.6, 0.2)        # each stream's t: one of t3
+    streams = []
+    for seed in (1, 2):
+        frame_rng = np.random.default_rng(seed)
+        frames = [port.nv12.synthetic_frame(frame_rng, H, W, is_hdr=True, motion_x=3 * i)
+                  for i in range(n_frames)]
+        streams.append([(y & P010_MASK, uv & P010_MASK) for y, uv in frames])
+    ys = torch.tensor(np.stack([[f[0] for f in s] for s in streams]), device=dev)
+    uvs = torch.tensor(np.stack([[f[1] for f in s] for s in streams]), device=dev)
+    scal = (cfg.MAX_SEARCH_RADIUS, cfg.DEFAULT_DELTA_SCALAR, cfg.DEFAULT_NEIGHBOR_SCALAR)
+    kw = dict(low_h=LOW[1], low_w=LOW[2], res_scalar=3, is_hdr=True)
+    blend_t = torch.tensor(blend, dtype=torch.float32, device=dev)
+    zero_flow = torch.zeros(LOW, dtype=torch.int16, device=dev)
+
+    def run_batched():
+        flow_prev, outs = torch.stack([zero_flow] * 2), []
+        for i in range(n_frames - 2):
+            ring = [a[:, i + k].contiguous() for k in range(3) for a in (ys, uvs)]
+            out = port.batched_step(*ring, flow_prev, *scal, blend_t, black, white, mode=2, **kw)
+            flow_prev = out[2]
+            outs.append(out)
+        return outs
+
+    reset_launches(k1, k2, k2_band)
+    batched = run_batched()
+    torch.cuda.synchronize()
+    batched_launches = read_launches(k1, k2, k2_band)
+    if min(batched_launches["blur_flow"], batched_launches["warp_frames"]) == 0:
+        raise AssertionError(f"batched_step: a kernel never launched: {batched_launches}")
+    # The single-stream path, with all three t of t3 (7c's t_batch).
+    single = []   # single[b][i] = (y (3, H, W), uv, blurred, delta_raw)
+    for b in range(2):
+        flow_prev, steps = zero_flow, []
+        for i in range(n_frames - 2):
+            f0, f1, f2 = ((ys[b, i + k], uvs[b, i + k]) for k in range(3))
+            _, blurred, delta = port.flow_ops.pyramid_flow(*f1, *f2, *scal, **kw)
+            y, uv = k2(*f0, *f1, flow_prev, t3, black, white, res_scalar=3, mode=2, is_hdr=True)
+            steps.append((y, uv, blurred, delta))
+            flow_prev = blurred
+        single.append(steps)
+    for i, out in enumerate(batched):
+        for b in range(2):
+            y, uv, blurred, delta = single[b][i]
+            ti = (0.2, 0.6, 1.0).index(blend[b])
+            what = f"batched_step step {i} stream {b}"
+            require_equal(out[0][b], y[ti], what + " Y")
+            require_equal(out[1][b], uv[ti], what + " UV")
+            require_equal(out[2][b], blurred, what + " flow")
+            if int(out[3][b]) != int(delta):
+                raise AssertionError(f"{what}: delta {int(out[3][b])} != {int(delta)}")
+    if not any(int(single[b][-1][2].abs().max()) for b in range(2)):
+        raise AssertionError("batched_step: the flow found no motion on a panning stream")
+    with plain_versions(port):
+        plain = run_batched()
+    for i, (out, p_out) in enumerate(zip(batched, plain)):
+        for a, b_, what in zip(out, p_out, ("Y", "UV", "flow", "delta")):
+            require_equal(a, b_, f"batched_step step {i} {what} against the plain versions")
+    log(f"phase 7b batched_step: 2 streams {W}x{H} HDR, radius 16, {n_frames - 2} steps, t "
+        f"{blend}: outputs, flow and delta equal to the single-stream path and to the "
+        f"plain-version run; launches {batched_launches}")
+
+    # -- 7c. make_multichip_step on ranks of this card (gloo), rs 3, mode 2,
+    # t_batch 3: frames 1-4 of 7b's streams, the prior flow of 7b's first
+    # step, two steps; the outputs against 7b's single-stream results.
+    meshes = [(1, 2), (2, 1)]
+    if torch.cuda.device_count() >= 4:
+        meshes += [(1, 4), (2, 2)]        # NCCL, a rank per card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh.")
+    try:
+        in_path = os.path.join(tmp, "streams.npz")
+        np.savez(in_path, y=ys[:, 1:].cpu().numpy(), uv=uvs[:, 1:].cpu().numpy(),
+                 flow=torch.stack([single[b][0][2] for b in range(2)]).cpu().numpy(),
+                 ts=t3.cpu().numpy())
+        job = dict(in_path=in_path, mode=2, res_scalar=3, radius=scal[0],
+                   delta_scalar=scal[1], neighbor_scalar=scal[2], black=black, white=white)
+        mesh_launches, mesh_lines = 0, []
+        for dp, sp in meshes:
+            job["out_path"] = os.path.join(tmp, f"mesh{dp}x{sp}." + "{rank}.npz")
+            start = time.perf_counter()
+            paths = [p for (p,) in launch.run_ranks(entry.run_stream_steps, dp, sp,
+                                                    device="cuda", workdir=tmp, args=([job],),
+                                                    timeout=600)]
+            wall = time.perf_counter() - start
+            step_ms, backends = [], set()
+            for rank, path in enumerate(paths):
+                with np.load(path) as z:
+                    if int(z["band_launches"]) == 0 or z["foreign_modules"].size:
+                        raise AssertionError(f"mesh {dp}x{sp} rank {rank}: band launches "
+                                             f"{int(z['band_launches'])}, jax modules "
+                                             f"{list(z['foreign_modules'])}")
+                    mesh_launches += int(z["band_launches"])
+                    step_ms.append(float(z["step_ms"][-1]))
+                    backends.add(str(z["backend"]))
+            got = entry.gather_dp(paths, sp)
+            for b in range(2):
+                for i in range(2):
+                    y, uv, blurred, delta = single[b][i + 1]
+                    what = f"mesh {dp}x{sp} stream {b} step {i}"
+                    for g, want, name in ((got["y"][b, i], y, "Y"), (got["uv"][b, i], uv, "UV"),
+                                          (got["blurred"][b, i], blurred, "flow")):
+                        if not np.array_equal(g, want.cpu().numpy()):
+                            raise AssertionError(f"{what}: {name} differs from 7b's single-"
+                                                 "device result")
+                    if int(got["delta"][b, i]) != int(delta):
+                        raise AssertionError(f"{what}: delta differs")
+            mesh_lines.append(f"{dp}x{sp} ({'/'.join(sorted(backends))}) {wall:.1f} s wall, "
+                              f"second step {statistics.median(step_ms):.3f} ms (median of "
+                              f"{len(step_ms)} ranks, CUDA events)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 7c make_multichip_step {W}x{H} HDR rs 3 mode 2 t_batch 3, 2 streams x 2 steps "
+        f"on meshes {meshes}: every rank's outputs, flow and delta equal to 7b's single-device "
+        f"results byte for byte; K2 band launched {mesh_launches} times over the ranks; "
+        + "; ".join(mesh_lines))
+    log(f"phase 7 numbers [{card}]: K2 band (n 2, shard 0) {band_ms:.4f} ms vs plain "
+        f"{band_plain_ms:.4f} ms per T=3 mode-2 call at {W}x{H} HDR")
+    bound_ms, bound_by = band_bound(src, flow, t3, 2, 0)
+    return {"name": "warp_frames_band", "route": "cuda",
+            "source": "hopperrender_tpu_torch/csrc/warp_frame.cu",
+            "replaces": "hopperrender_tpu/ops/warp_band.py:695 (mesh-sharded variant)",
+            "launches": mesh_launches, "max_abs_err": band_err, "ms": band_ms,
+            "plain_ms": band_plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def finish(port, kernels: list[dict], card: str, kind: str) -> int:
+    """The last three lines: the kernels, nvidia-smi's card line, the result."""
+    log(json.dumps({"kernels": kernels}))
+    log(card)
+    loaded = port.entry.foreign_modules()
+    if loaded:
+        raise AssertionError(f"the JAX package or jax was loaded: {sorted(loaded)[:5]}")
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv: list[str]) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="run phases 1, 2 and 7 only: the parallel path, e.g. on a host "
+                             "with four cards, where 7c adds the NCCL meshes")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs a CUDA card",
               file=sys.stderr)
@@ -263,6 +509,7 @@ def main() -> int:
     config, nv12 = port.config, port.nv12
     # The wrappers, whose `launches` counters show which kernels the path ran.
     k1, k2 = blur_kernel.blur_flow, warp_kernel.warp_frames
+    k2_band = warp_kernel.warp_frames_band
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -281,6 +528,8 @@ def main() -> int:
     print("\n".join(ptxas), file=sys.stderr)
     log(f"phase 2 build: nvcc {lib.build_seconds:.2f} s, {len(ptxas) // 2} kernel "
         f"instantiations, library {os.path.relpath(lib.path, ROOT)}")
+    if args.parallel_only:
+        return finish(port, [parallel_path(port, dev, card)], card, kind)
 
     # -- 3. K1 against its plain version ----------------------------------------
     rng = np.random.default_rng(0)
@@ -384,11 +633,11 @@ def main() -> int:
         return outs, wall_s, flow_s, warp_s, copy_s
 
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_launches(k1, k2)
+    reset_launches(k1, k2, k2_band)
     srv = new_server()
     outs, wall_s, flow_s, warp_s, copy_s = serve(srv, frames[:10])
     torch.cuda.synchronize()
-    launches = read_launches(k1, k2)
+    launches = read_launches(k1, k2, k2_band)
     peak_bytes = torch.cuda.max_memory_allocated(dev)
 
     expected = cadence_count(port, 10)
@@ -407,7 +656,7 @@ def main() -> int:
 
     with plain_versions(port):
         plain_outs = serve(new_server(), frames[:10])[0]
-    if read_launches(k1, k2) != launches:
+    if read_launches(k1, k2, k2_band) != launches:
         raise AssertionError("the plain-version stream launched a kernel")
     require_same_stream(outs, plain_outs, "mode 2")
 
@@ -433,10 +682,10 @@ def main() -> int:
         def viz_server(st=viz_settings):
             return port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev, settings=st)
 
-        reset_launches(k1, k2)
+        reset_launches(k1, k2, k2_band)
         vouts, _, _, vwarp_s, _ = serve(viz_server(), frames[:n_frames])
         torch.cuda.synchronize()
-        got = read_launches(k1, k2)
+        got = read_launches(k1, k2, k2_band)
         viz_launches[mode] = got
         missing = [k for k in path_kernels[mode] if got[k] == 0]
         if missing:
@@ -448,7 +697,7 @@ def main() -> int:
                                  f"{sum(o.interpolated for o in vouts)} interpolated")
         with plain_versions(port):
             plain_vouts = serve(viz_server(), frames[:n_frames])[0]
-        if read_launches(k1, k2) != got:
+        if read_launches(k1, k2, k2_band) != got:
             raise AssertionError(f"mode {mode}: the plain-version stream launched a kernel")
         require_same_stream(vouts, plain_vouts, f"mode {mode}")
         viz_warp_ms[mode] = 1e3 * statistics.median(vwarp_s)
@@ -495,6 +744,9 @@ def main() -> int:
         f"per T=3 call at {W}x{H} HDR; warp ms/output (median, CUDA events, one warp per "
         f"output) " + ", ".join(f"mode {m} {t:.3f}" for m, t in viz_warp_ms.items()))
 
+    # -- 7. the parallel path -----------------------------------------------------
+    band_entry = parallel_path(port, dev, card)
+
     # Bounds from this run's inputs: K1 reads and writes one (2, 270, 480) int16
     # flow; K2 reads both source frames and the flow once and writes T outputs.
     k2_out = 3 * nbytes(src[0], src[1])
@@ -504,7 +756,7 @@ def main() -> int:
               "warp_frames": bound("warp_frames", k2_bytes, k2_elems),
               "warp_frames_raw_blend": bound("warp_frames_raw_blend", k2_bytes, k2_elems)}
 
-    # library_ms is null: no single PyTorch call computes either function
+    # library_ms is null: no single PyTorch call computes any of these functions
     # (grid_sample has neither the clamped remapping mirror nor C rounding;
     # avg_pool2d neither the symmetric mirror nor the truncating division).
     kernels = [
@@ -527,15 +779,8 @@ def main() -> int:
     for k in kernels:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None
-    log(json.dumps({"kernels": kernels}))
-    log(card)
-    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "hopperrender_tpu")]
-    if loaded:
-        raise AssertionError(f"the JAX package or jax was loaded: {sorted(loaded)[:5]}")
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                           "count": torch.cuda.device_count()}}))
-    return 0
+    return finish(port, kernels + [band_entry], card, kind)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

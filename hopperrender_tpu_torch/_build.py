@@ -37,10 +37,10 @@ SIGNATURES = {
     # (in, out, low_h, low_w, stream)
     "hrt_blur_flow": (_P, _P, _I, _I, _P),
     # (src12_y, src12_uv, src21_y, src21_uv, flow, ts, n_t, out_y, out_uv,
-    #  dim_y, dim_x, low_h, low_w, res_scalar, mode, raw_blend, is_hdr, black, white,
-    #  stream)
+    #  dim_y, dim_x, row0_y, rows_y, row0_uv, rows_uv, low_h, low_w, res_scalar, mode,
+    #  raw_blend, is_hdr, black, white, stream)
     "hrt_warp_frames": (_P, _P, _P, _P, _P, _P, _I, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 

@@ -17,7 +17,14 @@
 //   * kRaw (mode 2 only) stores the blend without levels: the TPU kernel's
 //     raw_blend variant (warp_band.py, "Mode-3 feeder"), which the HSV
 //     overlay of mode 3 colours. Identity levels would not give the blend
-//     back: the level arithmetic is not exact in float32.
+//     back: the level arithmetic is not exact in float32;
+//   * a row band (row0, rows) per plane is the TPU kernel's mesh-sharded
+//     variant (warp_frame_band with num_shards > 1, which slices its band
+//     tables and packed sources per shard): shard s of n computes rows
+//     [s * r, (s + 1) * r) of each plane, r = ceil(plane_h / n) apart for Y
+//     and UV, into a band-local (T, r, W) output. Sources and flow stay
+//     whole; the mirror and the flow lookup use the whole plane. Rows past
+//     the plane are not written.
 //
 // Float rules. The JAX package is the reference, so every float operation is
 // pinned to the rounding the JAX package's compiled code performs:
@@ -68,11 +75,12 @@ template <typename T, int kMode, bool kUV, bool kRaw>
 __global__ void __launch_bounds__(256) warp_plane_kernel(
     const T* __restrict__ src12, const T* __restrict__ src21,
     const int16_t* __restrict__ flow, const float* __restrict__ ts,
-    T* __restrict__ out, int plane_h, int dim_x, int low_h, int low_w, int rs,
-    float black, float white, float peak, float mid) {
+    T* __restrict__ out, int plane_h, int row0, int rows, int dim_x, int low_h, int low_w,
+    int rs, float black, float white, float peak, float mid) {
   const int cx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cy = blockIdx.y * blockDim.y + threadIdx.y;
-  if (cx >= dim_x || cy >= plane_h) return;
+  const int band_y = blockIdx.y * blockDim.y + threadIdx.y;  // row within the band
+  const int cy = row0 + band_y;                               // row of the plane
+  if (cx >= dim_x || band_y >= rows || cy >= plane_h) return;
   const float fs12 = ts[blockIdx.z];
   const float fs21 = __fsub_rn(1.0f, fs12);
 
@@ -131,28 +139,36 @@ __global__ void __launch_bounds__(256) warp_plane_kernel(
       res = static_cast<int>(fminf(fmaxf(v, 0.0f), peak));  // clip, then truncate
     }
   }
-  out[static_cast<size_t>(blockIdx.z) * plane_h * dim_x + static_cast<size_t>(cy) * dim_x + cx] =
-      static_cast<T>(res);
+  out[(static_cast<size_t>(blockIdx.z) * rows + band_y) * dim_x + cx] = static_cast<T>(res);
 }
+
+// The output rows of one call: rows [row0, row0 + rows) of each plane, clipped
+// to the plane. The whole frame is row0 0 and rows dim_y (Y), dim_y / 2 (UV).
+struct Band {
+  int row0_y, rows_y, row0_uv, rows_uv;
+};
 
 template <typename T, int kMode, bool kRaw>
 cudaError_t launch_mode(const void* s12y, const void* s12uv, const void* s21y,
                         const void* s21uv, const int16_t* flow, const float* ts,
                         int n_t, void* out_y, void* out_uv, int dim_y, int dim_x,
-                        int low_h, int low_w, int rs, float black, float white,
-                        float peak, float mid, cudaStream_t stream) {
+                        const Band& band, int low_h, int low_w, int rs, float black,
+                        float white, float peak, float mid, cudaStream_t stream) {
   const dim3 block(32, 8);
-  const dim3 grid_y((dim_x + block.x - 1) / block.x, (dim_y + block.y - 1) / block.y, n_t);
+  const dim3 grid_y((dim_x + block.x - 1) / block.x, (band.rows_y + block.y - 1) / block.y,
+                    n_t);
   warp_plane_kernel<T, kMode, false, kRaw><<<grid_y, block, 0, stream>>>(
       static_cast<const T*>(s12y), static_cast<const T*>(s21y), flow, ts,
-      static_cast<T*>(out_y), dim_y, dim_x, low_h, low_w, rs, black, white, peak, mid);
+      static_cast<T*>(out_y), dim_y, band.row0_y, band.rows_y, dim_x, low_h, low_w, rs, black,
+      white, peak, mid);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int uv_h = dim_y / 2;
-  const dim3 grid_uv((dim_x + block.x - 1) / block.x, (uv_h + block.y - 1) / block.y, n_t);
+  const dim3 grid_uv((dim_x + block.x - 1) / block.x, (band.rows_uv + block.y - 1) / block.y,
+                     n_t);
   warp_plane_kernel<T, kMode, true, kRaw><<<grid_uv, block, 0, stream>>>(
       static_cast<const T*>(s12uv), static_cast<const T*>(s21uv), flow, ts,
-      static_cast<T*>(out_uv), uv_h, dim_x, low_h, low_w, rs, black, white, peak, mid);
+      static_cast<T*>(out_uv), dim_y / 2, band.row0_uv, band.rows_uv, dim_x, low_h, low_w, rs,
+      black, white, peak, mid);
   return cudaGetLastError();
 }
 
@@ -160,28 +176,28 @@ template <typename T>
 cudaError_t launch_type(int mode, bool raw, const void* s12y, const void* s12uv,
                         const void* s21y, const void* s21uv, const int16_t* flow,
                         const float* ts, int n_t, void* out_y, void* out_uv,
-                        int dim_y, int dim_x, int low_h, int low_w, int rs,
+                        int dim_y, int dim_x, const Band& band, int low_h, int low_w, int rs,
                         float black, float white, float peak, float mid,
                         cudaStream_t stream) {
   if (raw) {  // the raw_blend variant exists for mode 2 only
     if (mode != 2) return cudaErrorInvalidValue;
     return launch_mode<T, 2, true>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y, out_uv,
-                                   dim_y, dim_x, low_h, low_w, rs, black, white, peak, mid,
-                                   stream);
+                                   dim_y, dim_x, band, low_h, low_w, rs, black, white, peak,
+                                   mid, stream);
   }
   switch (mode) {
     case 0:
       return launch_mode<T, 0, false>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y,
-                                      out_uv, dim_y, dim_x, low_h, low_w, rs, black, white,
-                                      peak, mid, stream);
+                                      out_uv, dim_y, dim_x, band, low_h, low_w, rs, black,
+                                      white, peak, mid, stream);
     case 1:
       return launch_mode<T, 1, false>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y,
-                                      out_uv, dim_y, dim_x, low_h, low_w, rs, black, white,
-                                      peak, mid, stream);
+                                      out_uv, dim_y, dim_x, band, low_h, low_w, rs, black,
+                                      white, peak, mid, stream);
     case 2:
       return launch_mode<T, 2, false>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y,
-                                      out_uv, dim_y, dim_x, low_h, low_w, rs, black, white,
-                                      peak, mid, stream);
+                                      out_uv, dim_y, dim_x, band, low_h, low_w, rs, black,
+                                      white, peak, mid, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -190,14 +206,19 @@ cudaError_t launch_type(int mode, bool raw, const void* s12y, const void* s12uv,
 }  // namespace
 
 // Sources: (dim_y, dim_x) Y and (dim_y/2, dim_x) interleaved UV, uint8 (SDR) or
-// uint16 (HDR); flow: (2, low_h, low_w) int16; ts: (n_t,) float32; outputs
-// (n_t, dim_y, dim_x) and (n_t, dim_y/2, dim_x). All contiguous, on the current
-// device. black/white are the levels in sample units (HDR pre-scaled x256).
-// raw_blend != 0 (mode 2 only) stores the blend without levels.
+// uint16 (HDR); flow: (2, low_h, low_w) int16; ts: (n_t,) float32. Outputs: rows
+// [row0_y, row0_y + rows_y) of the Y plane as (n_t, rows_y, dim_x) and rows
+// [row0_uv, row0_uv + rows_uv) of the UV plane as (n_t, rows_uv, dim_x); rows past
+// the plane are not written. The whole frame is row0 0, rows dim_y and dim_y/2;
+// a shard of the row-band split (K2's mesh-sharded variant) passes its band.
+// All contiguous, on the current device. black/white are the levels in sample
+// units (HDR pre-scaled x256). raw_blend != 0 (mode 2 only) stores the blend
+// without levels.
 extern "C" int hrt_warp_frames(const void* src12_y, const void* src12_uv,
                                const void* src21_y, const void* src21_uv,
                                const void* flow, const void* ts, int n_t,
                                void* out_y, void* out_uv, int dim_y, int dim_x,
+                               int row0_y, int rows_y, int row0_uv, int rows_uv,
                                int low_h, int low_w, int res_scalar, int mode,
                                int raw_blend, int is_hdr, float black, float white,
                                void* stream) {
@@ -205,12 +226,16 @@ extern "C" int hrt_warp_frames(const void* src12_y, const void* src12_uv,
   const auto* t = static_cast<const float*>(ts);
   const auto s = static_cast<cudaStream_t>(stream);
   const bool raw = raw_blend != 0;
+  const Band band{row0_y, rows_y, row0_uv, rows_uv};
+  if (row0_y < 0 || rows_y < 1 || row0_uv < 0 || rows_uv < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t err =
       is_hdr ? launch_type<uint16_t>(mode, raw, src12_y, src12_uv, src21_y, src21_uv, f, t, n_t,
-                                     out_y, out_uv, dim_y, dim_x, low_h, low_w, res_scalar,
-                                     black, white, 65535.0f, 32768.0f, s)
+                                     out_y, out_uv, dim_y, dim_x, band, low_h, low_w,
+                                     res_scalar, black, white, 65535.0f, 32768.0f, s)
              : launch_type<uint8_t>(mode, raw, src12_y, src12_uv, src21_y, src21_uv, f, t, n_t,
-                                    out_y, out_uv, dim_y, dim_x, low_h, low_w, res_scalar,
-                                    black, white, 255.0f, 128.0f, s);
+                                    out_y, out_uv, dim_y, dim_x, band, low_h, low_w,
+                                    res_scalar, black, white, 255.0f, 128.0f, s);
   return static_cast<int>(err);
 }

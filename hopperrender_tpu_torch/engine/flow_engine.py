@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from hopperrender_tpu_torch import config
-from hopperrender_tpu_torch.ops import warp_kernel
 from hopperrender_tpu_torch.ops import flow as flow_ops
 from hopperrender_tpu_torch.ops import warp as warp_ops
 from hopperrender_tpu_torch.ops import warp_viz
@@ -222,9 +221,7 @@ class OpticalFlowEngine:
 
     def _warp(self, scalars: list[float], mode: int):
         """The warp of slots 0, 1 with the previous pair's flow, one output per
-        blending scalar: (T, H, W), (T, H/2, W). Modes 0/1/2 are K2; the
-        visualisation modes are composed as the JAX engine composes them
-        (hopperrender_tpu/engine/flow_engine.py::_run_warp)."""
+        blending scalar: (T, H, W), (T, H/2, W), any mode (ops/warp_viz.py)."""
         if any(s > 1.0 for s in scalars):
             raise ValueError("Blending scalar is greater than 1.0")
         mode = int(mode)
@@ -232,24 +229,10 @@ class OpticalFlowEngine:
             raise ValueError(f"output mode {mode} is not one of {warp_ops.WARP_MODES}")
         black, white = self._levels()
         ts = torch.tensor(scalars, dtype=torch.float32, device=self.device)
-        flow = self._blurred[0]
-        kw = dict(res_scalar=self.res_scalar, is_hdr=self.is_hdr)
-        if mode == 4:   # grey flow: no source sample
-            y, uv = warp_viz.grey_flow_frame(flow, dim_y=self.h, dim_x=self.w, **kw)
-            return y.expand(len(scalars), -1, -1), uv.expand(len(scalars), -1, -1)
-        srcs = (self._frames_y[0], self._frames_uv[0], self._frames_y[1], self._frames_uv[1])
-        if mode == 3:   # HSV flow over K2's raw mode-2 blend
-            raw_y, raw_uv = warp_kernel.warp_frames(*srcs, flow, ts, black, white, mode=2,
-                                                    raw_blend=True, **kw)
-            return warp_viz.hsv_flow_overlay(raw_y, raw_uv, flow, black, white, **kw)
-        y, uv = warp_kernel.warp_frames(*srcs, flow, ts, black, white,
-                                        mode=2 if mode in (5, 6) else mode, **kw)
-        if mode == 5:
-            return warp_viz.side_by_side_1(srcs[0], srcs[1], y, uv)
-        if mode == 6:
-            return warp_viz.side_by_side_2(srcs[0], srcs[1], srcs[3], y, uv, flow, ts, white,
-                                           **kw)
-        return y, uv
+        return warp_viz.warp_outputs(
+            self._frames_y[0], self._frames_uv[0], self._frames_y[1], self._frames_uv[1],
+            self._blurred[0], ts, black, white, mode=mode, res_scalar=self.res_scalar,
+            is_hdr=self.is_hdr)
 
     def warp_frames(self, blending_scalar: float, frame_output_mode: int):
         """One output: warp slots 0, 1 with the previous pair's flow

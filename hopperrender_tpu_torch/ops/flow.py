@@ -45,17 +45,21 @@ def delta_window_sums(
     offsets: torch.Tensor,   # (2, low_h, low_w) int16
     radius: int, delta_scalar: int, neighbor_scalar: int, *,
     window_size: int, res_scalar: int, iteration: int, step: int, is_hdr: bool,
-    num_layers: int = MAX_R,
+    num_layers: int = MAX_R, layer_offset: int = 0,
 ) -> torch.Tensor:
     """Compact cost-volume window sums, (num_layers, n_win_y, n_win_x) int64
-    holding uint32 values; layers >= radius are 0xFFFFFFFF."""
+    holding uint32 values; global layers >= radius are 0xFFFFFFFF.
+
+    num_layers/layer_offset shard the search-layer axis: a shard computes
+    global layers [layer_offset, layer_offset + num_layers)."""
     dim_y, dim_x = f1y.shape
     uv_h, uv_w = f1uv.shape
     low_h, low_w = offsets.shape[1:]
     dev = offsets.device
     cx = torch.arange(low_w, dtype=torch.int32, device=dev)[None, None, :]
     cy = torch.arange(low_h, dtype=torch.int32, device=dev)[None, :, None]
-    lz = torch.arange(num_layers, dtype=torch.int32, device=dev)[:, None, None]
+    lz = torch.arange(layer_offset, layer_offset + num_layers, dtype=torch.int32,
+                      device=dev)[:, None, None]
     scaled_cx = cx << res_scalar
     scaled_cy = cy << res_scalar
 

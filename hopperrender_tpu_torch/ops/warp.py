@@ -325,12 +325,18 @@ def warp_frame_plane(
     flow: torch.Tensor,          # (2, low_h, low_w) int16 blurred offsets
     blending_scalar, black_level, white_level, *,
     res_scalar: int, mode: int, cz: int, is_hdr: bool, raw_blend: bool = False,
+    row_offset: int = 0, out_rows: int | None = None,
 ) -> torch.Tensor:
     """One plane (cz=0: Y (H, W); cz=1: interleaved UV (H/2, W)) of the warp
     kernel, every output mode 0-6 (ref: warpFrameKernelSDR.h:116-184).
 
     raw_blend (mode 2 only): the blend before levels, which mode 3 colours
-    (the TPU kernel's raw_blend variant, hopperrender_tpu/ops/warp_band.py)."""
+    (the TPU kernel's raw_blend variant, hopperrender_tpu/ops/warp_band.py).
+
+    out_rows/row_offset compute only plane rows [row_offset, row_offset +
+    out_rows), as an (out_rows, W) band: the row split of the mesh. The
+    sources stay whole, and the mirror and the flow lookup use the whole
+    plane."""
     if mode not in WARP_MODES:
         raise ValueError(f"output mode {mode} is not one of {WARP_MODES}")
     if raw_blend and mode != 2:
@@ -342,12 +348,14 @@ def warp_frame_plane(
     plane_h = src12.shape[0]
     dtype = src12_y.dtype
     fs12 = _f32(blending_scalar, dev)
+    out_h = plane_h if out_rows is None else out_rows
 
-    cx = torch.arange(dim_x, dtype=torch.int32, device=dev)[None, :].expand(plane_h, dim_x)
-    cy = torch.arange(plane_h, dtype=torch.int32, device=dev)[:, None].expand(plane_h, dim_x)
+    cx = torch.arange(dim_x, dtype=torch.int32, device=dev)[None, :].expand(out_h, dim_x)
+    cy = torch.arange(row_offset, row_offset + out_h, dtype=torch.int32,
+                      device=dev)[:, None].expand(out_h, dim_x)
     adj_cx, adj_cy = cx, cy
-    done = torch.zeros((plane_h, dim_x), dtype=torch.bool, device=dev)
-    early = torch.zeros((plane_h, dim_x), dtype=torch.int32, device=dev)
+    done = torch.zeros((out_h, dim_x), dtype=torch.bool, device=dev)
+    early = torch.zeros((out_h, dim_x), dtype=torch.int32, device=dev)
 
     if mode == 5:  # SideBySide1: left half = source12 passthrough
         left = cx < (dim_x >> 1)
@@ -416,6 +424,40 @@ def warp_frame(src12_y, src12_uv, src21_y, src21_uv, flow, blending_scalar,
                          black_level, white_level, res_scalar=res_scalar, mode=mode,
                          cz=cz, is_hdr=is_hdr, raw_blend=raw_blend)
         for cz in (0, 1))
+
+
+def band_rows(plane_h: int, num_shards: int) -> int:
+    """Rows of one shard's band of a plane: ceil(plane_h / num_shards). Y and
+    UV are split apart, so UV bands are not half the Y bands."""
+    return -(-plane_h // num_shards)
+
+
+def warp_frame_rows(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black_level,
+                    white_level, *, res_scalar: int, mode: int, is_hdr: bool,
+                    num_shards: int, shard_index: int):
+    """Shard shard_index's row band of both planes, for each t of the (T,)
+    vector ts: (T, r_y, W) and (T, r_uv, W) with r = band_rows(plane_h,
+    num_shards), holding plane rows [shard_index * r, (shard_index + 1) * r).
+    Rows past the plane (the last shards of an uneven split) are 0. Any mode
+    0-6: warp_frame_plane per t with row_offset/out_rows."""
+    if not 0 <= shard_index < num_shards:
+        raise ValueError(f"shard {shard_index} of {num_shards}")
+    dim_y, dim_x = src12_y.shape
+    outs = []
+    for cz, plane_h in ((0, dim_y), (1, dim_y // 2)):
+        rows = band_rows(plane_h, num_shards)
+        row0 = shard_index * rows
+        valid = max(0, min(rows, plane_h - row0))
+        out = from_int32(torch.zeros((len(ts), rows, dim_x), dtype=torch.int32,
+                                     device=flow.device), src12_y.dtype)
+        for i, t in enumerate(ts):
+            if valid:
+                out[i, :valid] = warp_frame_plane(
+                    src12_y, src12_uv, src21_y, src21_uv, flow, t, black_level, white_level,
+                    res_scalar=res_scalar, mode=mode, cz=cz, is_hdr=is_hdr,
+                    row_offset=row0, out_rows=valid)
+        outs.append(out)
+    return tuple(outs)
 
 
 def copy_frame(src_y: torch.Tensor, src_uv: torch.Tensor, black_level, white_level, *,

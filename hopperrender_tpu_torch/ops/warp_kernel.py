@@ -9,6 +9,11 @@ blend stored without levels, which mode 3 colours (ops/warp_viz.py).
 PyTorch version `warp_frames_reference` only for CPU tensors. Its counters:
 `warp_frames.launches` (modes 0/1/2) and `warp_frames.raw_launches` (the
 raw_blend variant).
+
+`warp_frames_band` is that kernel's mesh-sharded variant (warp_frame_band
+with num_shards > 1): one shard's row band of each plane, from the same
+kernel body, for the row split of parallel/mesh.py. Plain version
+`warp_frames_band_reference`; counter `warp_frames_band.launches`.
 """
 
 from __future__ import annotations
@@ -86,30 +91,95 @@ def warp_frames(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
         return warp_frames_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
                                      black_level, white_level, res_scalar=res_scalar,
                                      mode=mode, is_hdr=is_hdr, raw_blend=raw_blend)
+    dim_y = src12_y.shape[0]
+    out = _launch(tensors, black_level, white_level, (0, dim_y, 0, dim_y // 2),
+                  res_scalar=res_scalar, mode=mode, is_hdr=is_hdr, raw_blend=raw_blend,
+                  name="warp_frames")
+    if raw_blend:
+        warp_frames.raw_launches += 1
+    else:
+        warp_frames.launches += 1
+    return out
+
+
+warp_frames.launches = 0
+warp_frames.raw_launches = 0
+
+
+def _launch(tensors, black_level, white_level, band, *, res_scalar, mode, is_hdr,
+            raw_blend, name):
+    """Launch csrc/warp_frame.cu on checked CUDA tensors for the row band
+    (row0_y, rows_y, row0_uv, rows_uv): outputs (T, rows_y, W), (T, rows_uv, W)."""
+    src12_y, src12_uv, src21_y, src21_uv, flow, ts = tensors
     if flow.device.type != "cuda":
-        raise ValueError(f"warp_frames: unsupported device {flow.device}")
+        raise ValueError(f"{name}: unsupported device {flow.device}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("warp_frames: all tensors must be contiguous")
+        raise ValueError(f"{name}: all tensors must be contiguous")
     dim_y, dim_x = src12_y.shape
     n_t = ts.shape[0]
-    out_y = torch.empty((n_t, dim_y, dim_x), dtype=src12_y.dtype, device=flow.device)
-    out_uv = torch.empty((n_t, dim_y // 2, dim_x), dtype=src12_y.dtype, device=flow.device)
+    _, rows_y, _, rows_uv = band
+    out_y = torch.empty((n_t, rows_y, dim_x), dtype=src12_y.dtype, device=flow.device)
+    out_uv = torch.empty((n_t, rows_uv, dim_x), dtype=src12_y.dtype, device=flow.device)
     lib = _build.load().lib
     with torch.cuda.device(flow.device):
         stream = torch.cuda.current_stream(flow.device).cuda_stream
         code = lib.hrt_warp_frames(
             src12_y.data_ptr(), src12_uv.data_ptr(), src21_y.data_ptr(),
             src21_uv.data_ptr(), flow.data_ptr(), ts.data_ptr(), n_t,
-            out_y.data_ptr(), out_uv.data_ptr(), dim_y, dim_x,
+            out_y.data_ptr(), out_uv.data_ptr(), dim_y, dim_x, *band,
             flow.shape[1], flow.shape[2], res_scalar, mode, int(raw_blend), int(is_hdr),
             float(black_level), float(white_level), stream)
-    _build.check(code, "warp_frames")
-    if raw_blend:
-        warp_frames.raw_launches += 1
-    else:
-        warp_frames.launches += 1
+    _build.check(code, name)
     return out_y, out_uv
 
 
-warp_frames.launches = 0
-warp_frames.raw_launches = 0
+def warp_frames_band_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
+                               black_level: float, white_level: float, *,
+                               res_scalar: int, mode: int, is_hdr: bool,
+                               num_shards: int, shard_index: int):
+    """Plain PyTorch version of K2's mesh-sharded variant: ops/warp.warp_frame_plane
+    with row_offset/out_rows for each t (ops/warp.warp_frame_rows), padded with
+    0 to band_rows(plane_h, num_shards) rows."""
+    _check_mode(mode, False)
+    return warp_ops.warp_frame_rows(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
+                                    black_level, white_level, res_scalar=res_scalar,
+                                    mode=mode, is_hdr=is_hdr, num_shards=num_shards,
+                                    shard_index=shard_index)
+
+
+def warp_frames_band(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
+                     black_level: float, white_level: float, *,
+                     res_scalar: int, mode: int, is_hdr: bool,
+                     num_shards: int, shard_index: int):
+    """K2's mesh-sharded variant: shard shard_index of num_shards computes plane
+    rows [s * r, (s + 1) * r) of Y and of UV, r = ops/warp.band_rows(plane_h,
+    num_shards) for each plane apart, into (T, r_y, W) and (T, r_uv, W). Rows
+    past the plane are 0. Bit-identical to warp_frames_band_reference, and the
+    shards' bands stacked and cropped equal warp_frames. Launches the CUDA
+    kernel for CUDA tensors; CPU tensors take the plain version."""
+    tensors = _check(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
+                     mode=mode, is_hdr=is_hdr, raw_blend=False)
+    if not 0 <= shard_index < num_shards:
+        raise ValueError(f"warp_frames_band: shard {shard_index} of {num_shards}")
+    if flow.device.type == "cpu":
+        return warp_frames_band_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
+                                          black_level, white_level, res_scalar=res_scalar,
+                                          mode=mode, is_hdr=is_hdr, num_shards=num_shards,
+                                          shard_index=shard_index)
+    dim_y = src12_y.shape[0]
+    r_y = warp_ops.band_rows(dim_y, num_shards)
+    r_uv = warp_ops.band_rows(dim_y // 2, num_shards)
+    out_y, out_uv = _launch(tensors, black_level, white_level,
+                            (shard_index * r_y, r_y, shard_index * r_uv, r_uv),
+                            res_scalar=res_scalar, mode=mode, is_hdr=is_hdr, raw_blend=False,
+                            name="warp_frames_band")
+    # The kernel writes no row past the plane: zero them, as the plain version.
+    for out, plane_h, r in ((out_y, dim_y, r_y), (out_uv, dim_y // 2, r_uv)):
+        valid = max(0, plane_h - shard_index * r)
+        if valid < r:
+            out[:, valid:].view(torch.uint8).zero_()
+    warp_frames_band.launches += 1
+    return out_y, out_uv
+
+
+warp_frames_band.launches = 0

@@ -28,7 +28,33 @@ from __future__ import annotations
 import torch
 
 from hopperrender_tpu_torch.ops import warp as warp_ops
+from hopperrender_tpu_torch.ops import warp_kernel
 from hopperrender_tpu_torch.ops.warp import F32, from_int32, to_int32
+
+
+def warp_outputs(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black_level, white_level, *,
+                 mode: int, res_scalar: int, is_hdr: bool):
+    """The warp in any output mode 0-6, one output per blending scalar of the
+    (T,) vector ts: (T, H, W), (T, H/2, W). Modes 0/1/2 are K2; the
+    visualisation modes are composed as the JAX engine composes them
+    (hopperrender_tpu/engine/flow_engine.py::_run_warp). The K2 wrapper is
+    looked up at call time, so a caller may point it at its plain version."""
+    kw = dict(res_scalar=res_scalar, is_hdr=is_hdr)
+    srcs = (src12_y, src12_uv, src21_y, src21_uv)
+    if mode == 4:   # grey flow: no source sample
+        y, uv = grey_flow_frame(flow, dim_y=src12_y.shape[0], dim_x=src12_y.shape[1], **kw)
+        return y.expand(len(ts), -1, -1), uv.expand(len(ts), -1, -1)
+    if mode == 3:   # HSV flow over K2's raw mode-2 blend
+        raw_y, raw_uv = warp_kernel.warp_frames(*srcs, flow, ts, black_level, white_level,
+                                                mode=2, raw_blend=True, **kw)
+        return hsv_flow_overlay(raw_y, raw_uv, flow, black_level, white_level, **kw)
+    y, uv = warp_kernel.warp_frames(*srcs, flow, ts, black_level, white_level,
+                                    mode=2 if mode in (5, 6) else mode, **kw)
+    if mode == 5:
+        return side_by_side_1(src12_y, src12_uv, y, uv)
+    if mode == 6:
+        return side_by_side_2(src12_y, src12_uv, src21_uv, y, uv, flow, ts, white_level, **kw)
+    return y, uv
 
 
 def _plane_coords(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,7 +1,8 @@
-"""Kernels K1 (flow blur) and K2 (batched warp, and its raw_blend variant)
-against their plain PyTorch versions on a CUDA card, exactly, across bit
-depths, res scalars, modes and ragged shapes; and the HSV colour on the card
-against the CPU. Every test skips without a card.
+"""Kernels K1 (flow blur) and K2 (batched warp, its raw_blend variant and its
+mesh-sharded row-band variant) against their plain PyTorch versions on a
+CUDA card, exactly, across bit depths, res scalars, modes and ragged shapes;
+the HSV colour on the card against the CPU; and the mesh's dryrun on the
+card. Every test skips without a card.
 
 On the card (whose machine may lack jax, which tests/conftest.py imports):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -125,6 +126,58 @@ def test_engine_viz_modes_match_cpu(dev, is_hdr):
         assert (warp_kernel.warp_frames.raw_launches > raw_before) == (mode == 3)
         for (gy, guv), (wy, wuv) in zip(got, want):
             assert _same(gy.cpu(), wy) and _same(guv.cpu(), wuv), f"mode {mode}"
+
+
+# (h, w, rs, is_hdr, n): 4K HDR split in two, and 1080p SDR in eight (UV's
+# 540 rows do not split evenly: 68-row bands, the last one 64 rows).
+@pytest.mark.parametrize("h,w,rs,is_hdr,n", [(2160, 3840, 3, True, 2), (1080, 1920, 2, False, 8)])
+def test_warp_band_kernel_matches_plain_and_full(dev, h, w, rs, is_hdr, n):
+    """K2's mesh-sharded variant: every shard equals its plain version, and
+    the shards stacked and cropped equal the full-frame K2; its own counter."""
+    rng = np.random.default_rng(30 + n)
+    srcs = _frame(rng, h, w, is_hdr, dev) + _frame(rng, h, w, is_hdr, dev)
+    flow = torch.tensor(rng.integers(-64, 65, (2, h >> rs, w >> rs)).astype(np.int16), device=dev)
+    s = 256.0 if is_hdr else 1.0
+    ts = torch.tensor([0.2, 0.6, 1.0], dtype=torch.float32, device=dev)
+    for mode in (0, 1, 2):
+        kw = dict(res_scalar=rs, mode=mode, is_hdr=is_hdr)
+        full_y, full_uv = warp_kernel.warp_frames(*srcs, flow, ts, 16 * s, 235 * s, **kw)
+        bands = []
+        for shard in range(n):
+            before = warp_kernel.warp_frames_band.launches
+            by, buv = warp_kernel.warp_frames_band(*srcs, flow, ts, 16 * s, 235 * s,
+                                                   num_shards=n, shard_index=shard, **kw)
+            assert warp_kernel.warp_frames_band.launches == before + 1
+            py, puv = warp_kernel.warp_frames_band_reference(
+                *srcs, flow, ts, 16 * s, 235 * s, num_shards=n, shard_index=shard, **kw)
+            assert _same(by, py) and _same(buv, puv), f"mode {mode} shard {shard}"
+            bands.append((by, buv))
+        got_y = torch.cat([warp_ops.to_int32(b[0]) for b in bands], 1)[:, :h]
+        got_uv = torch.cat([warp_ops.to_int32(b[1]) for b in bands], 1)[:, :h // 2]
+        assert torch.equal(got_y, warp_ops.to_int32(full_y)), f"mode {mode}"
+        assert torch.equal(got_uv, warp_ops.to_int32(full_uv)), f"mode {mode}"
+
+
+def test_dryrun_multichip_on_the_card(tmp_path):
+    """Two ranks of the mesh on the card (gloo on one card, NCCL on two),
+    both dryrun geometries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hopperrender_tpu_torch import entry
+    shapes = entry.dryrun_multichip(2, device="cuda", workdir=str(tmp_path))
+    assert shapes["rs2_t3"]["y"] == (1, 1, 3, 64, 128)
+
+
+def test_entry_step_on_the_card(dev):
+    """entry()'s 1080p SDR single-stream step runs through K1 and K2."""
+    from hopperrender_tpu_torch import entry
+    fn, args = entry.entry(device=dev)
+    before = blur_kernel.blur_flow.launches, warp_kernel.warp_frames.launches
+    y, uv, flow, delta = fn(*args)
+    assert blur_kernel.blur_flow.launches > before[0]
+    assert warp_kernel.warp_frames.launches > before[1]
+    assert tuple(y.shape) == (1, 1080, 1920) and tuple(uv.shape) == (1, 540, 1920)
+    assert tuple(flow.shape) == (1, 2, 270, 480) and tuple(delta.shape) == (1,)
 
 
 def test_warp_kernel_rejects_bad_input(dev):

@@ -7,7 +7,9 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -126,3 +128,71 @@ def test_chip_smoke_refuses_outside_the_repository(tmp_path):
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=120)
     _assert_refused(out)
+
+
+def _stream_job(tmp_path, name, *, n_streams=1, out_dir=None):
+    """A run_stream_steps job over n_streams tiny SDR streams of 3 frames."""
+    from hopperrender_tpu_torch import entry
+    y, uv, flow = entry.example_frames(32, 64, 16, 32, batch=n_streams)
+    in_path = os.path.join(tmp_path, f"{name}.npz")
+    np.savez(in_path, y=y, uv=uv, flow=flow, ts=np.asarray([0.5], np.float32))
+    out = os.path.join(out_dir or tmp_path, name + ".{rank}.npz")
+    return dict(in_path=in_path, out_path=out, mode=2, res_scalar=1, radius=9, delta_scalar=8,
+                neighbor_scalar=6, black=0.0, white=255.0)
+
+
+def test_run_ranks_children_never_import_jax(tmp_path):
+    """Ranks started by run_ranks from this test process (which has jax and
+    the JAX package loaded) load neither: they unpickle a port function and
+    nothing else."""
+    from hopperrender_tpu_torch import entry
+    from hopperrender_tpu_torch.parallel import launch
+    assert "jax" in sys.modules
+    paths = launch.run_ranks(entry.run_stream_steps, 1, 2, device="cpu", workdir=str(tmp_path),
+                             args=([_stream_job(tmp_path, "one")],), timeout=120)
+    for (path,) in paths:
+        with np.load(path) as z:
+            assert z["foreign_modules"].size == 0
+            assert str(z["backend"]) == "gloo"
+
+
+def test_run_ranks_raises_on_a_failed_rank_and_kills_the_rest(tmp_path):
+    """Rank 1 fails writing the first job's output (its directory is
+    missing); rank 0 goes on to the second job and blocks in its first
+    collective on the dead peer. run_ranks raises with rank 1's traceback
+    instead of waiting, and leaves no rank running."""
+    import multiprocessing
+
+    from hopperrender_tpu_torch import entry
+    from hopperrender_tpu_torch.parallel import launch
+    os.makedirs(tmp_path / "0")
+    first = _stream_job(tmp_path, "a", out_dir=str(tmp_path / "{rank}"))
+    second = _stream_job(tmp_path, "b")
+    start = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1 of 1x2 failed") as exc:
+        launch.run_ranks(entry.run_stream_steps, 1, 2, device="cpu", workdir=str(tmp_path),
+                         args=([first, second],), timeout=120)
+    assert "FileNotFoundError" in str(exc.value)
+    assert time.monotonic() - start < 100
+    assert not multiprocessing.active_children()
+
+
+def test_run_ranks_times_out_and_kills_the_ranks(tmp_path):
+    """A run that outlasts its timeout raises TimeoutError and leaves no rank
+    running (half a second: less than a rank needs to start)."""
+    import multiprocessing
+
+    from hopperrender_tpu_torch import entry
+    from hopperrender_tpu_torch.parallel import launch
+    with pytest.raises(TimeoutError):
+        launch.run_ranks(entry.run_stream_steps, 1, 2, device="cpu", workdir=str(tmp_path),
+                         args=([_stream_job(tmp_path, "slow")],), timeout=0.5)
+    assert not multiprocessing.active_children()
+
+
+def test_run_ranks_refuses_streams_that_do_not_split_over_dp(tmp_path):
+    from hopperrender_tpu_torch import entry
+    from hopperrender_tpu_torch.parallel import launch
+    with pytest.raises(RuntimeError, match="do not split"):
+        launch.run_ranks(entry.run_stream_steps, 2, 1, device="cpu", workdir=str(tmp_path),
+                         args=([_stream_job(tmp_path, "odd", n_streams=3)],), timeout=120)

@@ -39,19 +39,36 @@ sm_90a), then runs these phases, one line each:
      version for every shard, and the shards stacked against the full K2:
      4K HDR P010, flow +-64, t (0.2, 0.6, 1.0), modes 0/1/2, levels 16/235,
      n = 2, 4, 8; and 1080p SDR at n = 8, where UV's rows split unevenly;
+     mode 3 at 4K HDR, n = 2: the band's raw_blend variant against its plain
+     version, coloured by the banded HSV overlay, against the plain row route;
      7b. batched_step on two 4K HDR streams (panning 3 px/frame, radius 16,
      three steps): outputs, flow and delta against the single-stream path
      (pyramid_flow + K2), and against the same run on the plain versions;
-     7c. make_multichip_step through launch.run_ranks at 4K HDR, rs 3, mode 2,
-     t_batch 3, on meshes (1, 2) and (2, 1) of ranks sharing this card over
-     gloo (and (1, 4), (2, 2) over NCCL where four cards are visible): each
-     rank writes its outputs to an .npz, held byte for byte to 7b's
-     single-device results; every rank must have launched the band kernel.
-     Its numbers: each mesh's second step (CUDA events in the ranks) and the
-     band kernel against its plain version.
+     7c. make_multichip_step through launch.run_ranks at 4K HDR, rs 3, modes 2
+     and 3, t_batch 3, on meshes (1, 2) and (2, 1) of ranks sharing this card
+     over gloo (and (1, 4), (2, 2) over NCCL where four cards are visible):
+     each rank writes its outputs to an .npz, held byte for byte to 7b's
+     single-device results (mode 3: K2's raw_blend variant and the HSV
+     overlay on the full frame); every rank must have launched the band
+     kernel, and in mode 3 its raw_blend variant. Its numbers: each mesh's
+     second mode-2 step (CUDA events in the ranks) and the band kernel
+     against its plain version;
+  8. the probes P1-P4 (hopperrender_tpu_torch/probes/):
+     8a. each kernel against its plain version, exactly: every P1 and P2
+     variant at n = 600 (past the 512-entry table) on 1 block and on 132,
+     every slot; P3's three and P4's seven at indices and offsets whose
+     windows clamp; transpose8 refused before a launch;
+     8b. the probe path (probes/__main__.run_probe, what `python -m
+     hopperrender_tpu_torch.probes` runs) with the counters at 0: chain and
+     chain2 at 1 and 132 blocks (ns per iteration by the slope over n =
+     20,000 and 120,000), the gather and mosaic kernels, and the block-gather
+     rates; every probe kernel must have launched;
+     8c. each probe's kernels against their plain versions and the one-call
+     PyTorch counterparts (torch.gather; slicing and torch.roll).
 
-Before each served path every launch counter is set to 0, and after it each
-kernel of that path must have launched (the ranks of 7c start at 0). Then one JSON line of the kernels
+Before each served path, and before the probe path, every launch counter
+is set to 0, and after it each kernel of that path must have launched (the
+ranks of 7c start at 0). Then one JSON line of the kernels
 (with each one's bound: the least time the card could take for its work),
 nvidia-smi's line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises: the script exits non-zero and prints no result. It imports
@@ -83,17 +100,50 @@ N_PROFILED = 3              # served frames run under torch.profiler in phase 6
 FIXTURES = ("480p-sdr", "4k-sdr", "4k-hdr", "1080p-sdr", "live")
 
 # The bound of a kernel: the larger of its bytes (each input read once, each
-# output written once) over the memory rate and its operations over the
-# float32 CUDA-core rate, from the H100 SXM data sheet.
+# output written once) over the memory rate and its operations over the rate
+# of their type: float32 on the CUDA cores from the H100 SXM data sheet;
+# int32 from its 132 SMs of 64 INT32 lanes each (NVIDIA's Hopper
+# architecture paper) at the 1,980 MHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # Arithmetic operations per output element, integer and float alike: K1's
 # separable 8x8 box sum (7 + 7 adds) and its truncating division; K2's flow
 # lookup and back-projection (~10), two warped positions (~16 each: product,
 # round, mirror, clamp, index), the blend (~4) and, for mode 2, the levels
-# (~4). The raw_blend variant has no levels.
+# (~4). The raw_blend variant has no levels. K1's are integer operations.
 OPS_PER_ELEMENT = {"blur_flow": 16, "warp_frames": 50, "warp_frames_raw_blend": 46,
                    "warp_frames_band": 50}
+OPS_RATE = {"blur_flow": INT32_OPS_PER_S}
+# The probes' least work, in integer operations (a load counts as one):
+# (per element, per tile) of one iteration for P1/P2, of one launch for
+# P3/P4. Per element: its address, its loads, its XOR, add or write. Per
+# tile, once: what every element shares (the table's fields, c >> 2 and the
+# lane start, the row start, the window clamps at 4 each, the tile's base
+# address, the loop's count and test). Terms that no iteration changes
+# (static rolls, P2's residual row group and lane p) are made before the
+# loop and not counted. full and full_aligned_rows write only the 8 x 16
+# elements of lanes [t_sub, t_sub + 16); each costs FULL_SECOND_WORD_OPS more
+# (the second word's lane, address, load, two shifts and the OR) in the
+# iterations whose c & 3 is not 0.
+PROBE_OPS = {
+    "chain_probe": {"empty": (1, 4), "smem_only": (1, 9), "load8x128": (3, 19),
+                    "load8x256": (3, 19), "load16x256": (3, 19), "roll0": (6, 20),
+                    "roll0_static": (3, 19), "roll1": (6, 20), "roll1_static": (3, 19),
+                    "roll1_128": (6, 20), "full": (8, 28), "full_aligned_rows": (6, 28)},
+    "chain_probe2": {"slice_static": (3, 19), "slice_static_x17": (35, 19), "vsel_x17": (9, 13),
+                     "fastpath_tile": (9, 13), "cond_branch": (3, 22),
+                     "dyngather_ax0_8": (6, 18), "dyngather_ax0_32": (6, 18),
+                     "dyngather_ax0_256": (6, 18), "dyngather_ax1_8": (6, 18),
+                     "dyngather_ax1_32": (6, 18)},
+    "gather_probe": {"take_along_sublane": (8, 0), "take_along_lane": (9, 0),
+                     "vector_index": (7, 0)},
+    "mosaic_probe": {"dyn_sublane": (2, 6), "dyn_sublane_aligned": (2, 7),
+                     "dyn_lane_aligned": (2, 7), "dyn_both": (2, 12), "dyn_roll_lane": (4, 1),
+                     "dyn_roll_sublane": (4, 1), "dyn_sublane_16": (5, 7)},
+}
+FULL_LANES, FULL_SECOND_WORD_OPS = 8 * 16, 7
+PROBE_N, PROBE_BLOCKS = 600, (1, 132)     # parity: past the table, one SM and every SM
 
 
 def log(line: str) -> None:
@@ -104,18 +154,24 @@ def import_port() -> types.SimpleNamespace:
     """Everything the run uses, imported from hopperrender_tpu_torch only."""
     from hopperrender_tpu_torch import _build, config, entry
     from hopperrender_tpu_torch.config import Settings
-    from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel
+    from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel, warp_viz
     from hopperrender_tpu_torch.ops import flow as flow_ops
+    from hopperrender_tpu_torch.ops import warp as warp_ops
     from hopperrender_tpu_torch.parallel import launch
     from hopperrender_tpu_torch.parallel.batched import batched_step
+    from hopperrender_tpu_torch.probes import __main__ as probe_path
+    from hopperrender_tpu_torch.probes import chain_probe, chain_probe2, gather_probe
+    from hopperrender_tpu_torch.probes import mosaic_probe
     from hopperrender_tpu_torch.server.control import CadenceController
     from hopperrender_tpu_torch.server.frame_server import FrameServer
     from hopperrender_tpu_torch.vio import nv12
     return types.SimpleNamespace(
-        _build=_build, blur_kernel=blur_kernel, warp_kernel=warp_kernel,
-        CadenceController=CadenceController, FrameServer=FrameServer, Settings=Settings,
-        config=config, nv12=nv12, entry=entry, flow_ops=flow_ops, launch=launch,
-        batched_step=batched_step)
+        _build=_build, blur_kernel=blur_kernel, warp_kernel=warp_kernel, warp_viz=warp_viz,
+        warp_ops=warp_ops, CadenceController=CadenceController, FrameServer=FrameServer,
+        Settings=Settings, config=config, nv12=nv12, entry=entry, flow_ops=flow_ops,
+        launch=launch, batched_step=batched_step, probe_path=probe_path,
+        probes=dict(chain_probe=chain_probe, chain_probe2=chain_probe2,
+                    gather_probe=gather_probe, mosaic_probe=mosaic_probe))
 
 
 @contextlib.contextmanager
@@ -238,12 +294,18 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def roofline(bytes_moved: int, ops: int, ops_per_s: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of the bytes' time and the operations'."""
+    bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / ops_per_s
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
 def bound(name: str, bytes_moved: int, n_elements: int) -> tuple[float, str]:
     """(bound_ms, bound_by) of a kernel call that moves bytes_moved and
     computes n_elements output elements."""
-    bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
-    ops_ms = 1e3 * n_elements * OPS_PER_ELEMENT[name] / OPS_PER_S
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    return roofline(bytes_moved, n_elements * OPS_PER_ELEMENT[name],
+                    OPS_RATE.get(name, OPS_PER_S))
 
 
 def reset_launches(k1, k2, k2_band) -> None:
@@ -338,6 +400,24 @@ def parallel_path(port, dev, card: str) -> dict:
                 n_shards += 1
             require_equal(torch.cat(bands_y, 1)[:, :h], full_y, f"K2 bands {h}p n {n} Y")
             require_equal(torch.cat(bands_uv, 1)[:, :h // 2], full_uv, f"K2 bands {h}p n {n} UV")
+    # Mode 3 at 4K HDR, n = 2: the band's raw_blend variant against its plain
+    # version, and coloured by the banded overlay against the plain row route.
+    kw = dict(res_scalar=3, is_hdr=True)
+    for shard in range(2):
+        band = dict(num_shards=2, shard_index=shard)
+        ry, ruv = k2_band(*src, flow, t3, black, white, mode=2, raw_blend=True, **band, **kw)
+        py, puv = wk.warp_frames_band_reference(*src, flow, t3, black, white, mode=2,
+                                                raw_blend=True, **band, **kw)
+        what = f"K2 band raw_blend 2160p n 2 shard {shard}"
+        band_err = max(band_err, require_equal(ry, py, what + " Y"),
+                       require_equal(ruv, puv, what + " UV"))
+        y, uv = port.warp_viz.hsv_flow_overlay(ry, ruv, flow, black, white, **kw,
+                                               row_offsets=(shard * ry.shape[1],
+                                                            shard * ruv.shape[1]))
+        wy, wuv = port.warp_ops.warp_frame_rows(*src, flow, t3, black, white, mode=3, **band,
+                                                **kw)
+        require_equal(y, wy, f"mode 3 band 2160p n 2 shard {shard} Y")
+        require_equal(uv, wuv, f"mode 3 band 2160p n 2 shard {shard} UV")
     torch.cuda.synchronize()
     band_ms, band_plain_ms = time_pair(
         lambda: k2_band(*src, flow, t3, black, white, res_scalar=3, mode=2, is_hdr=True,
@@ -347,7 +427,9 @@ def parallel_path(port, dev, card: str) -> dict:
         50, 3)
     log(f"phase 7a K2 band: {n_shards} shard calls (4K HDR P010 flow +-64 at n = 2, 4, 8; "
         f"1080p SDR at n = 8), modes 0/1/2, t (0.2, 0.6, 1.0): each equal to its plain "
-        f"version, the shards stacked equal to the full K2; max |err| {band_err}")
+        f"version, the shards stacked equal to the full K2; mode 3 at 4K HDR n = 2: the "
+        f"raw_blend band equal to its plain version, and with the banded HSV overlay equal "
+        f"to the plain row route; max |err| {band_err}")
 
     # -- 7b. batched_step: two 4K HDR streams panning 3 px/frame, radius 16,
     # three steps, against the single-stream path (pyramid_flow + K2) and
@@ -414,58 +496,74 @@ def parallel_path(port, dev, card: str) -> dict:
         f"{blend}: outputs, flow and delta equal to the single-stream path and to the "
         f"plain-version run; launches {batched_launches}")
 
-    # -- 7c. make_multichip_step on ranks of this card (gloo), rs 3, mode 2,
-    # t_batch 3: frames 1-4 of 7b's streams, the prior flow of 7b's first
-    # step, two steps; the outputs against 7b's single-stream results.
+    # -- 7c. make_multichip_step on ranks of this card (gloo), rs 3, modes 2
+    # and 3, t_batch 3: frames 1-4 of 7b's streams, the prior flow of 7b's
+    # first step, two steps; the outputs against 7b's single-stream results
+    # (mode 3: K2's raw_blend variant and the HSV overlay on the full frame).
     meshes = [(1, 2), (2, 1)]
     if torch.cuda.device_count() >= 4:
         meshes += [(1, 4), (2, 2)]        # NCCL, a rank per card
+    mode3 = [[port.warp_viz.warp_outputs(ys[b, 1 + i], uvs[b, 1 + i], ys[b, 2 + i],
+                                         uvs[b, 2 + i], single[b][i][2], t3, black, white,
+                                         mode=3, res_scalar=3, is_hdr=True)
+              for i in range(2)] for b in range(2)]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh.")
     try:
         in_path = os.path.join(tmp, "streams.npz")
         np.savez(in_path, y=ys[:, 1:].cpu().numpy(), uv=uvs[:, 1:].cpu().numpy(),
                  flow=torch.stack([single[b][0][2] for b in range(2)]).cpu().numpy(),
                  ts=t3.cpu().numpy())
-        job = dict(in_path=in_path, mode=2, res_scalar=3, radius=scal[0],
-                   delta_scalar=scal[1], neighbor_scalar=scal[2], black=black, white=white)
-        mesh_launches, mesh_lines = 0, []
+        jobs = [dict(in_path=in_path, mode=mode, res_scalar=3, radius=scal[0],
+                     delta_scalar=scal[1], neighbor_scalar=scal[2], black=black, white=white)
+                for mode in (2, 3)]
+        mesh_launches, mesh_raw_launches, mesh_lines = 0, 0, []
         for dp, sp in meshes:
-            job["out_path"] = os.path.join(tmp, f"mesh{dp}x{sp}." + "{rank}.npz")
+            for job in jobs:
+                job["out_path"] = os.path.join(tmp, f"mesh{dp}x{sp}.mode{job['mode']}."
+                                               + "{rank}.npz")
             start = time.perf_counter()
-            paths = [p for (p,) in launch.run_ranks(entry.run_stream_steps, dp, sp,
-                                                    device="cuda", workdir=tmp, args=([job],),
-                                                    timeout=600)]
+            rank_paths = launch.run_ranks(entry.run_stream_steps, dp, sp, device="cuda",
+                                          workdir=tmp, args=(jobs,), timeout=600)
             wall = time.perf_counter() - start
             step_ms, backends = [], set()
-            for rank, path in enumerate(paths):
-                with np.load(path) as z:
-                    if int(z["band_launches"]) == 0 or z["foreign_modules"].size:
+            for rank, (path2, path3) in enumerate(rank_paths):
+                with np.load(path2) as z2, np.load(path3) as z3:
+                    # The counters of a rank run on: the mode-3 job's raw_blend
+                    # launches are its own.
+                    launched = (int(z2["band_launches"]), int(z3["band_raw_launches"]))
+                    if min(launched) == 0 or z3["foreign_modules"].size:
                         raise AssertionError(f"mesh {dp}x{sp} rank {rank}: band launches "
-                                             f"{int(z['band_launches'])}, jax modules "
-                                             f"{list(z['foreign_modules'])}")
-                    mesh_launches += int(z["band_launches"])
-                    step_ms.append(float(z["step_ms"][-1]))
-                    backends.add(str(z["backend"]))
-            got = entry.gather_dp(paths, sp)
-            for b in range(2):
-                for i in range(2):
-                    y, uv, blurred, delta = single[b][i + 1]
-                    what = f"mesh {dp}x{sp} stream {b} step {i}"
-                    for g, want, name in ((got["y"][b, i], y, "Y"), (got["uv"][b, i], uv, "UV"),
-                                          (got["blurred"][b, i], blurred, "flow")):
-                        if not np.array_equal(g, want.cpu().numpy()):
-                            raise AssertionError(f"{what}: {name} differs from 7b's single-"
-                                                 "device result")
-                    if int(got["delta"][b, i]) != int(delta):
-                        raise AssertionError(f"{what}: delta differs")
+                                             f"(mode 2, mode 3 raw_blend) {launched}, jax "
+                                             f"modules {list(z3['foreign_modules'])}")
+                    mesh_launches += launched[0]
+                    mesh_raw_launches += launched[1]
+                    step_ms.append(float(z2["step_ms"][-1]))
+                    backends.add(str(z2["backend"]))
+            for j, mode in enumerate((2, 3)):
+                got = entry.gather_dp([p[j] for p in rank_paths], sp)
+                for b in range(2):
+                    for i in range(2):
+                        y, uv, blurred, delta = single[b][i + 1]
+                        if mode == 3:
+                            y, uv = mode3[b][i]
+                        what = f"mesh {dp}x{sp} mode {mode} stream {b} step {i}"
+                        for g, want, name in ((got["y"][b, i], y, "Y"),
+                                              (got["uv"][b, i], uv, "UV"),
+                                              (got["blurred"][b, i], blurred, "flow")):
+                            if not np.array_equal(g, want.cpu().numpy()):
+                                raise AssertionError(f"{what}: {name} differs from 7b's "
+                                                     "single-device result")
+                        if int(got["delta"][b, i]) != int(delta):
+                            raise AssertionError(f"{what}: delta differs")
             mesh_lines.append(f"{dp}x{sp} ({'/'.join(sorted(backends))}) {wall:.1f} s wall, "
-                              f"second step {statistics.median(step_ms):.3f} ms (median of "
-                              f"{len(step_ms)} ranks, CUDA events)")
+                              f"second mode-2 step {statistics.median(step_ms):.3f} ms (median "
+                              f"of {len(step_ms)} ranks, CUDA events)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"phase 7c make_multichip_step {W}x{H} HDR rs 3 mode 2 t_batch 3, 2 streams x 2 steps "
-        f"on meshes {meshes}: every rank's outputs, flow and delta equal to 7b's single-device "
-        f"results byte for byte; K2 band launched {mesh_launches} times over the ranks; "
+    log(f"phase 7c make_multichip_step {W}x{H} HDR rs 3 modes 2 and 3 t_batch 3, 2 streams x 2 "
+        f"steps on meshes {meshes}: every rank's outputs, flow and delta equal to 7b's single-"
+        f"device results byte for byte; K2 band launched {mesh_launches} times over the ranks "
+        f"(mode 2), its raw_blend variant {mesh_raw_launches} times (mode 3); "
         + "; ".join(mesh_lines))
     log(f"phase 7 numbers [{card}]: K2 band (n 2, shard 0) {band_ms:.4f} ms vs plain "
         f"{band_plain_ms:.4f} ms per T=3 mode-2 call at {W}x{H} HDR")
@@ -476,6 +574,223 @@ def parallel_path(port, dev, card: str) -> dict:
             "launches": mesh_launches, "max_abs_err": band_err, "ms": band_ms,
             "plain_ms": band_plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+def u32_err(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
+    """max |a - b| of two uint32 tensors of one shape; raises where it is not 0."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{what}: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+    ai, bi = (t.view(torch.int32).long() & 0xFFFFFFFF for t in (a, b))
+    err = int((ai - bi).abs().max())
+    if err:
+        raise AssertionError(f"{what}: {int((ai != bi).sum())} elements differ, max |err| {err}")
+    return err
+
+
+@contextlib.contextmanager
+def recorded_band_reads(p1):
+    """Points chain_probe.band_words, through which P1's and P2's plain
+    versions read the band, at a recorder while the block runs: it marks
+    every flat index read in the mask it yields and gives zeros."""
+    seen = torch.zeros(p1.ROWS * p1.W32, dtype=torch.bool)
+
+    class Reads:
+        def __getitem__(self, flat):
+            seen[flat.reshape(-1)] = True
+            return torch.zeros_like(flat)
+
+    band_words = p1.band_words
+    p1.band_words = lambda band: Reads()
+    try:
+        yield seen
+    finally:
+        p1.band_words = band_words
+
+
+def probe_work(port, name: str, variant: str, inputs: tuple, n: int,
+               blocks: int) -> tuple[int, int]:
+    """(bytes, operations) of one call of a probe variant on these CPU
+    inputs: each distinct input word it reads, once, and its output; the
+    operations of PROBE_OPS. P1/P2 (inputs tab, band[, res]; n iterations on
+    `blocks` blocks): the band words the plain version reads (`full` counts
+    its second word in every lane: an upper bound), the table fields it
+    uses. P3/P4 (inputs idx): x is made of its own flat indices, so the
+    plain version's output names the words read."""
+    probes, (elem_ops, tile_ops) = port.probes, PROBE_OPS[name][variant]
+    if name in ("chain_probe", "chain_probe2"):
+        p1 = probes["chain_probe"]
+        with recorded_band_reads(p1) as seen:
+            probes[name].run_reference(variant, n, *inputs)
+        fields = 1 if variant == "empty" else 3 if variant in ("smem_only", "full",
+                                                               "full_aligned_rows") else 2
+        reads_res = variant in ("vsel_x17", "fastpath_tile")
+        moved = 4 * (int(seen.sum()) + fields * min(n, p1.T) + 1024 * (reads_res + blocks))
+        if variant in ("full", "full_aligned_rows"):
+            sub = inputs[0][1, torch.arange(n) & (p1.T - 1)].long() & 3
+            ops = n * tile_ops + FULL_LANES * int((elem_ops + FULL_SECOND_WORD_OPS
+                                                   * (sub != 0)).sum())
+        else:
+            ops = n * (tile_ops + 1024 * elem_ops)
+        return moved, blocks * ops
+    mod, (idx,) = probes[name], inputs
+    pos = torch.arange(np.prod(mod.X_SHAPE), dtype=torch.int32).view(mod.X_SHAPE)
+    if name == "gather_probe":
+        read = mod.run_reference(variant, pos, idx)
+        read = read[read != mod.FILL]
+    else:
+        read = mod.run_reference(variant, idx, pos)
+    n_out = 1024 if name == "gather_probe" else 2048
+    return 4 * (read.unique().numel() + n_out) + nbytes(idx), n_out * elem_ops + tile_ops
+
+
+def probe_phase(port, dev, card: str) -> list[dict]:
+    """Phase 8: the probes P1-P4 against their plain versions (8a), the probe
+    path with the launch counters at 0 (8b), and the numbers (8c). Returns
+    the four entries of the `kernels` line."""
+    start = time.perf_counter()
+    probes, probe_path = port.probes, port.probe_path
+    p1, p2, p3, p4 = (probes[k] for k in ("chain_probe", "chain_probe2", "gather_probe",
+                                      "mosaic_probe"))
+    wrappers = {name: mod.run for name, mod in probes.items()}
+
+    # -- 8a. parity. P1/P2: the script's inputs (seed 0) at n = 600, which
+    # wraps the 512-entry table; every slot of 1 and of 132 blocks.
+    errs = dict.fromkeys(probes, 0)
+    variants = {"chain_probe": p1.VARIANTS, "chain_probe2": p2.KERNEL_VARIANTS,
+                "gather_probe": p3.VARIANTS, "mosaic_probe": p4.VARIANTS}
+    for name, names in variants.items():
+        if set(PROBE_OPS[name]) != set(names):
+            raise AssertionError(f"PROBE_OPS[{name!r}] does not count the variants {names}")
+    p1_in, p2_in = p1.make_inputs(0, dev), p2.make_inputs(0, dev)
+    for name, mod, inputs in (("chain_probe", p1, p1_in), ("chain_probe2", p2, p2_in)):
+        for variant in variants[name]:
+            want = mod.run_reference(variant, PROBE_N, *inputs)
+            for blocks in PROBE_BLOCKS:
+                got = mod.run(variant, PROBE_N, *inputs, blocks=blocks)
+                errs[name] = max(errs[name], u32_err(
+                    got, want.expand(blocks, -1, -1), f"{name} {variant} blocks {blocks}"))
+    before = p2.run.launches
+    try:
+        p2.run("transpose8", 1, *p2_in)
+        raise AssertionError("chain_probe2 transpose8 was not refused")
+    except TypeError:
+        if p2.run.launches != before:
+            raise AssertionError("chain_probe2 transpose8 launched") from None
+    # P3: the script's indices, and indices that wrap, fill or clamp; P4: the
+    # script's offsets and offsets whose windows clamp or whose rolls wrap.
+    x3, idx3 = p3.make_inputs(dev)
+    edges = np.random.default_rng(8).integers(-263, 249, (8, 128)).astype(np.int32)
+    edges[0, :12] = [0, 63, -1, -64, -65, 64, 248, 249, -7, -8, -263, 1000]
+    for idx in (idx3, torch.from_numpy(edges).to(dev)):
+        for variant in p3.VARIANTS:
+            errs["gather_probe"] = max(errs["gather_probe"], require_equal(
+                p3.run(variant, x3, idx), p3.run_reference(variant, x3, idx), f"P3 {variant}"))
+    x4 = p4.make_inputs(device=dev)[1]
+    for offsets in ((5, 128), (121, 255), (127, 256), (-1, -1), (-9, 1000), (17, 129)):
+        idx4 = p4.make_inputs(offsets, dev)[0]
+        for variant in p4.VARIANTS:
+            errs["mosaic_probe"] = max(errs["mosaic_probe"], require_equal(
+                p4.run(variant, idx4, x4), p4.run_reference(variant, idx4, x4),
+                f"P4 {variant} idx {offsets}"))
+    torch.cuda.synchronize()
+    log(f"phase 8a probes: P1's {len(p1.VARIANTS)} and P2's "
+        f"{len(p2.KERNEL_VARIANTS)} variants at n = {PROBE_N} on {PROBE_BLOCKS} blocks, "
+        f"every slot, P3's 3 and P4's 7 kernels at clamping indices: each equal to its plain "
+        f"version; transpose8 refused before a launch; max |err| {errs}")
+
+    # -- 8b. the probe path, with every probe's counter at 0.
+    hz = port.probe_path._timing.sm_clock_hz()
+    for run in wrappers.values():
+        run.launches = 0
+    runs = [("chain", 1), ("chain", 132), ("chain2", 1), ("chain2", 132), ("gather", 1),
+            ("mosaic", 1)]
+    for probe, blocks in runs:
+        results = probe_path.run_probe(probe, device=dev, blocks=blocks,
+                                       echo=lambda line: log(f"phase 8b {probe} B={blocks}: "
+                                                             f"{line}"))
+        failed = [r.line for r in results if r.error and not r.expected_failure]
+        if failed:
+            raise AssertionError(f"the probe path failed: {failed}")
+    launches = {name: run.launches for name, run in wrappers.items()}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a probe kernel never launched on the probe path: {launches}")
+    clock = f"max SM clock {hz / 1e6:.0f} MHz" if hz else "max SM clock not read"
+    log(f"phase 8b probe path [{card}, {clock}]: runs {runs}; launches {launches}")
+
+    # -- 8c. numbers: each probe's variants, one call each, summed; against the
+    # plain versions and, for P3/P4, one PyTorch call each. P1/P2 at n = 600
+    # on 132 blocks.
+    B = PROBE_BLOCKS[-1]
+    idx3_long, idx3_lane = idx3.long(), (idx3 + 7).long()
+    x3_128 = x3[:, :128]
+    r0, lane = p4.IDX
+    library = {   # the one-call counterpart of each P3/P4 kernel (the port never calls them)
+        "take_along_sublane": lambda: torch.gather(x3_128, 0, idx3_long),
+        "take_along_lane": lambda: torch.gather(x3[:8], 1, idx3_lane),
+        "vector_index": lambda: torch.gather(x3_128, 0, idx3_long),
+        "dyn_sublane": lambda: x4[r0:r0 + 8].contiguous(),
+        "dyn_sublane_aligned": lambda: x4[r0 & ~7:(r0 & ~7) + 8].contiguous(),
+        "dyn_lane_aligned": lambda: x4[:8, 0:256].contiguous(),
+        "dyn_both": lambda: x4[r0:r0 + 8, 0:256].contiguous(),
+        "dyn_roll_lane": lambda: torch.roll(x4[:8], r0, 1),
+        "dyn_roll_sublane": lambda: torch.roll(x4[:16], r0, 0)[:8],
+        "dyn_sublane_16": lambda: torch.roll(x4[r0 & ~7:(r0 & ~7) + 16], -(r0 & 7), 0)[:8],
+    }
+    idx4 = p4.make_inputs(device=dev)[0]
+    calls = {
+        "chain_probe": [(lambda v=v: p1.run(v, PROBE_N, *p1_in, blocks=B),
+                         lambda v=v: p1.run_reference(v, PROBE_N, *p1_in, blocks=B), None)
+                        for v in p1.VARIANTS],
+        "chain_probe2": [(lambda v=v: p2.run(v, PROBE_N, *p2_in, blocks=B),
+                          lambda v=v: p2.run_reference(v, PROBE_N, *p2_in, blocks=B), None)
+                         for v in p2.KERNEL_VARIANTS],
+        "gather_probe": [(lambda v=v: p3.run(v, x3, idx3),
+                          lambda v=v: p3.run_reference(v, x3, idx3), library[v])
+                         for v in p3.VARIANTS],
+        "mosaic_probe": [(lambda v=v: p4.run(v, idx4, x4),
+                          lambda v=v: p4.run_reference(v, idx4, x4), library[v])
+                         for v in p4.VARIANTS],
+    }
+    # The bound of each entry: the sum of its variants' bounds, each the larger
+    # of its bytes over the memory rate and its integer operations over the
+    # int32 rate (probe_work).
+    cpu_inputs = {"chain_probe": tuple(t.cpu() for t in p1_in),
+                  "chain_probe2": tuple(t.cpu() for t in p2_in),
+                  "gather_probe": (idx3.cpu(),), "mosaic_probe": (idx4.cpu(),)}
+    sources = {"chain_probe": ("chain_probe.cu", "scripts/chain_probe.py:103"),
+               "chain_probe2": ("chain_probe2.cu", "scripts/chain_probe2.py:113"),
+               "gather_probe": ("gather_probe.cu", "scripts/gather_probe.py:40"),
+               "mosaic_probe": ("mosaic_probe.cu", "scripts/mosaic_probe.py:14")}
+    entries, numbers = [], []
+    for name, per_variant in calls.items():
+        ms = plain_ms = 0.0
+        library_ms = None if per_variant[0][2] is None else 0.0
+        for kernel, plain, lib_call in per_variant:
+            k, p = time_pair(kernel, plain, 20, 2)
+            ms, plain_ms = ms + k, plain_ms + p
+            if lib_call is not None:
+                library_ms += (time_ms(lib_call, 20) + time_ms(lib_call, 20)) / 2
+        n_var = len(per_variant)
+        by_kind = {"bytes": 0.0, "operations": 0.0}
+        for variant in variants[name]:
+            ms_v, by_v = roofline(*probe_work(port, name, variant, cpu_inputs[name], PROBE_N, B),
+                                  INT32_OPS_PER_S)
+            by_kind[by_v] += ms_v
+        bound_ms = sum(by_kind.values())
+        bound_by = max(by_kind, key=by_kind.get)
+        src, replaces = sources[name]
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"hopperrender_tpu_torch/csrc/{src}", "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms})
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        numbers.append(f"{name} ({n_var} variants) {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+                       f"library {lib}, bound {bound_ms:.5f} ms ({bound_by})")
+    log(f"phase 8c numbers [{card}]: one call of each variant, summed, CUDA events (P1/P2 at n "
+        f"= {PROBE_N} on {B} blocks): " + "; ".join(numbers)
+        + f"; phase 8 took {time.perf_counter() - start:.1f} s")
+    return entries
 
 
 def finish(port, kernels: list[dict], card: str, kind: str) -> int:
@@ -747,6 +1062,9 @@ def main(argv: list[str]) -> int:
     # -- 7. the parallel path -----------------------------------------------------
     band_entry = parallel_path(port, dev, card)
 
+    # -- 8. the probes ------------------------------------------------------------
+    probe_entries = probe_phase(port, dev, card)
+
     # Bounds from this run's inputs: K1 reads and writes one (2, 270, 480) int16
     # flow; K2 reads both source frames and the flow once and writes T outputs.
     k2_out = 3 * nbytes(src[0], src[1])
@@ -779,7 +1097,7 @@ def main(argv: list[str]) -> int:
     for k in kernels:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None
-    return finish(port, kernels + [band_entry], card, kind)
+    return finish(port, kernels + [band_entry] + probe_entries, card, kind)
 
 
 if __name__ == "__main__":

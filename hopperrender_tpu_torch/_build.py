@@ -41,6 +41,14 @@ SIGNATURES = {
     #  raw_blend, is_hdr, black, white, stream)
     "hrt_warp_frames": (_P, _P, _P, _P, _P, _P, _I, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # The probes (probes/): (variant, n, tab, band, out, blocks, stream)
+    "hrt_chain_probe": (_I, _I, _P, _P, _P, _I, _P),
+    # (variant, n, tab, band, res, out, blocks, stream)
+    "hrt_chain_probe2": (_I, _I, _P, _P, _P, _P, _I, _P),
+    # (variant, x, idx, out, stream)
+    "hrt_gather_probe": (_I, _P, _P, _P, _P),
+    # (variant, idx, x, out, stream)
+    "hrt_mosaic_probe": (_I, _P, _P, _P, _P),
 }
 
 

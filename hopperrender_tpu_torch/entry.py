@@ -92,8 +92,9 @@ def run_stream_steps(mesh, jobs: list[dict]) -> list[str]:
     B streams and runs F - 2 steps (frames i, i+1, i+2 of each stream, each
     step warping with the previous step's flow). It writes y (B_local, F-2,
     [T,] H, W), uv, blurred (B_local, F-2, 2, low_h, low_w), delta (B_local,
-    F-2), each step's ms, warp_frames_band.launches, the rank's place and
-    backend, and foreign_modules(); returns the paths."""
+    F-2), each step's ms, warp_frames_band.launches and .raw_launches (mode
+    3), the rank's place and backend, and foreign_modules(); returns the
+    paths."""
     paths = []
     for job in jobs:
         with np.load(job["in_path"]) as z:
@@ -125,6 +126,7 @@ def run_stream_steps(mesh, jobs: list[dict]) -> list[str]:
         path = job["out_path"].format(rank=mesh.rank)
         np.savez(path, y=y_o, uv=uv_o, blurred=blurred, delta=delta,
                  step_ms=np.asarray(step_ms), band_launches=warp_kernel.warp_frames_band.launches,
+                 band_raw_launches=warp_kernel.warp_frames_band.raw_launches,
                  dp_index=mesh.dp_index, sp_index=mesh.sp_index, backend=mesh.backend,
                  foreign_modules=np.asarray(foreign_modules(), dtype=str))
         paths.append(path)

@@ -434,12 +434,13 @@ def band_rows(plane_h: int, num_shards: int) -> int:
 
 def warp_frame_rows(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black_level,
                     white_level, *, res_scalar: int, mode: int, is_hdr: bool,
-                    num_shards: int, shard_index: int):
+                    num_shards: int, shard_index: int, raw_blend: bool = False):
     """Shard shard_index's row band of both planes, for each t of the (T,)
     vector ts: (T, r_y, W) and (T, r_uv, W) with r = band_rows(plane_h,
     num_shards), holding plane rows [shard_index * r, (shard_index + 1) * r).
     Rows past the plane (the last shards of an uneven split) are 0. Any mode
-    0-6: warp_frame_plane per t with row_offset/out_rows."""
+    0-6, and mode 2's raw_blend: warp_frame_plane per t with
+    row_offset/out_rows."""
     if not 0 <= shard_index < num_shards:
         raise ValueError(f"shard {shard_index} of {num_shards}")
     dim_y, dim_x = src12_y.shape
@@ -455,7 +456,7 @@ def warp_frame_rows(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black_level,
                 out[i, :valid] = warp_frame_plane(
                     src12_y, src12_uv, src21_y, src21_uv, flow, t, black_level, white_level,
                     res_scalar=res_scalar, mode=mode, cz=cz, is_hdr=is_hdr,
-                    row_offset=row0, out_rows=valid)
+                    raw_blend=raw_blend, row_offset=row0, out_rows=valid)
         outs.append(out)
     return tuple(outs)
 

@@ -12,8 +12,10 @@ raw_blend variant).
 
 `warp_frames_band` is that kernel's mesh-sharded variant (warp_frame_band
 with num_shards > 1): one shard's row band of each plane, from the same
-kernel body, for the row split of parallel/mesh.py. Plain version
-`warp_frames_band_reference`; counter `warp_frames_band.launches`.
+kernel body, for the row split of parallel/mesh.py; raw_blend=True gives
+the band of the raw_blend variant, which the mesh colours for mode 3. Plain
+version `warp_frames_band_reference`; counters `warp_frames_band.launches`
+(modes 0/1/2) and `warp_frames_band.raw_launches` (raw_blend).
 """
 
 from __future__ import annotations
@@ -136,50 +138,55 @@ def _launch(tensors, black_level, white_level, band, *, res_scalar, mode, is_hdr
 def warp_frames_band_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
                                black_level: float, white_level: float, *,
                                res_scalar: int, mode: int, is_hdr: bool,
-                               num_shards: int, shard_index: int):
+                               num_shards: int, shard_index: int, raw_blend: bool = False):
     """Plain PyTorch version of K2's mesh-sharded variant: ops/warp.warp_frame_plane
     with row_offset/out_rows for each t (ops/warp.warp_frame_rows), padded with
     0 to band_rows(plane_h, num_shards) rows."""
-    _check_mode(mode, False)
+    _check_mode(mode, raw_blend)
     return warp_ops.warp_frame_rows(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
                                     black_level, white_level, res_scalar=res_scalar,
                                     mode=mode, is_hdr=is_hdr, num_shards=num_shards,
-                                    shard_index=shard_index)
+                                    shard_index=shard_index, raw_blend=raw_blend)
 
 
 def warp_frames_band(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
                      black_level: float, white_level: float, *,
                      res_scalar: int, mode: int, is_hdr: bool,
-                     num_shards: int, shard_index: int):
+                     num_shards: int, shard_index: int, raw_blend: bool = False):
     """K2's mesh-sharded variant: shard shard_index of num_shards computes plane
     rows [s * r, (s + 1) * r) of Y and of UV, r = ops/warp.band_rows(plane_h,
     num_shards) for each plane apart, into (T, r_y, W) and (T, r_uv, W). Rows
     past the plane are 0. Bit-identical to warp_frames_band_reference, and the
-    shards' bands stacked and cropped equal warp_frames. Launches the CUDA
-    kernel for CUDA tensors; CPU tensors take the plain version."""
+    shards' bands stacked and cropped equal warp_frames (raw_blend too).
+    Launches the CUDA kernel for CUDA tensors; CPU tensors take the plain
+    version."""
     tensors = _check(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
-                     mode=mode, is_hdr=is_hdr, raw_blend=False)
+                     mode=mode, is_hdr=is_hdr, raw_blend=raw_blend)
     if not 0 <= shard_index < num_shards:
         raise ValueError(f"warp_frames_band: shard {shard_index} of {num_shards}")
     if flow.device.type == "cpu":
         return warp_frames_band_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
                                           black_level, white_level, res_scalar=res_scalar,
                                           mode=mode, is_hdr=is_hdr, num_shards=num_shards,
-                                          shard_index=shard_index)
+                                          shard_index=shard_index, raw_blend=raw_blend)
     dim_y = src12_y.shape[0]
     r_y = warp_ops.band_rows(dim_y, num_shards)
     r_uv = warp_ops.band_rows(dim_y // 2, num_shards)
     out_y, out_uv = _launch(tensors, black_level, white_level,
                             (shard_index * r_y, r_y, shard_index * r_uv, r_uv),
-                            res_scalar=res_scalar, mode=mode, is_hdr=is_hdr, raw_blend=False,
+                            res_scalar=res_scalar, mode=mode, is_hdr=is_hdr, raw_blend=raw_blend,
                             name="warp_frames_band")
     # The kernel writes no row past the plane: zero them, as the plain version.
     for out, plane_h, r in ((out_y, dim_y, r_y), (out_uv, dim_y // 2, r_uv)):
         valid = max(0, plane_h - shard_index * r)
         if valid < r:
             out[:, valid:].view(torch.uint8).zero_()
-    warp_frames_band.launches += 1
+    if raw_blend:
+        warp_frames_band.raw_launches += 1
+    else:
+        warp_frames_band.launches += 1
     return out_y, out_uv
 
 
 warp_frames_band.launches = 0
+warp_frames_band.raw_launches = 0

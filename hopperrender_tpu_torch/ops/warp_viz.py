@@ -57,24 +57,29 @@ def warp_outputs(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black_level, wh
     return y, uv
 
 
-def _plane_coords(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+def _plane_coords(h: int, w: int, device, row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plane coordinates of the (h, w) rows [row0, row0 + h)."""
     cx = torch.arange(w, dtype=torch.int32, device=device)[None, :].expand(h, w)
-    cy = torch.arange(h, dtype=torch.int32, device=device)[:, None].expand(h, w)
+    cy = torch.arange(row0, row0 + h, dtype=torch.int32, device=device)[:, None].expand(h, w)
     return cx, cy
 
 
 def hsv_flow_overlay(raw_y: torch.Tensor, raw_uv: torch.Tensor, flow: torch.Tensor,
-                     black_level, white_level, *, res_scalar: int, is_hdr: bool):
+                     black_level, white_level, *, res_scalar: int, is_hdr: bool,
+                     row_offsets: tuple[int, int] = (0, 0)):
     """Mode 3: the HSV flow colour over the raw (pre-levels) mode-2 blend,
     then the levels. raw_y (..., H, W) and raw_uv (..., H/2, W) are K2's
     raw_blend outputs; the colour of a pixel comes from the negated flow of
-    its cell (ref: warpFrameKernelSDR.h:172-183)."""
+    its cell (ref: warpFrameKernelSDR.h:172-183). row_offsets (Y, UV): the
+    plane row of each input's first row, for the row bands of the mesh
+    (K2's mesh-sharded raw_blend variant); rows past the plane are coloured
+    as if the flow grid went on, and the mesh crops them."""
     dev = flow.device
     black = torch.as_tensor(black_level, dtype=F32, device=dev)
     white = torch.as_tensor(white_level, dtype=F32, device=dev)
     out = []
-    for cz, raw in ((0, raw_y), (1, raw_uv)):
-        cx, cy = _plane_coords(raw.shape[-2], raw.shape[-1], dev)
+    for cz, raw, row0 in ((0, raw_y, row_offsets[0]), (1, raw_uv, row_offsets[1])):
+        cx, cy = _plane_coords(raw.shape[-2], raw.shape[-1], dev, row0)
         coloured = warp_ops.hsv_colour(to_int32(raw), flow, cx, cy, res_scalar=res_scalar,
                                        cz=cz, is_hdr=is_hdr)
         out.append(from_int32(warp_ops._apply_levels(coloured, black, white, cz=cz,

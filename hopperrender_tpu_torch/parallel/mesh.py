@@ -12,8 +12,9 @@ single-GPU; the scale-out maps its axes onto a 2-D mesh of ranks:
         rank runs the same argmin and adjust, so the offsets stay replicated;
       - the warp splits output rows: the sources stay whole on every rank,
         each rank computes its row band of each plane (K2's mesh-sharded
-        variant, ops/warp_kernel.warp_frames_band), and an all-gather over
-        the dp row's ranks joins the bands.
+        variant, ops/warp_kernel.warp_frames_band; mode 3 colours the band
+        of its raw_blend variant), and an all-gather over the dp row's ranks
+        joins the bands.
 
 Rank r of a dp x sp mesh is (dp_index, sp_index) = divmod(r, sp). Collectives
 go through the sp group of the rank's dp row, on the rank's device: gloo's
@@ -35,11 +36,14 @@ import torch.distributed as dist
 
 from hopperrender_tpu_torch.ops import flow as flow_ops
 from hopperrender_tpu_torch.ops import warp as warp_ops
-from hopperrender_tpu_torch.ops import warp_kernel
+from hopperrender_tpu_torch.ops import warp_kernel, warp_viz
 
 MAX_R = flow_ops.MAX_R
-NOT_ON_THE_CARD = ("modes 3-6 on the mesh run only on the CPU (plain row route); on the "
-                   "card they are ROADMAP Queue 1, 'modes 3-6 on the mesh'")
+# The modes the mesh warps through K2's row band: 0/1/2, and 3 as the HSV
+# overlay of the raw_blend band.
+BAND_MODES = (0, 1, 2, 3)
+NOT_ON_THE_CARD = ("modes 4-6 on the mesh run only on the CPU (plain row route); on the "
+                   "card they are ROADMAP Queue 1, 'modes 4-6 on the mesh'")
 
 
 class Mesh:
@@ -105,11 +109,19 @@ def pyramid_flow_sharded(f1y, f1uv, f2y, f2uv, radius: int, delta_scalar: int,
 
 def warp_frame_band_sharded(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black, white, *,
                             res_scalar: int, mode: int, is_hdr: bool, mesh: Mesh):
-    """K2's mesh-sharded variant (modes 0/1/2) for this rank's row band of
-    each plane: (T, r_y, W), (T, r_uv, W) for the (T,) blending scalars ts."""
-    return warp_kernel.warp_frames_band(
-        src12_y, src12_uv, src21_y, src21_uv, flow, ts, black, white, res_scalar=res_scalar,
-        mode=mode, is_hdr=is_hdr, num_shards=mesh.sp, shard_index=mesh.sp_index)
+    """K2's mesh-sharded variant for this rank's row band of each plane:
+    (T, r_y, W), (T, r_uv, W) for the (T,) blending scalars ts. Modes 0/1/2
+    are the kernel's own; mode 3 is the HSV overlay of its raw_blend band, as
+    ops/warp_viz.warp_outputs composes the full frame."""
+    kw = dict(res_scalar=res_scalar, is_hdr=is_hdr, num_shards=mesh.sp,
+              shard_index=mesh.sp_index)
+    srcs = (src12_y, src12_uv, src21_y, src21_uv, flow, ts, black, white)
+    if mode != 3:
+        return warp_kernel.warp_frames_band(*srcs, mode=mode, **kw)
+    raw_y, raw_uv = warp_kernel.warp_frames_band(*srcs, mode=2, raw_blend=True, **kw)
+    rows = (mesh.sp_index * raw_y.shape[1], mesh.sp_index * raw_uv.shape[1])
+    return warp_viz.hsv_flow_overlay(raw_y, raw_uv, flow, black, white, res_scalar=res_scalar,
+                                     is_hdr=is_hdr, row_offsets=rows)
 
 
 def warp_frame_sharded(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black, white, *,
@@ -140,13 +152,14 @@ def make_multichip_step(mesh: Mesh, frame_height: int, frame_width: int, *, low_
     every rank; the (B, 2, low_h, low_w) int16 flow and (B,) int64 raw deltas.
 
     Modes 0/1/2 warp through K2's mesh-sharded variant (the kernel on the
-    card, its plain version on the CPU); modes 3-6 take the plain row route,
-    which runs on the CPU only."""
+    card, its plain version on the CPU), mode 3 through its raw_blend band
+    and the HSV overlay; modes 4-6 take the plain row route, which runs on
+    the CPU only."""
     if mode not in warp_ops.WARP_MODES:
         raise ValueError(f"output mode {mode} is not one of {warp_ops.WARP_MODES}")
     if t_batch < 1:
         raise ValueError(f"t_batch {t_batch} < 1")
-    use_kernel = mode in warp_kernel.KERNEL_MODES
+    use_kernel = mode in BAND_MODES
     if not use_kernel and mesh.device.type != "cpu":
         raise NotImplementedError(NOT_ON_THE_CARD)
     warp = warp_frame_band_sharded if use_kernel else warp_frame_sharded

@@ -1,8 +1,9 @@
 """Kernels K1 (flow blur) and K2 (batched warp, its raw_blend variant and its
 mesh-sharded row-band variant) against their plain PyTorch versions on a
 CUDA card, exactly, across bit depths, res scalars, modes and ragged shapes;
-the HSV colour on the card against the CPU; and the mesh's dryrun on the
-card. Every test skips without a card.
+the HSV colour on the card against the CPU; the mesh's dryrun and its mode-3
+route on the card; and the probe kernels P1-P4 against their plain versions.
+Every test skips without a card.
 
 On the card (whose machine may lack jax, which tests/conftest.py imports):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -12,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel
+from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel, warp_viz
 from hopperrender_tpu_torch.ops import warp as warp_ops
+from hopperrender_tpu_torch.probes import chain_probe, chain_probe2, gather_probe, mosaic_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -194,3 +196,143 @@ def test_warp_kernel_rejects_bad_input(dev):
     with pytest.raises(ValueError, match="uint16"):
         warp_kernel.warp_frames(y, uv, y, uv, flow, ts, 0.0, 255.0, res_scalar=0, mode=2,
                                 is_hdr=True)
+
+
+@pytest.mark.parametrize("h,w,rs,is_hdr,n", [(2160, 3840, 3, True, 2), (50, 86, 1, False, 3)])
+def test_mesh_mode_3_band_route_matches_the_plain_row_route(dev, h, w, rs, is_hdr, n):
+    """Mode 3 on the mesh: K2's mesh-sharded raw_blend band (its own counter,
+    equal to its plain version) coloured by the banded HSV overlay equals the
+    plain row route (ops/warp.warp_frame_rows in mode 3) on every shard."""
+    rng = np.random.default_rng(50 + n)
+    srcs = _frame(rng, h, w, is_hdr, dev) + _frame(rng, h, w, is_hdr, dev)
+    low = (2, -(-h // (1 << rs)), -(-w // (1 << rs)))
+    flow = torch.tensor(rng.integers(-64, 65, low).astype(np.int16), device=dev)
+    s = 256.0 if is_hdr else 1.0
+    ts = torch.tensor([0.2, 0.6, 1.0], dtype=torch.float32, device=dev)
+    kw = dict(res_scalar=rs, is_hdr=is_hdr)
+    for shard in range(n):
+        band = dict(num_shards=n, shard_index=shard)
+        before = warp_kernel.warp_frames_band.launches, warp_kernel.warp_frames_band.raw_launches
+        ry, ruv = warp_kernel.warp_frames_band(*srcs, flow, ts, 16 * s, 235 * s, mode=2,
+                                               raw_blend=True, **band, **kw)
+        assert (warp_kernel.warp_frames_band.launches,
+                warp_kernel.warp_frames_band.raw_launches) == (before[0], before[1] + 1)
+        py, puv = warp_kernel.warp_frames_band_reference(*srcs, flow, ts, 16 * s, 235 * s,
+                                                         mode=2, raw_blend=True, **band, **kw)
+        assert _same(ry, py) and _same(ruv, puv), f"raw band shard {shard}"
+        y, uv = warp_viz.hsv_flow_overlay(ry, ruv, flow, 16 * s, 235 * s, **kw,
+                                          row_offsets=(shard * ry.shape[1], shard * ruv.shape[1]))
+        wy, wuv = warp_ops.warp_frame_rows(*srcs, flow, ts, 16 * s, 235 * s, mode=3, **band, **kw)
+        vy, vuv = max(0, h - shard * ry.shape[1]), max(0, h // 2 - shard * ruv.shape[1])
+        assert _same(y[:, :vy], wy[:, :vy]) and _same(uv[:, :vuv], wuv[:, :vuv]), f"shard {shard}"
+
+
+def test_mesh_mode_3_on_the_card_matches_the_cpu(tmp_path):
+    """make_multichip_step in mode 3 on a (1, 2) mesh of ranks sharing the
+    card (gloo): the same outputs as the CPU ranks, through the raw_blend band
+    kernel on every rank."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hopperrender_tpu_torch import entry
+    from hopperrender_tpu_torch.parallel import launch
+    y, uv, flow = entry.example_frames(64, 128, 16, 32, batch=1)
+    in_path = str(tmp_path / "in.npz")
+    np.savez(in_path, y=y, uv=uv, flow=flow, ts=np.asarray([0.375], np.float32))
+    got = {}
+    for device in ("cpu", "cuda"):
+        job = dict(in_path=in_path, out_path=str(tmp_path / (device + ".{rank}.npz")), mode=3,
+                   res_scalar=2, radius=9, delta_scalar=8, neighbor_scalar=6, black=16.0,
+                   white=235.0)
+        paths = [p for (p,) in launch.run_ranks(entry.run_stream_steps, 1, 2, device=device,
+                                                 workdir=str(tmp_path), args=([job],),
+                                                 timeout=300)]
+        for path in paths:
+            with np.load(path) as z:
+                assert (int(z["band_raw_launches"]) > 0) == (device == "cuda")
+        got[device] = entry.gather_dp(paths, 2)
+    for k in ("y", "uv", "blurred", "delta"):
+        np.testing.assert_array_equal(got["cuda"][k], got["cpu"][k], err_msg=k)
+
+
+def _u32(t):
+    return t.view(torch.int32)
+
+
+def _probe_tables(r0_high):
+    """The script's table, one with crafted edge rows (the top r0, the lane
+    window's clamp, every c & 3) and one outside the script's ranges."""
+    rng = np.random.default_rng(40)
+    script = chain_probe.make_table(rng, r0_high)
+    edges = script.copy()
+    edges[:, :4] = [[r0_high - 1, 0, 288, r0_high - 8], [3839, 3836, 3837, 3838], [7, 0, 1, 3]]
+    wild = np.stack([rng.integers(-700, 1200, 512), rng.integers(-5000, 9000, 512),
+                     rng.integers(-20, 20, 512)]).astype(np.int32)
+    return {"script": script, "edges": edges, "wild": wild}
+
+
+@pytest.mark.parametrize("variant", chain_probe.VARIANTS)
+def test_chain_probe_kernel_matches_plain(dev, variant):
+    """P1 at n = 0, 1 and 600 (past the 512-entry table), on one block and on
+    132; every slot equal to the plain version."""
+    band = torch.from_numpy(chain_probe.make_band(np.random.default_rng(41))).to(dev)
+    for name, tab in _probe_tables(chain_probe.ROWS - 16).items():
+        tab = torch.from_numpy(tab).to(dev)
+        for n in (0, 1, 600):
+            for blocks in (1, 132):
+                before = chain_probe.run.launches
+                got = chain_probe.run(variant, n, tab, band, blocks=blocks)
+                assert chain_probe.run.launches == before + 1
+                want = chain_probe.run_reference(variant, n, tab, band, blocks=blocks)
+                assert torch.equal(_u32(got), _u32(want)), f"{name} n {n} blocks {blocks}"
+
+
+@pytest.mark.parametrize("variant", chain_probe2.KERNEL_VARIANTS)
+def test_chain_probe2_kernel_matches_plain(dev, variant):
+    rng = np.random.default_rng(42)
+    band = torch.from_numpy(chain_probe.make_band(rng)).to(dev)
+    residuals = {"res": rng.integers(0, 17, (8, 128), dtype=np.int32),
+                 "wild res": rng.integers(-3, 21, (8, 128), dtype=np.int32)}
+    for name, tab in _probe_tables(chain_probe.ROWS - 32).items():
+        tab = torch.from_numpy(tab).to(dev)
+        for r, res in residuals.items():
+            res = torch.from_numpy(res).to(dev)
+            for n in (0, 1, 600):
+                for blocks in (1, 132):
+                    got = chain_probe2.run(variant, n, tab, band, res, blocks=blocks)
+                    want = chain_probe2.run_reference(variant, n, tab, band, res, blocks=blocks)
+                    assert torch.equal(_u32(got), _u32(want)), f"{name} {r} n {n} B {blocks}"
+
+
+def test_transpose8_is_refused_before_a_launch(dev):
+    tab, band, res = chain_probe2.make_inputs(0, dev)
+    before = chain_probe2.run.launches
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        chain_probe2.run("transpose8", 1, tab, band, res)
+    assert chain_probe2.run.launches == before
+
+
+@pytest.mark.parametrize("variant", gather_probe.VARIANTS)
+def test_gather_probe_kernel_matches_plain(dev, variant):
+    rng = np.random.default_rng(43)
+    x, script_idx = gather_probe.make_inputs(dev)
+    edges = rng.integers(0, 64, (8, 128), dtype=np.int32)
+    edges[0, :12] = [0, 63, -1, -64, -65, 64, 248, 249, -7, -8, -263, 1000]
+    for idx in (script_idx, torch.from_numpy(edges).to(dev),
+                torch.from_numpy(rng.integers(-263, 249, (8, 128), dtype=np.int32)).to(dev)):
+        before = gather_probe.run.launches
+        got = gather_probe.run(variant, x, idx)
+        assert gather_probe.run.launches == before + 1
+        assert torch.equal(got, gather_probe.run_reference(variant, x, idx))
+
+
+@pytest.mark.parametrize("variant", mosaic_probe.VARIANTS)
+def test_mosaic_probe_kernel_matches_plain(dev, variant):
+    x = torch.from_numpy(np.random.default_rng(44).integers(
+        -2**31, 2**31, (128, 256), dtype=np.int32)).to(dev)
+    for offsets in [(5, 128), (0, 0), (120, 127), (121, 255), (127, 256), (-1, -1), (-9, 1000),
+                    (-300, 7), (17, 129), (-2**31, 2**31 - 1)]:
+        idx, _ = mosaic_probe.make_inputs(offsets, dev)
+        before = mosaic_probe.run.launches
+        got = mosaic_probe.run(variant, idx, x)
+        assert mosaic_probe.run.launches == before + 1
+        assert torch.equal(got, mosaic_probe.run_reference(variant, idx, x)), f"idx {offsets}"

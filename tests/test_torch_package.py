@@ -44,6 +44,7 @@ def test_port_never_imports_jax():
     nor anything of the JAX package in sys.modules."""
     mods = _port_modules()
     assert "hopperrender_tpu_torch.server.control" in mods
+    assert "hopperrender_tpu_torch.probes.__main__" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -51,8 +52,8 @@ def test_port_never_imports_jax():
             "port = chip_smoke.import_port()\n"
             "assert port.FrameServer and port.Settings and port.CadenceController\n"
             "assert port.nv12.synthetic_frame and port.config.MAX_SEARCH_RADIUS\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-            "             or m == 'hopperrender_tpu' or m.startswith('hopperrender_tpu.'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'hopperrender_tpu', 'scripts'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -63,12 +64,13 @@ def test_port_never_imports_jax():
 
 
 def _imported_names(path):
-    """The modules of jax or of the JAX package that a file imports."""
+    """The modules of jax, of the JAX package or of its scripts/ that a file
+    imports."""
     with open(path) as f:
         tree = ast.parse(f.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
-    return [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "hopperrender_tpu")]
+    return [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "hopperrender_tpu", "scripts")]
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
@@ -82,6 +84,7 @@ def test_port_files_import_nothing_of_the_jax_package():
     for dirpath, _, files in os.walk(os.path.join(ROOT, "hopperrender_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15
+    assert any(p.endswith(os.path.join("probes", "chain_probe.py")) for p in paths)
     assert {p: _imported_names(p) for p in paths if _imported_names(p)} == {}
 
 
@@ -97,6 +100,36 @@ def test_plain_versions_swaps_the_wrappers_and_restores_them():
             assert warp_kernel.warp_frames is warp_kernel.warp_frames_reference
             raise KeyError("restored on the way out")
     assert (blur_kernel.blur_flow, warp_kernel.warp_frames) == kernels
+
+
+def test_probe_work_counts_every_variant_and_the_words_read():
+    """chip_smoke's probe bounds: PROBE_OPS names every variant with a kernel,
+    and probe_work counts the words a variant reads, once."""
+    import chip_smoke
+    from hopperrender_tpu_torch.probes import chain_probe, chain_probe2, gather_probe
+    from hopperrender_tpu_torch.probes import mosaic_probe
+
+    port = chip_smoke.import_port()
+    for name, variants in (("chain_probe", chain_probe.VARIANTS),
+                           ("chain_probe2", chain_probe2.KERNEL_VARIANTS),
+                           ("gather_probe", gather_probe.VARIANTS),
+                           ("mosaic_probe", mosaic_probe.VARIANTS)):
+        assert set(chip_smoke.PROBE_OPS[name]) == set(variants)
+    tab, band = chain_probe.make_inputs(0)
+    band_words = chain_probe.band_words
+    moved, ops = chip_smoke.probe_work(port, "chain_probe", "load8x128", (tab, band), 1, 2)
+    assert chain_probe.band_words is band_words
+    assert moved == 4 * (1024 + 2 + 2 * 1024)      # one 8 x 128 window, r0 and c, 2 outputs
+    assert ops == 2 * (19 + 1024 * 3)
+    moved, _ = chip_smoke.probe_work(port, "chain_probe", "empty", (tab, band), 600, 1)
+    assert moved == 4 * (512 + 1024)                 # r0 of each entry; no band word
+    # The script's take_along_lane reads one word per row of x (x[i, 3 i + 7]).
+    idx = gather_probe.make_inputs()[1]
+    moved, ops = chip_smoke.probe_work(port, "gather_probe", "take_along_lane", (idx,), 0, 1)
+    assert moved == 4 * (8 + 1024) + idx.numel() * 4 and ops == 1024 * 9
+    midx = mosaic_probe.make_inputs()[0]
+    moved, _ = chip_smoke.probe_work(port, "mosaic_probe", "dyn_sublane_16", (midx,), 0, 1)
+    assert moved == 4 * (2048 + 2048) + 8
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch):

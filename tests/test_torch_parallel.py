@@ -14,6 +14,7 @@ mode 2 is exact.
 """
 
 import os
+import types
 
 import numpy as np
 import pytest
@@ -30,7 +31,7 @@ from hopperrender_tpu.parallel.mesh import make_multichip_step as jax_multichip_
 from hopperrender_tpu_torch import entry
 from hopperrender_tpu_torch.ops import flow as torch_flow
 from hopperrender_tpu_torch.ops import warp as torch_warp
-from hopperrender_tpu_torch.ops import warp_kernel
+from hopperrender_tpu_torch.ops import warp_kernel, warp_viz
 from hopperrender_tpu_torch.parallel import launch
 from hopperrender_tpu_torch.parallel.batched import batched_step
 
@@ -128,6 +129,55 @@ def test_band_reference_stacks_to_the_full_warp(rng, n, is_hdr):
     with pytest.raises(ValueError, match="mode"):
         warp_kernel.warp_frames_band(*args, ts, black, white, num_shards=n, shard_index=0,
                                      res_scalar=rs, mode=3, is_hdr=is_hdr)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_banded_hsv_overlay_stacks_to_the_full_overlay(rng, n, is_hdr):
+    """Mode 3 on the mesh: the HSV overlay of each shard's raw_blend band
+    (K2's mesh-sharded raw_blend variant; its plain version on the CPU), at
+    the band's row offsets, stacked over the shards and cropped, equals
+    hsv_flow_overlay of the full-frame raw blend. 50 rows (UV 25) split
+    unevenly for every n."""
+    h, w, rs = 50, 96, 2
+    srcs = make_frame(rng, h, w, is_hdr) + make_frame(rng, h, w, is_hdr)
+    flow = _t(make_flow(rng, -(-h >> rs), w >> rs, max_mag=30))
+    args = (*map(_t, srcs), flow)
+    black, white = _levels(is_hdr)
+    ts = torch.tensor((0.2, 0.6, 1.0), dtype=torch.float32)
+    kw = dict(res_scalar=rs, is_hdr=is_hdr)
+    raw = warp_kernel.warp_frames(*args, ts, black, white, mode=2, raw_blend=True, **kw)
+    want_y, want_uv = warp_viz.hsv_flow_overlay(*raw, flow, black, white, **kw)
+    bands = []
+    for s in range(n):
+        ry, ruv = warp_kernel.warp_frames_band(*args, ts, black, white, mode=2, raw_blend=True,
+                                               num_shards=n, shard_index=s, **kw)
+        bands.append(warp_viz.hsv_flow_overlay(ry, ruv, flow, black, white, **kw,
+                                               row_offsets=(s * ry.shape[1], s * ruv.shape[1])))
+    assert torch.equal(torch.cat([b[0] for b in bands], 1)[:, :h], want_y)
+    assert torch.equal(torch.cat([b[1] for b in bands], 1)[:, :h // 2], want_uv)
+    # ... and the mode-3 plain row route, per shard.
+    for s, (by, buv) in enumerate(bands):
+        py, puv = torch_warp.warp_frame_rows(*args, ts, black, white, mode=3, num_shards=n,
+                                             shard_index=s, **kw)
+        valid_y, valid_uv = max(0, h - s * by.shape[1]), max(0, h // 2 - s * buv.shape[1])
+        assert torch.equal(by[:, :valid_y], py[:, :valid_y])
+        assert torch.equal(buv[:, :valid_uv], puv[:, :valid_uv])
+
+
+def test_multichip_step_on_the_card_refuses_only_modes_4_to_6():
+    """On a CUDA mesh, modes 0-3 build a step (mode 3 through the raw_blend
+    band and the overlay); modes 4-6 raise, naming only themselves. The
+    check comes before any collective, so a stand-in mesh is enough."""
+    from hopperrender_tpu_torch.parallel import mesh as torch_mesh
+    card = types.SimpleNamespace(device=torch.device("cuda"))
+    kw = dict(low_h=LOW_H, low_w=LOW_W, res_scalar=RS)
+    for mode in (0, 1, 2, 3):
+        assert callable(torch_mesh.make_multichip_step(card, H, W, mode=mode, **kw))
+    for mode in (4, 5, 6):
+        with pytest.raises(NotImplementedError, match="modes 4-6 on the mesh") as exc:
+            torch_mesh.make_multichip_step(card, H, W, mode=mode, **kw)
+        assert "3" not in str(exc.value).split("ROADMAP")[0]
 
 
 @pytest.mark.parametrize("is_hdr,mode", [(False, 2), (True, 0)])

@@ -4,6 +4,7 @@
     python3 chip_smoke.py                   # from the repository root; needs one CUDA card
     python3 chip_smoke.py --parallel-only   # phases 1, 2 and 7; on four cards, 7c
                                             # adds meshes of a rank per card (NCCL)
+    python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only
 
 Builds the hand-written CUDA kernels from hopperrender_tpu_torch/csrc (nvcc,
 sm_90a), then runs these phases, one line each:
@@ -11,11 +12,13 @@ sm_90a), then runs these phases, one line each:
   1. the device: torch's name for it and nvidia-smi's name and power limit;
   2. the build: nvcc's time and the library's path;
   3. K1 (flow blur) against its plain PyTorch version at the 4K flow grid
-     (2, 270, 480), exact;
-  4. K2 (batched warp) against its plain version at 4K HDR P010, flow +-64,
-     t = (0.4, 0.8) and (0.2, 0.6, 1.0), levels 16/235, modes 0/1/2, exact;
+     (2, 270, 480) and at (2, 33, 65), exact;
+  4. K2 (batched warp) against its plain version at 4K HDR P010, on three
+     flow grids: random +-64, smooth (K1 over random +-500) and mirror-edge
+     (+-64 toward both edges in x and y), t = (0.4, 0.8) and (0.2, 0.6,
+     1.0), levels 16/235, modes 0/1/2, exact;
      4b. K2's raw_blend variant (mode 2 without levels) against its plain
-     version, same sources, t = (0.2, 0.6, 1.0), exact;
+     version, same sources and flows, t = (0.2, 0.6, 1.0), exact;
      4c. the HSV flow colour (mode 3) on the card against the same function
      on the CPU, every (ox, oy) in +-512, SDR and HDR, res_impact 1 and 4,
      channels 0/1/2, exact;
@@ -30,17 +33,26 @@ sm_90a), then runs these phases, one line each:
      modes 5/6 K1 and K2);
   6. the numbers: served wall time per source frame (host clock around
      push_frame), flow time per source frame, warp time per output, copy
-     time, each kernel's time against its plain version's, peak memory, and
-     a torch.profiler pass over three more served frames: device busy time,
-     idle share and launches per source frame, and device time by kind;
-     the warp time per output of modes 3-6 (CUDA events) from 5b/5c;
+     time, peak memory, and a torch.profiler pass over three more served
+     frames: device busy time, idle share and launches per source frame, and
+     device time by kind; the warp time per output of modes 3-6 (CUDA
+     events) from 5b/5c; and the kernels' device times, graph-timed (n
+     calls captured in one CUDA graph, the replay timed with CUDA events, so
+     no host time is in them) on random and on smooth flow: K1, K2 (mode 2
+     T = 3) and its raw_blend variant, each wrapper's host us per call (the
+     host clock over back-to-back calls before a synchronise), the plain
+     versions (CUDA events), and the floor of an empty launch; beside them,
+     what holds K2: mode 0 T = 3 and mode 2 T = 1, zero and pan flow, and a
+     copy of K2's bytes (the card's reachable rate);
   7. the parallel path:
      7a. K2's mesh-sharded variant (warp_frames_band) against its plain
      version for every shard, and the shards stacked against the full K2:
      4K HDR P010, flow +-64, t (0.2, 0.6, 1.0), modes 0/1/2, levels 16/235,
-     n = 2, 4, 8; and 1080p SDR at n = 8, where UV's rows split unevenly;
-     mode 3 at 4K HDR, n = 2: the band's raw_blend variant against its plain
-     version, coloured by the banded HSV overlay, against the plain row route;
+     n = 2, 4, 8; smooth and mirror-edge flow at n = 2; and 1080p SDR at n =
+     8, where UV's rows split unevenly; mode 3 at 4K HDR, n = 2: the band's
+     raw_blend variant against its plain version (each flow), coloured by the
+     banded HSV overlay, against the plain row route; the band graph-timed
+     on random and smooth flow, as phase 6;
      7b. batched_step on two 4K HDR streams (panning 3 px/frame, radius 16,
      three steps): outputs, flow and delta against the single-stream path
      (pyramid_flow + K2), and against the same run on the plain versions;
@@ -51,8 +63,7 @@ sm_90a), then runs these phases, one line each:
      single-device results (mode 3: K2's raw_blend variant and the HSV
      overlay on the full frame); every rank must have launched the band
      kernel, and in mode 3 its raw_blend variant. Its numbers: each mesh's
-     second mode-2 step (CUDA events in the ranks) and the band kernel
-     against its plain version;
+     second mode-2 step (CUDA events in the ranks);
   8. the probes P1-P4 (hopperrender_tpu_torch/probes/):
      8a. each kernel against its plain version, exactly: every P1 and P2
      variant at n = 600 (past the 512-entry table) on 1 block and on 132,
@@ -69,7 +80,9 @@ sm_90a), then runs these phases, one line each:
 Before each served path, and before the probe path, every launch counter
 is set to 0, and after it each kernel of that path must have launched (the
 ranks of 7c start at 0). Then one JSON line of the kernels
-(with each one's bound: the least time the card could take for its work),
+(with each one's bound: the least time the card could take for its work;
+`ms` the graph-timed time on random flow, `smooth_ms` on smooth flow for
+K1, K2, raw_blend and the band, and their `host_us`),
 nvidia-smi's line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises: the script exits non-zero and prints no result. It imports
 nothing of JAX and nothing of the JAX package.
@@ -260,6 +273,175 @@ def time_pair(kernel, plain, n_kernel: int, n_plain: int) -> tuple[float, float]
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def graph_ms(fn, n: int, replays: int = 3) -> float:
+    """Device ms of one call: n calls captured in one CUDA graph, the graph
+    replayed `replays` times, each replay timed with CUDA events; the median
+    replay over n. The host's share of a call (Python, ctypes, allocation) is
+    not in it: the kernels run back to back on the device."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                        # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(fn, n: int) -> float:
+    """Host microseconds per call: the host clock over n back-to-back calls,
+    before any synchronise (the wrapper's Python, ctypes call and launch)."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - start) / n
+    torch.cuda.synchronize()
+    return us
+
+
+def empty_launch_ms(port) -> float | None:
+    """Graph-timed device ms of an empty launch (csrc/errors.cu): the floor
+    under any launch-bound kernel. None where the library has no such entry
+    point (a tree from before it was added)."""
+    lib = port._build.load().lib
+    launch = getattr(lib, "hrt_empty_launch", None)
+    if launch is None:
+        return None
+    return graph_ms(lambda: port._build.check(
+        launch(torch.cuda.current_stream().cuda_stream), "empty launch"), 200)
+
+
+def smooth_flow(port, rng) -> torch.Tensor:
+    """A smooth 4K flow grid: K1 over random +-500 offsets (the box average of
+    8x8 cells; neighbouring cells share 7/8 of their window), +-60 or so."""
+    offsets = torch.tensor(rng.integers(-500, 501, LOW).astype(np.int16), device="cuda")
+    return port.blur_kernel.blur_flow(offsets)
+
+
+def edge_flow(rng) -> torch.Tensor:
+    """A 4K flow grid that drives runs across both mirror edges in x and in y:
+    +64 in the left (top) half, -64 in the right (bottom) half, +-8 noise."""
+    _, low_h, low_w = LOW
+    yy, xx = np.mgrid[0:low_h, 0:low_w]
+    noise = rng.integers(-8, 9, LOW)
+    fx = np.where(xx < low_w // 2, 64, -64) + noise[0]
+    fy = np.where(yy < low_h // 2, 64, -64) + noise[1]
+    return torch.tensor(np.stack([fx, fy]).astype(np.int16), device="cuda")
+
+
+def k2_inputs(port, dev) -> types.SimpleNamespace:
+    """Phases 3, 4 and 6's inputs, from seed 0: K1's random +-500 offsets, two
+    4K P010 source frames, and three flow grids: random +-64, smooth and
+    mirror-edge."""
+    rng = np.random.default_rng(0)
+    offsets = torch.tensor(rng.integers(-500, 501, LOW).astype(np.int16), device=dev)
+
+    def p010(shape):
+        return torch.tensor(rng.integers(0, 1024, shape, dtype=np.uint16) << 6, device=dev)
+
+    src = [p010((H, W)), p010((H // 2, W)), p010((H, W)), p010((H // 2, W))]
+    flow = torch.tensor(rng.integers(-64, 65, LOW).astype(np.int16), device=dev)
+    flows = {"random +-64": flow, "smooth": smooth_flow(port, rng), "mirror-edge": edge_flow(rng)}
+    return types.SimpleNamespace(
+        rng=rng, offsets=offsets, src=src, flows=flows,
+        t1=torch.tensor((0.6,), dtype=torch.float32, device=dev),
+        t3=torch.tensor((0.2, 0.6, 1.0), dtype=torch.float32, device=dev),
+        black=16 * 256.0, white=235 * 256.0)
+
+
+def band_numbers(port, src, flows: dict, t3, black: float, white: float) -> dict:
+    """K2's band (n 2, shard 0, mode 2, T = 3, 4K HDR): graph-timed device ms
+    on random and on smooth flow, host us per call, plain ms (CUDA events)."""
+    wk = port.warp_kernel
+    kw = dict(res_scalar=3, mode=2, is_hdr=True, num_shards=2, shard_index=0)
+
+    def band(fl, fn=wk.warp_frames_band):
+        return lambda: fn(*src, fl, t3, black, white, **kw)
+
+    random, plain = flows["random +-64"], band(flows["random +-64"],
+                                               wk.warp_frames_band_reference)
+    return {"ms": graph_ms(band(random), 20), "smooth_ms": graph_ms(band(flows["smooth"]), 20),
+            "host_us": host_us(band(random), 20),
+            "plain_ms": (time_ms(plain, 2) + time_ms(plain, 2)) / 2}
+
+
+def kernel_numbers(port, inp) -> dict:
+    """Phase 6's kernel numbers at 4K HDR: K1, K2 (mode 2 T = 3) and its
+    raw_blend variant, each graph-timed on random and on smooth flow, host us
+    per wrapper call, the plain version's ms (CUDA events), and the
+    empty-launch floor. To see what holds K2: mode 0 T = 3 and mode 2 T = 1
+    on random, smooth and zero flow, mode 2 T = 3 on zero flow and on a
+    pan, and a copy of K2's bytes."""
+    k1, wk = port.blur_kernel, port.warp_kernel
+    src, t1, t3, black, white = inp.src, inp.t1, inp.t3, inp.black, inp.white
+    random, smooth = inp.flows["random +-64"], inp.flows["smooth"]
+
+    def k2(fl, ts, mode=2, raw=False, fn=None):
+        fn = fn or wk.warp_frames
+        return lambda: fn(*src, fl, ts, black, white, res_scalar=3, mode=mode, is_hdr=True,
+                          raw_blend=raw)
+
+    def plain_ms(fn, n):
+        return (time_ms(fn, n) + time_ms(fn, n)) / 2
+
+    out = {"empty_launch_ms": empty_launch_ms(port)}
+    out["blur_flow"] = {"ms": graph_ms(lambda: k1.blur_flow(inp.offsets), 200),
+                        "smooth_ms": graph_ms(lambda: k1.blur_flow(smooth), 200),
+                        "host_us": host_us(lambda: k1.blur_flow(inp.offsets), 200),
+                        "plain_ms": plain_ms(lambda: k1.blur_flow_reference(inp.offsets), 20)}
+    for name, mode, raw in (("warp_frames", 2, False), ("warp_frames_raw_blend", 2, True)):
+        out[name] = {"ms": graph_ms(k2(random, t3, mode, raw), 20),
+                     "smooth_ms": graph_ms(k2(smooth, t3, mode, raw), 20),
+                     "host_us": host_us(k2(random, t3, mode, raw), 20),
+                     "plain_ms": plain_ms(k2(random, t3, mode, raw, wk.warp_frames_reference), 2)}
+    zero = torch.zeros_like(random)
+    pan = zero.clone()
+    pan[0] = 3       # every cell 3 px along x: the served stream's pan
+    out["variants"] = {
+        f"{label} {flow}": graph_ms(k2(fl, ts, mode), 20)
+        for label, ts, mode in (("mode 0 T=3", t3, 0), ("mode 2 T=1", t1, 2))
+        for flow, fl in (("random", random), ("smooth", smooth), ("zero flow", zero))}
+    out["variants"]["mode 2 T=3 zero flow"] = graph_ms(k2(zero, t3, 2), 20)
+    out["variants"]["mode 2 T=3 pan (3, 0)"] = graph_ms(k2(pan, t3, 2), 20)
+    # The card's achievable rate for K2's bytes: a copy that reads half of
+    # them and writes the other half.
+    half = (nbytes(*src) + 3 * nbytes(src[0], src[1])) // 2
+    buf, dst = (torch.empty(half, dtype=torch.uint8, device=random.device) for _ in range(2))
+    out["variants"]["copy of K2's bytes"] = graph_ms(lambda: dst.copy_(buf), 20)
+    return out
+
+
+def format_numbers(numbers: dict) -> str:
+    """One line of kernel_numbers (and band_numbers under "warp_frames_band")."""
+    parts = []
+    floor = numbers.get("empty_launch_ms")
+    parts.append("empty launch " + ("not in this build" if floor is None else f"{floor:.5f} ms"))
+    for name in ("blur_flow", "warp_frames", "warp_frames_raw_blend", "warp_frames_band"):
+        if name in numbers:
+            v = numbers[name]
+            smooth = f", smooth {v['smooth_ms']:.5f}" if "smooth_ms" in v else ""
+            parts.append(f"{name} {v['ms']:.5f} ms{smooth}, host {v['host_us']:.1f} us/call, "
+                         f"plain {v['plain_ms']:.4f} ms")
+    parts += [f"{k} {v:.5f} ms" for k, v in numbers.get("variants", {}).items()]
+    return "; ".join(parts)
+
+
 def replay_fixture(path: str, device) -> None:
     """A golden fixture through the port's engine, driven as
     tests/test_golden_fixtures.py drives the JAX engine; raises on any byte
@@ -368,8 +550,8 @@ def parallel_path(port, dev, card: str) -> dict:
 
     # -- 7a. the kernel: every shard against its plain version, the shards
     # stacked against the full K2, at 4K HDR P010 with flow +-64 (n = 2, 4,
-    # 8) and 1080p SDR (n = 8: UV's 540 rows split into 68-row bands, the
-    # last one 64).
+    # 8), smooth and mirror-edge flow (n = 2), and 1080p SDR (n = 8: UV's 540
+    # rows split into 68-row bands, the last one 64).
     rng = np.random.default_rng(7)
     src = [torch.tensor(rng.integers(0, 1024, shape, dtype=np.uint16) << 6, device=dev)
            for shape in ((H, W), (H // 2, W)) * 2]
@@ -379,7 +561,9 @@ def parallel_path(port, dev, card: str) -> dict:
     sdr = [torch.tensor(rng.integers(0, 256, shape, dtype=np.uint8), device=dev)
            for shape in ((1080, 1920), (540, 1920)) * 2]
     sdr_flow = torch.tensor(rng.integers(-64, 65, (2, 270, 480)).astype(np.int16), device=dev)
+    flows = {"random +-64": flow, "smooth": smooth_flow(port, rng), "mirror-edge": edge_flow(rng)}
     cases = [(src, flow, black, white, 3, True, n) for n in (2, 4, 8)]
+    cases += [(src, flows[k], black, white, 3, True, 2) for k in ("smooth", "mirror-edge")]
     cases.append((sdr, sdr_flow, 16.0, 235.0, 2, False, 8))
     band_err, n_shards = 0, 0
     for srcs, fl, lo, hi, rs, is_hdr, n in cases:
@@ -401,16 +585,19 @@ def parallel_path(port, dev, card: str) -> dict:
             require_equal(torch.cat(bands_y, 1)[:, :h], full_y, f"K2 bands {h}p n {n} Y")
             require_equal(torch.cat(bands_uv, 1)[:, :h // 2], full_uv, f"K2 bands {h}p n {n} UV")
     # Mode 3 at 4K HDR, n = 2: the band's raw_blend variant against its plain
-    # version, and coloured by the banded overlay against the plain row route.
+    # version (each flow), and coloured by the banded overlay against the
+    # plain row route (random flow).
     kw = dict(res_scalar=3, is_hdr=True)
     for shard in range(2):
         band = dict(num_shards=2, shard_index=shard)
+        for flow_name, fl in flows.items():
+            ry, ruv = k2_band(*src, fl, t3, black, white, mode=2, raw_blend=True, **band, **kw)
+            py, puv = wk.warp_frames_band_reference(*src, fl, t3, black, white, mode=2,
+                                                    raw_blend=True, **band, **kw)
+            what = f"K2 band raw_blend 2160p {flow_name} n 2 shard {shard}"
+            band_err = max(band_err, require_equal(ry, py, what + " Y"),
+                           require_equal(ruv, puv, what + " UV"))
         ry, ruv = k2_band(*src, flow, t3, black, white, mode=2, raw_blend=True, **band, **kw)
-        py, puv = wk.warp_frames_band_reference(*src, flow, t3, black, white, mode=2,
-                                                raw_blend=True, **band, **kw)
-        what = f"K2 band raw_blend 2160p n 2 shard {shard}"
-        band_err = max(band_err, require_equal(ry, py, what + " Y"),
-                       require_equal(ruv, puv, what + " UV"))
         y, uv = port.warp_viz.hsv_flow_overlay(ry, ruv, flow, black, white, **kw,
                                                row_offsets=(shard * ry.shape[1],
                                                             shard * ruv.shape[1]))
@@ -419,17 +606,12 @@ def parallel_path(port, dev, card: str) -> dict:
         require_equal(y, wy, f"mode 3 band 2160p n 2 shard {shard} Y")
         require_equal(uv, wuv, f"mode 3 band 2160p n 2 shard {shard} UV")
     torch.cuda.synchronize()
-    band_ms, band_plain_ms = time_pair(
-        lambda: k2_band(*src, flow, t3, black, white, res_scalar=3, mode=2, is_hdr=True,
-                        num_shards=2, shard_index=0),
-        lambda: wk.warp_frames_band_reference(*src, flow, t3, black, white, res_scalar=3,
-                                              mode=2, is_hdr=True, num_shards=2, shard_index=0),
-        50, 3)
+    band = band_numbers(port, src, flows, t3, black, white)
     log(f"phase 7a K2 band: {n_shards} shard calls (4K HDR P010 flow +-64 at n = 2, 4, 8; "
-        f"1080p SDR at n = 8), modes 0/1/2, t (0.2, 0.6, 1.0): each equal to its plain "
-        f"version, the shards stacked equal to the full K2; mode 3 at 4K HDR n = 2: the "
-        f"raw_blend band equal to its plain version, and with the banded HSV overlay equal "
-        f"to the plain row route; max |err| {band_err}")
+        f"smooth and mirror-edge flow at n = 2; 1080p SDR at n = 8), modes 0/1/2, t (0.2, "
+        f"0.6, 1.0): each equal to its plain version, the shards stacked equal to the full K2; "
+        f"mode 3 at 4K HDR n = 2: the raw_blend band equal to its plain version (each flow), "
+        f"and with the banded HSV overlay equal to the plain row route; max |err| {band_err}")
 
     # -- 7b. batched_step: two 4K HDR streams panning 3 px/frame, radius 16,
     # three steps, against the single-stream path (pyramid_flow + K2) and
@@ -565,14 +747,16 @@ def parallel_path(port, dev, card: str) -> dict:
         f"device results byte for byte; K2 band launched {mesh_launches} times over the ranks "
         f"(mode 2), its raw_blend variant {mesh_raw_launches} times (mode 3); "
         + "; ".join(mesh_lines))
-    log(f"phase 7 numbers [{card}]: K2 band (n 2, shard 0) {band_ms:.4f} ms vs plain "
-        f"{band_plain_ms:.4f} ms per T=3 mode-2 call at {W}x{H} HDR")
+    log(f"phase 7 numbers [{card}]: K2 band (n 2, shard 0, mode 2, T = 3, {W}x{H} HDR) "
+        f"graph-timed {band['ms']:.5f} ms (random +-64 flow), {band['smooth_ms']:.5f} ms "
+        f"(smooth), host {band['host_us']:.1f} us/call, plain {band['plain_ms']:.4f} ms")
     bound_ms, bound_by = band_bound(src, flow, t3, 2, 0)
     return {"name": "warp_frames_band", "route": "cuda",
             "source": "hopperrender_tpu_torch/csrc/warp_frame.cu",
             "replaces": "hopperrender_tpu/ops/warp_band.py:695 (mesh-sharded variant)",
-            "launches": mesh_launches, "max_abs_err": band_err, "ms": band_ms,
-            "plain_ms": band_plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "launches": mesh_launches, "max_abs_err": band_err, "ms": band["ms"],
+            "smooth_ms": band["smooth_ms"], "host_us": band["host_us"],
+            "plain_ms": band["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
 
 
@@ -810,6 +994,10 @@ def main(argv: list[str]) -> int:
     parser.add_argument("--parallel-only", action="store_true",
                         help="run phases 1, 2 and 7 only: the parallel path, e.g. on a host "
                              "with four cards, where 7c adds the NCCL meshes")
+    parser.add_argument("--kernel-times", action="store_true",
+                        help="run phases 1 and 2, then time the kernels only (phase 6's and "
+                             "7a's kernel numbers), whichever hopperrender_tpu_torch sits beside "
+                             "this script: a copy of it in an older tree times that tree's kernels")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs a CUDA card",
@@ -845,54 +1033,64 @@ def main(argv: list[str]) -> int:
         f"instantiations, library {os.path.relpath(lib.path, ROOT)}")
     if args.parallel_only:
         return finish(port, [parallel_path(port, dev, card)], card, kind)
+    if args.kernel_times:
+        inp = k2_inputs(port, dev)
+        numbers = kernel_numbers(port, inp)
+        numbers["warp_frames_band"] = band_numbers(port, inp.src, inp.flows, inp.t3, inp.black,
+                                                   inp.white)
+        log(f"kernel times [{card}] of {ROOT}: {format_numbers(numbers)}")
+        log(json.dumps(numbers))
+        return 0
 
     # -- 3. K1 against its plain version ----------------------------------------
-    rng = np.random.default_rng(0)
+    inp = k2_inputs(port, dev)
+    rng, offsets, src, flows = inp.rng, inp.offsets, inp.src, inp.flows
+    black, white, t3 = inp.black, inp.white, inp.t3
     k1_err = 0
-    offsets = torch.tensor(rng.integers(-500, 501, LOW).astype(np.int16), device=dev)
     minus3 = torch.full(LOW, -3, dtype=torch.int16, device=dev)
-    for x, what in ((offsets, "random +-500"), (minus3, "all -3")):
+    odd = torch.tensor(rng.integers(-32768, 32768, (2, 33, 65)).astype(np.int16), device=dev)
+    for x, what in ((offsets, "random +-500"), (minus3, "all -3"), (odd, "(2, 33, 65)")):
         k1_err = max(k1_err, require_equal(blur_kernel.blur_flow(x),
                                            blur_kernel.blur_flow_reference(x), f"K1 {what}"))
     torch.cuda.synchronize()
     log(f"phase 3 K1 blur_flow {LOW} int16: equal to the plain version (random +-500, "
-        f"all -3); max |err| {k1_err}")
+        f"all -3; and (2, 33, 65), which its 16 x 32 tiles do not divide); max |err| {k1_err}")
 
     # -- 4. K2 against its plain version ----------------------------------------
-    def p010(shape):
-        return torch.tensor(rng.integers(0, 1024, shape, dtype=np.uint16) << 6, device=dev)
-
-    src = [p010((H, W)), p010((H // 2, W)), p010((H, W)), p010((H // 2, W))]
-    flow = torch.tensor(rng.integers(-64, 65, LOW).astype(np.int16), device=dev)
-    black, white = 16 * 256.0, 235 * 256.0
     k2_err, n_checked = 0, 0
-    for ts in ((0.4, 0.8), (0.2, 0.6, 1.0)):
-        t = torch.tensor(ts, dtype=torch.float32, device=dev)
-        for mode in (0, 1, 2):
-            kw = dict(res_scalar=3, mode=mode, is_hdr=True)
-            ky, kuv = warp_kernel.warp_frames(*src, flow, t, black, white, **kw)
-            py, puv = warp_kernel.warp_frames_reference(*src, flow, t, black, white, **kw)
-            k2_err = max(k2_err, require_equal(ky, py, f"K2 Y mode {mode} t {ts}"),
-                         require_equal(kuv, puv, f"K2 UV mode {mode} t {ts}"))
-            n_checked += len(ts)
+    for flow_name, flow in flows.items():
+        for ts in ((0.4, 0.8), (0.2, 0.6, 1.0)):
+            t = torch.tensor(ts, dtype=torch.float32, device=dev)
+            for mode in (0, 1, 2):
+                kw = dict(res_scalar=3, mode=mode, is_hdr=True)
+                ky, kuv = warp_kernel.warp_frames(*src, flow, t, black, white, **kw)
+                py, puv = warp_kernel.warp_frames_reference(*src, flow, t, black, white, **kw)
+                what = f"K2 {flow_name} mode {mode} t {ts}"
+                k2_err = max(k2_err, require_equal(ky, py, what + " Y"),
+                             require_equal(kuv, puv, what + " UV"))
+                n_checked += len(ts)
     torch.cuda.synchronize()
-    log(f"phase 4 K2 warp_frames {W}x{H} P010, flow +-64, modes 0/1/2, t (0.4, 0.8) and "
-        f"(0.2, 0.6, 1.0): {n_checked} outputs equal to the plain version; max |err| {k2_err}")
+    log(f"phase 4 K2 warp_frames {W}x{H} P010, flow {', '.join(flows)}, modes 0/1/2, t "
+        f"(0.4, 0.8) and (0.2, 0.6, 1.0): {n_checked} outputs equal to the plain version; "
+        f"max |err| {k2_err}")
 
     # -- 4b. K2's raw_blend variant against its plain version ------------------
-    t3 = torch.tensor((0.2, 0.6, 1.0), dtype=torch.float32, device=dev)
     raw_kw = dict(res_scalar=3, mode=2, is_hdr=True, raw_blend=True)
-    ky, kuv = warp_kernel.warp_frames(*src, flow, t3, black, white, **raw_kw)
-    py, puv = warp_kernel.warp_frames_reference(*src, flow, t3, black, white, **raw_kw)
-    raw_err = max(require_equal(ky, py, "K2 raw_blend Y"),
-                  require_equal(kuv, puv, "K2 raw_blend UV"))
+    raw_err = 0
+    for flow_name, flow in flows.items():
+        ky, kuv = warp_kernel.warp_frames(*src, flow, t3, black, white, **raw_kw)
+        py, puv = warp_kernel.warp_frames_reference(*src, flow, t3, black, white, **raw_kw)
+        raw_err = max(raw_err, require_equal(ky, py, f"K2 raw_blend {flow_name} Y"),
+                      require_equal(kuv, puv, f"K2 raw_blend {flow_name} UV"))
+    flow = flows["random +-64"]
+    ky = warp_kernel.warp_frames(*src, flow, t3, black, white, **raw_kw)[0]
     levelled = warp_kernel.warp_frames(*src, flow, t3, black, white, res_scalar=3, mode=2,
                                        is_hdr=True)[0]
     if max_abs_err(levelled, ky) == 0:
         raise AssertionError("K2 raw_blend equals the levelled mode 2")
     torch.cuda.synchronize()
-    log(f"phase 4b K2 raw_blend {W}x{H} P010, flow +-64, t (0.2, 0.6, 1.0): Y and UV equal to "
-        f"the plain version; max |err| {raw_err}")
+    log(f"phase 4b K2 raw_blend {W}x{H} P010, flow {', '.join(flows)}, t (0.2, 0.6, 1.0): Y "
+        f"and UV equal to the plain version; max |err| {raw_err}")
 
     # -- 4c. the HSV colour on the card against the CPU ------------------------
     from hopperrender_tpu_torch.ops.warp import _visualize_flow
@@ -1022,15 +1220,7 @@ def main(argv: list[str]) -> int:
             f"to the plain-version stream")
 
     # -- 6. numbers ------------------------------------------------------------------
-    k1_ms, k1_plain_ms = time_pair(lambda: k1(offsets),
-                                   lambda: blur_kernel.blur_flow_reference(offsets), 200, 50)
-    kw = dict(res_scalar=3, mode=2, is_hdr=True)
-    k2_ms, k2_plain_ms = time_pair(
-        lambda: k2(*src, flow, t3, black, white, **kw),
-        lambda: warp_kernel.warp_frames_reference(*src, flow, t3, black, white, **kw), 50, 3)
-    raw_ms, raw_plain_ms = time_pair(
-        lambda: k2(*src, flow, t3, black, white, **raw_kw),
-        lambda: warp_kernel.warp_frames_reference(*src, flow, t3, black, white, **raw_kw), 50, 3)
+    numbers = kernel_numbers(port, inp)
 
     # The served stream goes on for N_PROFILED more frames under torch.profiler.
     from torch.profiler import ProfilerActivity, profile
@@ -1047,16 +1237,15 @@ def main(argv: list[str]) -> int:
     log(f"phase 6 numbers [{card}]: served wall {ms(wall_s):.3f} ms/source frame (median of "
         f"{len(wall_s)}, host clock around push_frame), flow {ms(flow_s):.3f} ms/source frame "
         f"(median of {len(flow_s)}, CUDA events), warp {ms(warp_s):.3f} ms/output (median of "
-        f"{len(warp_s)}, batched), copy {ms(copy_s):.3f} ms (median of {len(copy_s)}); "
-        f"K1 {k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms at {LOW}; K2 {k2_ms:.4f} ms vs plain "
-        f"{k2_plain_ms:.4f} ms per T=3 mode-2 call at {W}x{H} HDR; peak memory "
+        f"{len(warp_s)}, batched), copy {ms(copy_s):.3f} ms (median of {len(copy_s)}); peak memory "
         f"{peak_bytes / 2**20:.1f} MiB (served stream, max_memory_allocated); profiled "
         f"{N_PROFILED} more frames: wall {1e3 * per_frame(prof_wall):.3f} ms/source frame "
         f"under the profiler, device busy {1e3 * per_frame(busy_s):.3f} ms/source frame, idle "
         f"{100 * (1 - busy_s / prof_wall):.1f}%, {per_frame(n_events):.0f} device "
         f"events/source frame; device ms/source frame by kind: {by_kind}")
-    log(f"phase 6 numbers [{card}]: K2 raw_blend {raw_ms:.4f} ms vs plain {raw_plain_ms:.4f} ms "
-        f"per T=3 call at {W}x{H} HDR; warp ms/output (median, CUDA events, one warp per "
+    log(f"phase 6 kernels [{card}] (graph-timed device ms per call, {LOW} flow, {W}x{H} HDR "
+        f"T = 3 unless marked, random +-64 flow unless marked): {format_numbers(numbers)}")
+    log(f"phase 6 numbers [{card}]: warp ms/output (median, CUDA events, one warp per "
         f"output) " + ", ".join(f"mode {m} {t:.3f}" for m, t in viz_warp_ms.items()))
 
     # -- 7. the parallel path -----------------------------------------------------
@@ -1077,26 +1266,28 @@ def main(argv: list[str]) -> int:
     # library_ms is null: no single PyTorch call computes any of these functions
     # (grid_sample has neither the clamped remapping mirror nor C rounding;
     # avg_pool2d neither the symmetric mirror nor the truncating division).
+    # ms is the graph-timed device time on random flow (K1: random +-500),
+    # smooth_ms on the smooth flow.
     kernels = [
         {"name": "blur_flow", "route": "cuda",
          "source": "hopperrender_tpu_torch/csrc/blur_flow.cu",
          "replaces": "hopperrender_tpu/ops/pallas_kernels.py:63",
-         "launches": launches["blur_flow"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "launches": launches["blur_flow"], "max_abs_err": k1_err},
         {"name": "warp_frames", "route": "cuda",
          "source": "hopperrender_tpu_torch/csrc/warp_frame.cu",
          "replaces": "hopperrender_tpu/ops/warp_band.py:695",
-         "launches": launches["warp_frames"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches": launches["warp_frames"], "max_abs_err": k2_err},
         {"name": "warp_frames_raw_blend", "route": "cuda",
          "source": "hopperrender_tpu_torch/csrc/warp_frame.cu",
          "replaces": "hopperrender_tpu/ops/warp_band.py:695 (variant raw_blend)",
-         "launches": viz_launches[3]["warp_frames_raw_blend"], "max_abs_err": raw_err,
-         "ms": raw_ms, "plain_ms": raw_plain_ms},
+         "launches": viz_launches[3]["warp_frames_raw_blend"], "max_abs_err": raw_err},
     ]
     for k in kernels:
+        v = numbers[k["name"]]
+        k["ms"], k["smooth_ms"], k["plain_ms"] = v["ms"], v["smooth_ms"], v["plain_ms"]
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None
+        k["host_us"] = v["host_us"]
     return finish(port, kernels + [band_entry] + probe_entries, card, kind)
 
 

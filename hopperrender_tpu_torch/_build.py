@@ -41,6 +41,8 @@ SIGNATURES = {
     #  raw_blend, is_hdr, black, white, stream)
     "hrt_warp_frames": (_P, _P, _P, _P, _P, _P, _I, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # (stream): an empty kernel, the floor under a launch-bound kernel's time
+    "hrt_empty_launch": (_P,),
     # The probes (probes/): (variant, n, tab, band, out, blocks, stream)
     "hrt_chain_probe": (_I, _I, _P, _P, _P, _I, _P),
     # (variant, n, tab, band, res, out, blocks, stream)

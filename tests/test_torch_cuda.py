@@ -17,6 +17,8 @@ from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel, warp_viz
 from hopperrender_tpu_torch.ops import warp as warp_ops
 from hopperrender_tpu_torch.probes import chain_probe, chain_probe2, gather_probe, mosaic_probe
 
+from torch_warp_cases import BAND_CASES, WARP_CASES, make_inputs
+
 pytestmark = pytest.mark.cuda
 
 
@@ -39,7 +41,11 @@ def _same(a, b):
                        b.view(torch.int16) if b.dtype == torch.uint16 else b)
 
 
-@pytest.mark.parametrize("shape", [(3, 2), (11, 13), (34, 48), (270, 480)])
+# K1 stages tiles of 16 rows x 32 columns: planes smaller than a tile, equal
+# to one, multiples of it, and not dividing it; (1, 1) and (3, 2) wrap the
+# mirror.
+@pytest.mark.parametrize("shape", [(1, 1), (3, 2), (11, 13), (16, 32), (32, 32), (33, 65),
+                                   (34, 48), (64, 96), (270, 480)])
 def test_blur_kernel_matches_plain(dev, shape):
     rng = np.random.default_rng(1)
     x = torch.tensor(rng.integers(-32768, 32768, (2,) + shape).astype(np.int16), device=dev)
@@ -84,6 +90,59 @@ def test_warp_kernel_raw_blend_matches_plain(dev, is_hdr, rs):
         (before[0], before[1] + 1)
     py, puv = warp_kernel.warp_frames_reference(*srcs, flow, ts, 16 * s, 235 * s, **kw)
     assert _same(ky, py) and _same(kuv, puv)
+
+
+def _case_tensors(case, dev):
+    return tuple(torch.from_numpy(a).to(dev) for a in make_inputs(case))
+
+
+@pytest.mark.parametrize("case", WARP_CASES, ids=lambda c: c.name)
+def test_warp_kernel_run_cases_match_plain(dev, case):
+    """K2 on the cases it splits its paths on (tests/torch_warp_cases.py):
+    modes 0/1/2 and the raw_blend variant against the plain version."""
+    args = _case_tensors(case, dev)
+    for mode, raw in ((0, False), (1, False), (2, False), (2, True)):
+        kw = dict(res_scalar=case.rs, mode=mode, is_hdr=case.is_hdr, raw_blend=raw)
+        ky, kuv = warp_kernel.warp_frames(*args, *case.levels, **kw)
+        py, puv = warp_kernel.warp_frames_reference(*args, *case.levels, **kw)
+        assert _same(ky, py) and _same(kuv, puv), f"mode {mode} raw {raw}"
+
+
+@pytest.mark.parametrize("case", BAND_CASES, ids=lambda c: c.name)
+def test_warp_band_kernel_run_cases_match_plain(dev, case):
+    """K2's row band on bands across flow cells: every shard, modes 0/1/2 and
+    raw_blend, against the plain band."""
+    args = _case_tensors(case, dev)
+    for mode, raw in ((0, False), (1, False), (2, False), (2, True)):
+        kw = dict(res_scalar=case.rs, mode=mode, is_hdr=case.is_hdr, raw_blend=raw,
+                  num_shards=case.shards)
+        for shard in range(case.shards):
+            ky, kuv = warp_kernel.warp_frames_band(*args, *case.levels, shard_index=shard, **kw)
+            py, puv = warp_kernel.warp_frames_band_reference(*args, *case.levels,
+                                                             shard_index=shard, **kw)
+            assert _same(ky, py) and _same(kuv, puv), f"mode {mode} raw {raw} shard {shard}"
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_warp_kernel_levels_every_sample_value(dev, is_hdr):
+    """Every sample value through K2's blend and levels: zero flow, the 1->2
+    source holding each value once, t = 0 and 1 (the blend is then a sample)
+    and 0.5; levels with fractional and inverted black and white."""
+    n, w = (65536 if is_hdr else 256), 256
+    h = 2 * n // w                            # Y and UV each hold every value
+    planes = [(np.arange(rows * w) % n).reshape(rows, w).astype(np.uint16 if is_hdr else np.uint8)
+              for rows in (h, h // 2)]
+    y12, uv12, y21, uv21 = (torch.tensor(np.ascontiguousarray(p), device=dev)
+                            for p in planes + [p[:, ::-1] for p in planes])
+    flow = torch.zeros((2, h, w), dtype=torch.int16, device=dev)
+    ts = torch.tensor([0.0, 1.0, 0.5], dtype=torch.float32, device=dev)
+    s = 256.0 if is_hdr else 1.0
+    for black, white in ((16.0, 235.0), (0.0, 255.0), (3.5, 250.25), (100.0, 50.0)):
+        kw = dict(res_scalar=0, mode=2, is_hdr=is_hdr)
+        args = (y12, uv12, y21, uv21, flow, ts, black * s, white * s)
+        ky, kuv = warp_kernel.warp_frames(*args, **kw)
+        py, puv = warp_kernel.warp_frames_reference(*args, **kw)
+        assert _same(ky, py) and _same(kuv, puv), f"levels {black}/{white}"
 
 
 @pytest.mark.parametrize("is_hdr", [False, True])

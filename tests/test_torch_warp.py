@@ -17,6 +17,7 @@ from hopperrender_tpu_torch.ops import warp as torch_warp
 from hopperrender_tpu_torch.ops import warp_kernel
 
 from conftest import make_flow, make_frame
+from torch_warp_cases import BAND_CASES, WARP_CASES, make_inputs
 
 
 def _levels(is_hdr):
@@ -139,6 +140,56 @@ def test_matches_reference_warp(rng, rs, is_hdr):
                 res_scalar=rs, mode=mode, is_hdr=is_hdr)
             np.testing.assert_array_equal(yt[i].numpy(), np.asarray(yj), err_msg=f"mode {mode} t {t}")
             np.testing.assert_array_equal(uvt[i].numpy(), np.asarray(uvj), err_msg=f"mode {mode} t {t}")
+
+
+def _jax_outputs(inputs, t, case, mode):
+    y1, uv1, y2, uv2, flow = (jnp.asarray(a) for a in inputs[:5])
+    black, white = case.levels
+    yj, uvj = jax_warp.warp_frame(y1, uv1, y2, uv2, flow, jnp.float32(t), jnp.float32(black),
+                                  jnp.float32(white), res_scalar=case.rs, mode=mode,
+                                  is_hdr=case.is_hdr)
+    return np.asarray(yj), np.asarray(uvj)
+
+
+@pytest.mark.parametrize("case", WARP_CASES, ids=lambda c: c.name)
+def test_run_cases_match_reference_warp(case):
+    """K2's plain version against the JAX package's jitted reference warp on
+    the cases the kernel splits its paths on (tests/torch_warp_cases.py):
+    smooth, constant and mirror-edge flow, ragged widths, T = 1 and 7."""
+    inputs = make_inputs(case)
+    black, white = case.levels
+    for mode in (0, 1, 2):
+        yt, uvt = warp_kernel.warp_frames(*(_t(a) for a in inputs), black, white,
+                                          res_scalar=case.rs, mode=mode, is_hdr=case.is_hdr)
+        for i, t in enumerate(case.ts):
+            yj, uvj = _jax_outputs(inputs, t, case, mode)
+            np.testing.assert_array_equal(yt[i].numpy(), yj, err_msg=f"mode {mode} t {t}")
+            np.testing.assert_array_equal(uvt[i].numpy(), uvj, err_msg=f"mode {mode} t {t}")
+
+
+@pytest.mark.parametrize("case", BAND_CASES, ids=lambda c: c.name)
+def test_band_cases_match_reference_warp(case):
+    """K2's row-band plain version on bands that cut across flow cells (n = 3
+    on plane heights 3 does not divide): each shard equals its rows of the
+    jitted JAX warp, zero past the plane."""
+    inputs = make_inputs(case)
+    black, white = case.levels
+    n = case.shards
+    for mode in (0, 2):
+        want = [_jax_outputs(inputs, t, case, mode) for t in case.ts]
+        for shard in range(n):
+            got = warp_kernel.warp_frames_band(
+                *(_t(a) for a in inputs), black, white, res_scalar=case.rs, mode=mode,
+                is_hdr=case.is_hdr, num_shards=n, shard_index=shard)
+            for plane, out in enumerate(got):
+                r = out.shape[1]
+                for i in range(len(case.ts)):
+                    rows = want[i][plane][shard * r:(shard + 1) * r]
+                    padded = np.zeros_like(out[i].numpy())
+                    padded[:rows.shape[0]] = rows
+                    np.testing.assert_array_equal(out[i].numpy(), padded,
+                                                  err_msg=f"mode {mode} shard {shard} "
+                                                          f"plane {plane} t {case.ts[i]}")
 
 
 @pytest.mark.parametrize("is_hdr", [False, True])

@@ -4,7 +4,10 @@
     python3 chip_smoke.py                   # from the repository root; needs one CUDA card
     python3 chip_smoke.py --parallel-only   # phases 1, 2 and 7; on four cards, 7c
                                             # adds meshes of a rank per card (NCCL)
-    python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only
+    python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only:
+                                            # K1, K2, the band, P3, P4, the split of a
+                                            # wrapper call's host time into stages and
+                                            # the floor of a one-block launch taken apart
 
 Builds the hand-written CUDA kernels from hopperrender_tpu_torch/csrc (nvcc,
 sm_90a), then runs these phases, one line each:
@@ -74,15 +77,22 @@ sm_90a), then runs these phases, one line each:
      chain2 at 1 and 132 blocks (ns per iteration by the slope over n =
      20,000 and 120,000), the gather and mosaic kernels, and the block-gather
      rates; every probe kernel must have launched;
-     8c. each probe's kernels against their plain versions and the one-call
-     PyTorch counterparts (torch.gather; slicing and torch.roll).
+     8c. each probe's kernels against their plain versions and the bound;
+     P3's and P4's graph-timed (n calls in one CUDA graph) against an empty
+     launch per variant timed beside them (the floor) and their one-call PyTorch
+     counterparts (torch.gather; slicing copied out and torch.roll), each
+     first checked equal to the kernel's output; host us per wrapper call
+     and per library call.
 
 Before each served path, and before the probe path, every launch counter
 is set to 0, and after it each kernel of that path must have launched (the
 ranks of 7c start at 0). Then one JSON line of the kernels
 (with each one's bound: the least time the card could take for its work;
 `ms` the graph-timed time on random flow, `smooth_ms` on smooth flow for
-K1, K2, raw_blend and the band, and their `host_us`),
+K1, K2, raw_blend and the band, and their `host_us`; for the probes `ms`
+summed over the variants, graph-timed for P3/P4, `host_us` and
+`library_host_us` the means over the variants, `floor_ms` the variants'
+count times an empty launch),
 nvidia-smi's line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises: the script exits non-zero and prints no result. It imports
 nothing of JAX and nothing of the JAX package.
@@ -157,6 +167,10 @@ PROBE_OPS = {
 }
 FULL_LANES, FULL_SECOND_WORD_OPS = 8 * 16, 7
 PROBE_N, PROBE_BLOCKS = 600, (1, 132)     # parity: past the table, one SM and every SM
+# Calls captured in one CUDA graph (P3/P4), and back-to-back calls on the
+# host clock (P3/P4; P1/P2, whose n = PROBE_N iterations queue up on the card
+# while the host goes on).
+PROBE_GRAPH_CALLS, HOST_CALLS, CHAIN_HOST_CALLS = 200, 1000, 200
 
 
 def log(line: str) -> None:
@@ -325,6 +339,184 @@ def empty_launch_ms(port) -> float | None:
         return None
     return graph_ms(lambda: port._build.check(
         launch(torch.cuda.current_stream().cuda_stream), "empty launch"), 200)
+
+
+def probe_library(port, x3, idx3, x4) -> dict:
+    """The one-call PyTorch counterpart of each P3/P4 kernel at the scripts'
+    inputs (idx (5, 128) for P4): torch.gather, and slicing copied out or
+    torch.roll. The port never calls them."""
+    idx3_long, idx3_lane = idx3.long(), (idx3 + 7).long()
+    x3_128 = x3[:, :128]
+    r0, _ = port.probes["mosaic_probe"].IDX
+    ra = r0 & ~7
+    return {
+        "take_along_sublane": lambda: torch.gather(x3_128, 0, idx3_long),
+        "take_along_lane": lambda: torch.gather(x3[:8], 1, idx3_lane),
+        "vector_index": lambda: torch.gather(x3_128, 0, idx3_long),
+        "dyn_sublane": lambda: x4[r0:r0 + 8].clone(),
+        "dyn_sublane_aligned": lambda: x4[ra:ra + 8].clone(),
+        "dyn_lane_aligned": lambda: x4[:8, 0:256].clone(),
+        "dyn_both": lambda: x4[r0:r0 + 8, 0:256].clone(),
+        "dyn_roll_lane": lambda: torch.roll(x4[:8], r0, 1),
+        "dyn_roll_sublane": lambda: torch.roll(x4[:16], r0, 0)[:8],
+        "dyn_sublane_16": lambda: torch.roll(x4[ra:ra + 16], -(r0 - ra), 0)[:8],
+    }
+
+
+def probe_numbers(port, dev) -> dict:
+    """The probes' numbers at the scripts' inputs. P3 and P4: each variant's
+    kernel and its one-call PyTorch counterpart (checked equal to the
+    kernel's output first), graph-timed device ms (PROBE_GRAPH_CALLS calls
+    in one CUDA graph) and host us per call (HOST_CALLS back-to-back
+    calls); per probe ms and library_ms summed over the variants, host_us
+    and library_host_us their means, empty_launch_ms the empty launch timed
+    just before and just after the probe's variants (the mean; it moves
+    over a run), floor_ms the variants' count times it, and each variant's
+    four numbers. P1 and P2 (n = PROBE_N, one block): host_us only, the
+    mean over the variants of CHAIN_HOST_CALLS calls each."""
+    p1, p2, p3, p4 = (port.probes[k] for k in ("chain_probe", "chain_probe2", "gather_probe",
+                                               "mosaic_probe"))
+    x3, idx3 = p3.make_inputs(dev)
+    idx4, x4 = p4.make_inputs(device=dev)
+    library = probe_library(port, x3, idx3, x4)
+    out = {}
+    for name, mod, args in (("gather_probe", p3, (x3, idx3)), ("mosaic_probe", p4, (idx4, x4))):
+        floors, per = [empty_launch_ms(port)], {}
+        for v in mod.VARIANTS:
+            kernel, lib_call = (lambda v=v: mod.run(v, *args)), library[v]
+            require_equal(lib_call(), kernel(), f"{name} {v}: the library call")
+            per[v] = {"ms": graph_ms(kernel, PROBE_GRAPH_CALLS, 5),
+                      "library_ms": graph_ms(lib_call, PROBE_GRAPH_CALLS, 5),
+                      "host_us": host_us(kernel, HOST_CALLS),
+                      "library_host_us": host_us(lib_call, HOST_CALLS)}
+        floors.append(empty_launch_ms(port))
+        floor = None if None in floors else statistics.mean(floors)
+        out[name] = {"ms": sum(p["ms"] for p in per.values()),
+                     "library_ms": sum(p["library_ms"] for p in per.values()),
+                     "host_us": statistics.mean(p["host_us"] for p in per.values()),
+                     "library_host_us": statistics.mean(p["library_host_us"]
+                                                        for p in per.values()),
+                     "empty_launch_ms": floor,
+                     "floor_ms": None if floor is None else len(per) * floor, "variants": per}
+    for name, mod, variants in (("chain_probe", p1, p1.VARIANTS),
+                                ("chain_probe2", p2, p2.KERNEL_VARIANTS)):
+        inputs = mod.make_inputs(0, dev)
+        out[name] = {"host_us": statistics.mean(
+            host_us(lambda v=v: mod.run(v, PROBE_N, *inputs), CHAIN_HOST_CALLS) for v in variants)}
+    return out
+
+
+def format_probe_numbers(numbers: dict) -> str:
+    parts = []
+    for name, v in numbers.items():
+        if "ms" not in v:
+            parts.append(f"{name} host {v['host_us']:.2f} us/call")
+            continue
+        floor = "not in this build" if v["floor_ms"] is None else f"{v['floor_ms']:.5f} ms"
+        parts.append(f"{name} ({len(v['variants'])} variants) {v['ms']:.5f} ms, floor {floor}, "
+                     f"host {v['host_us']:.2f} us/call; library {v['library_ms']:.5f} ms, host "
+                     f"{v['library_host_us']:.2f} us/call")
+    return "; ".join(parts)
+
+
+def wrapper_split(port, dev, n: int = 2000) -> dict:
+    """Host us of each stage of one wrapper call, each stage alone over n
+    back-to-back calls. Shared: the stages of the older launch path
+    (_build.load, the device context, current_stream(...).cuda_stream) and
+    of the shared one (_build.entry where the tree has it, the
+    current-device test, the raw stream), the device tests, data_ptr, the
+    counter, a ctypes call of five arguments that launches nothing (where
+    the tree has hrt_floor_launch) and an empty lambda (the loop's own cost,
+    in every stage). Per
+    wrapper, P4 (dyn_both, its script inputs) and K1 (a (2, 33, 65) flow, so
+    that no launch waits for the device): the checks, the allocation
+    (torch.empty with its arguments, new_empty, empty_like), the ctypes
+    call (a real launch) and the whole call."""
+    b, p4, k1 = port._build, port.probes["mosaic_probe"], port.blur_kernel
+    idx, x = p4.make_inputs(device=dev)
+    offsets = torch.zeros((2, 33, 65), dtype=torch.int16, device=dev)
+    lib, index = b.load().lib, dev.index
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out4, out1 = torch.empty(p4.OUT_SHAPE, dtype=torch.int32, device=dev), torch.empty_like(offsets)
+    dyn_both = p4.VARIANTS.index("dyn_both")
+    raw_stream = torch._C._cuda_getCurrentRawStream
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    def counter():
+        p4.run.launches += 1
+
+    def k1_check():
+        if offsets.dtype != torch.int16 or offsets.dim() != 3 or offsets.shape[0] != 2:
+            raise AssertionError
+        return offsets.device.type == "cpu" or not offsets.is_contiguous()
+
+    launches = p4.run.launches, k1.blur_flow.launches
+    shared = {"empty lambda": lambda: None, "_build.load()": b.load,
+              "device context": device_context,
+              "current_stream(...).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+              "current-device test": lambda: torch._C._cuda_getDevice() == index,
+              "raw stream": lambda: raw_stream(index), "x.device.type": lambda: x.device.type,
+              "x.is_cuda": lambda: x.is_cuda, "x.get_device()": x.get_device,
+              "data_ptr()": x.data_ptr, "counter": counter}
+    stages = {
+        "mosaic_probe dyn_both": {
+            "_check": lambda: p4._check("dyn_both", idx, x),
+            "torch.empty(shape, dtype=, device=)": lambda: torch.empty(
+                p4.OUT_SHAPE, dtype=torch.int32, device=dev),
+            "x.new_empty(shape)": lambda: x.new_empty(p4.OUT_SHAPE),
+            "torch.empty_like": lambda: torch.empty_like(out4),
+            "ctypes call": lambda: lib.hrt_mosaic_probe(dyn_both, idx.data_ptr(), x.data_ptr(),
+                                                        out4.data_ptr(), stream),
+            "whole call": lambda: p4.run("dyn_both", idx, x)},
+        "blur_flow (2, 33, 65)": {
+            "_check": k1_check, "torch.empty_like": lambda: torch.empty_like(offsets),
+            "ctypes call": lambda: lib.hrt_blur_flow(offsets.data_ptr(), out1.data_ptr(), 33, 65,
+                                                     stream),
+            "whole call": lambda: k1.blur_flow(offsets)}}
+    if hasattr(b, "entry"):
+        shared["_build.entry()"] = lambda: b.entry("hrt_mosaic_probe")
+    floor_launch = getattr(lib, "hrt_floor_launch", None)
+    if floor_launch is not None:   # five arguments, as P4's entry point; no launch
+        shared["ctypes call without a launch"] = lambda: floor_launch(3, 32, idx.data_ptr(),
+                                                                      out4.data_ptr(), stream)
+    split = {what: {stage: host_us(fn, n) for stage, fn in fns.items()}
+             for what, fns in {"shared": shared, **stages}.items()}
+    p4.run.launches, k1.blur_flow.launches = launches
+    return split
+
+
+def floor_numbers(port, dev) -> dict | None:
+    """Graph-timed device ms of the launches that take a one-block kernel's
+    floor apart (hrt_floor_launch, csrc/errors.cu): one block of 32, 256 or
+    512 threads that does nothing, makes one L2 round trip, or two dependent
+    ones (P3's index and element, P4's offsets and window). None where the
+    tree has no such entry point."""
+    launch = getattr(port._build.load().lib, "hrt_floor_launch", None)
+    if launch is None:
+        return None
+    src = torch.arange(128, dtype=torch.int32, device=dev)
+    out = torch.empty(1024, dtype=torch.int32, device=dev)
+    numbers = {}
+    for kind, what, want in ((0, "empty", None), (1, "one load", 0), (2, "two dependent loads", 64)):
+        for threads in (32, 256, 512):
+            def call(kind=kind, threads=threads):
+                port._build.check(launch(kind, threads, src.data_ptr(), out.data_ptr(),
+                                         torch.cuda.current_stream().cuda_stream), "floor launch")
+            if want is not None:
+                out.fill_(-1)
+                call()
+                if int((out[:threads] != want).sum()):
+                    raise AssertionError(f"floor launch {what} 1x{threads}: wrong values")
+            numbers[f"{what} 1x{threads}"] = graph_ms(call, PROBE_GRAPH_CALLS, 5)
+    return numbers
+
+
+def format_split(split: dict) -> str:
+    return "; ".join(f"{what}: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+                     for what, stages in split.items())
 
 
 def smooth_flow(port, rng) -> torch.Tensor:
@@ -901,40 +1093,24 @@ def probe_phase(port, dev, card: str) -> list[dict]:
     clock = f"max SM clock {hz / 1e6:.0f} MHz" if hz else "max SM clock not read"
     log(f"phase 8b probe path [{card}, {clock}]: runs {runs}; launches {launches}")
 
-    # -- 8c. numbers: each probe's variants, one call each, summed; against the
-    # plain versions and, for P3/P4, one PyTorch call each. P1/P2 at n = 600
-    # on 132 blocks.
+    # -- 8c. numbers. P1/P2 at n = 600 on 132 blocks: one call of each variant
+    # (CUDA events), summed. P3/P4: probe_numbers (graph-timed, against the
+    # one-call PyTorch counterparts and the floor timed beside them). The
+    # plain versions by CUDA events; host us per wrapper call for all four.
     B = PROBE_BLOCKS[-1]
-    idx3_long, idx3_lane = idx3.long(), (idx3 + 7).long()
-    x3_128 = x3[:, :128]
-    r0, lane = p4.IDX
-    library = {   # the one-call counterpart of each P3/P4 kernel (the port never calls them)
-        "take_along_sublane": lambda: torch.gather(x3_128, 0, idx3_long),
-        "take_along_lane": lambda: torch.gather(x3[:8], 1, idx3_lane),
-        "vector_index": lambda: torch.gather(x3_128, 0, idx3_long),
-        "dyn_sublane": lambda: x4[r0:r0 + 8].contiguous(),
-        "dyn_sublane_aligned": lambda: x4[r0 & ~7:(r0 & ~7) + 8].contiguous(),
-        "dyn_lane_aligned": lambda: x4[:8, 0:256].contiguous(),
-        "dyn_both": lambda: x4[r0:r0 + 8, 0:256].contiguous(),
-        "dyn_roll_lane": lambda: torch.roll(x4[:8], r0, 1),
-        "dyn_roll_sublane": lambda: torch.roll(x4[:16], r0, 0)[:8],
-        "dyn_sublane_16": lambda: torch.roll(x4[r0 & ~7:(r0 & ~7) + 16], -(r0 & 7), 0)[:8],
-    }
+    floor, timed = empty_launch_ms(port), probe_numbers(port, dev)
     idx4 = p4.make_inputs(device=dev)[0]
-    calls = {
-        "chain_probe": [(lambda v=v: p1.run(v, PROBE_N, *p1_in, blocks=B),
-                         lambda v=v: p1.run_reference(v, PROBE_N, *p1_in, blocks=B), None)
+    chain_calls = {
+        "chain_probe": [lambda v=v: p1.run(v, PROBE_N, *p1_in, blocks=B) for v in p1.VARIANTS],
+        "chain_probe2": [lambda v=v: p2.run(v, PROBE_N, *p2_in, blocks=B)
+                         for v in p2.KERNEL_VARIANTS]}
+    plain_calls = {
+        "chain_probe": [lambda v=v: p1.run_reference(v, PROBE_N, *p1_in, blocks=B)
                         for v in p1.VARIANTS],
-        "chain_probe2": [(lambda v=v: p2.run(v, PROBE_N, *p2_in, blocks=B),
-                          lambda v=v: p2.run_reference(v, PROBE_N, *p2_in, blocks=B), None)
+        "chain_probe2": [lambda v=v: p2.run_reference(v, PROBE_N, *p2_in, blocks=B)
                          for v in p2.KERNEL_VARIANTS],
-        "gather_probe": [(lambda v=v: p3.run(v, x3, idx3),
-                          lambda v=v: p3.run_reference(v, x3, idx3), library[v])
-                         for v in p3.VARIANTS],
-        "mosaic_probe": [(lambda v=v: p4.run(v, idx4, x4),
-                          lambda v=v: p4.run_reference(v, idx4, x4), library[v])
-                         for v in p4.VARIANTS],
-    }
+        "gather_probe": [lambda v=v: p3.run_reference(v, x3, idx3) for v in p3.VARIANTS],
+        "mosaic_probe": [lambda v=v: p4.run_reference(v, idx4, x4) for v in p4.VARIANTS]}
     # The bound of each entry: the sum of its variants' bounds, each the larger
     # of its bytes over the memory rate and its integer operations over the
     # int32 rate (probe_work).
@@ -946,15 +1122,18 @@ def probe_phase(port, dev, card: str) -> list[dict]:
                "gather_probe": ("gather_probe.cu", "scripts/gather_probe.py:40"),
                "mosaic_probe": ("mosaic_probe.cu", "scripts/mosaic_probe.py:14")}
     entries, numbers = [], []
-    for name, per_variant in calls.items():
-        ms = plain_ms = 0.0
-        library_ms = None if per_variant[0][2] is None else 0.0
-        for kernel, plain, lib_call in per_variant:
-            k, p = time_pair(kernel, plain, 20, 2)
-            ms, plain_ms = ms + k, plain_ms + p
-            if lib_call is not None:
-                library_ms += (time_ms(lib_call, 20) + time_ms(lib_call, 20)) / 2
-        n_var = len(per_variant)
+    for name, plains in plain_calls.items():
+        n_var, t = len(plains), timed[name]
+        if name in chain_calls:
+            pairs = [time_pair(kernel, plain, 20, 2)
+                     for kernel, plain in zip(chain_calls[name], plains)]
+            ms, plain_ms = sum(k for k, _ in pairs), sum(p for _, p in pairs)
+            library_ms = library_host = None
+            floor_ms = None if floor is None else n_var * floor
+        else:
+            plain_ms = sum((time_ms(plain, 2) + time_ms(plain, 2)) / 2 for plain in plains)
+            ms, library_ms, library_host = t["ms"], t["library_ms"], t["library_host_us"]
+            floor_ms = t["floor_ms"]
         by_kind = {"bytes": 0.0, "operations": 0.0}
         for variant in variants[name]:
             ms_v, by_v = roofline(*probe_work(port, name, variant, cpu_inputs[name], PROBE_N, B),
@@ -967,12 +1146,20 @@ def probe_phase(port, dev, card: str) -> list[dict]:
                         "source": f"hopperrender_tpu_torch/csrc/{src}", "replaces": replaces,
                         "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms})
-        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        numbers.append(f"{name} ({n_var} variants) {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-                       f"library {lib}, bound {bound_ms:.5f} ms ({bound_by})")
-    log(f"phase 8c numbers [{card}]: one call of each variant, summed, CUDA events (P1/P2 at n "
-        f"= {PROBE_N} on {B} blocks): " + "; ".join(numbers)
+                        "library_ms": library_ms, "host_us": t["host_us"],
+                        "library_host_us": library_host, "floor_ms": floor_ms})
+        timing = "CUDA events" if name in chain_calls else "graph-timed"
+        lib = ("none" if library_ms is None else
+               f"{library_ms:.5f} ms graph-timed, host {library_host:.2f} us/call")
+        numbers.append(f"{name} ({n_var} variants) {ms:.5f} ms {timing}, floor "
+                       f"{floor_ms if floor_ms is None else f'{floor_ms:.5f}'} ms, host "
+                       f"{t['host_us']:.2f} us/call; plain {plain_ms:.4f} ms; library {lib}; bound "
+                       f"{bound_ms:.5f} ms ({bound_by})")
+    log(f"phase 8c numbers [{card}]: one call of each variant, summed (P1/P2 at n = {PROBE_N} "
+        f"on {B} blocks; P3/P4 {PROBE_GRAPH_CALLS} calls a CUDA graph, each library call "
+        f"equal to its kernel, the floor timed beside them; host us per call over "
+        f"{HOST_CALLS} calls for P3/P4, {CHAIN_HOST_CALLS} on one block for P1/P2, the mean "
+        f"over the variants): " + "; ".join(numbers)
         + f"; phase 8 took {time.perf_counter() - start:.1f} s")
     return entries
 
@@ -996,8 +1183,9 @@ def main(argv: list[str]) -> int:
                              "with four cards, where 7c adds the NCCL meshes")
     parser.add_argument("--kernel-times", action="store_true",
                         help="run phases 1 and 2, then time the kernels only (phase 6's and "
-                             "7a's kernel numbers), whichever hopperrender_tpu_torch sits beside "
-                             "this script: a copy of it in an older tree times that tree's kernels")
+                             "7a's kernel numbers, P3's and P4's of 8c, and the host split of a "
+                             "wrapper call), whichever hopperrender_tpu_torch sits beside this "
+                             "script: a copy of it in an older tree times that tree's kernels")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs a CUDA card",
@@ -1038,7 +1226,19 @@ def main(argv: list[str]) -> int:
         numbers = kernel_numbers(port, inp)
         numbers["warp_frames_band"] = band_numbers(port, inp.src, inp.flows, inp.t3, inp.black,
                                                    inp.white)
+        numbers["probes"] = probe_numbers(port, dev)
+        numbers["wrapper_split_us"] = wrapper_split(port, dev)
+        numbers["launch_anatomy_ms"] = floor_numbers(port, dev)
         log(f"kernel times [{card}] of {ROOT}: {format_numbers(numbers)}")
+        log(f"probe times [{card}] of {ROOT} (graph-timed device ms of one call of each variant, "
+            f"summed; host us per call, the mean over the variants): "
+            f"{format_probe_numbers(numbers['probes'])}")
+        log(f"wrapper split [{card}] of {ROOT} (host us per call of each stage alone): "
+            f"{format_split(numbers['wrapper_split_us'])}")
+        anatomy = numbers["launch_anatomy_ms"]
+        log(f"launch anatomy [{card}] of {ROOT} (graph-timed device ms): " + (
+            "not in this build" if anatomy is None else
+            ", ".join(f"{k} {v:.5f}" for k, v in anatomy.items())))
         log(json.dumps(numbers))
         return 0
 

@@ -11,6 +11,11 @@ minutes `torch.utils.cpp_extension.load` needs.
 Every C entry point launches on the stream it is given, allocates nothing,
 does not synchronise, and returns `cudaGetLastError()` as an int; `check`
 turns a non-zero code into an exception.
+
+`launch` is the wrappers' one way in: the entry point resolved once per
+process (`entry`), the raw handle of the current stream of the tensors'
+device, a device switch only when that device is not the current one, and
+the error check. It takes no lock once the library is loaded.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "hopperrender_tpu_torch"
@@ -43,6 +50,8 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # (stream): an empty kernel, the floor under a launch-bound kernel's time
     "hrt_empty_launch": (_P,),
+    # (kind, threads, src, out, stream): that floor taken apart
+    "hrt_floor_launch": (_I, _I, _P, _P, _P),
     # The probes (probes/): (variant, n, tab, band, out, blocks, stream)
     "hrt_chain_probe": (_I, _I, _P, _P, _P, _I, _P),
     # (variant, n, tab, band, res, out, blocks, stream)
@@ -64,6 +73,7 @@ class KernelLibrary:
 
 _lock = threading.Lock()
 _loaded: KernelLibrary | None = None
+_entries: dict[str, ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -157,3 +167,28 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = load().lib.hrt_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+def entry(name: str) -> ctypes._CFuncPtr:
+    """The C entry point `name` with its argtypes: the first call of the
+    process loads (and if needed builds) the library; every later call is
+    one dict lookup, with no lock."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(load().lib, name)
+    return fn
+
+
+def launch(name: str, index: int, *args) -> None:
+    """Call the C entry point `name` with args and the raw handle of the
+    current stream of CUDA device `index` (the capturing stream under CUDA
+    graph capture), with that device current; raise if it returns an error."""
+    fn = entry(name)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():
+        code = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, stream)
+    if code:
+        check(code, name)

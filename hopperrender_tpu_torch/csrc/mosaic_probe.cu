@@ -18,10 +18,24 @@
 // pl.ds(start, size) over the 128 rows: start + 128 if start < 0, then
 // clamped to [0, 128 - size] (dyn_sublane clamps r0 to 120 when r0 > 120).
 //
-// Design: one block of 1,024 threads, two output elements each (lanes l and
-// l + 128 of row i). The block stages x (128 KB) into dynamic shared memory,
-// the counterpart of the TPU kernel's VMEM operand. What bounds it on an H100:
-// the launch (128 KB in, 8 KB out).
+// What bounds it on an H100: the launch. It reads idx and 8 KB of x and
+// writes 8 KB; an empty launch alone takes 0.8-1.0 us there. So the design
+// reads only the window, from L2 with nothing staged in shared memory, and
+// keeps the chain to the offsets and then the window: one block of 512
+// threads, each owning 16 bytes (4 lanes) of one output row. Each thread
+// loads idx as one 8-byte int2 (every thread the same address: one broadcast),
+// computes its source row, and moves its 16 bytes with one aligned 16-byte
+// load and one 16-byte store: every variant but dyn_roll_lane copies whole
+// rows of x (the lane window of dyn_lane_aligned and dyn_both starts at 0).
+// dyn_roll_lane rotates each row by r0 mod 256 lanes, 16-byte aligned only
+// when r0 % 4 == 0; each thread loads the two aligned 16-byte chunks that
+// hold its four source lanes and funnel-shifts them, as K2 does: a warp's
+// two loads touch 8 L1 wavefronts where four 4-byte loads at a 16-byte
+// stride touch 16, and the shift is one select on a value every thread
+// shares. Pointers that are not 16-byte aligned (a view into a larger
+// tensor) take a scalar instantiation. On an H100 a variant takes 1.2-1.4 us
+// graph-timed: a block of more than 64 threads costs 1.0 us empty, and each
+// dependent L2 round trip 0.12-0.15 us more (chip_smoke.py --kernel-times).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,64 +47,94 @@ using hrt_probe::window_start;
 
 constexpr int kXRows = 128, kXCols = 256;
 constexpr int kOutRows = 8;
-constexpr int kThreads = 1024;
-constexpr int kSmemBytes = kXRows * kXCols * 4;
+constexpr int kLanesPerThread = 4;                                 // 16 bytes
+constexpr int kThreads = kOutRows * kXCols / kLanesPerThread;      // 512
+constexpr int kThreadsPerRow = kXCols / kLanesPerThread;           // 64
 
 enum Variant : int {
   kDynSublane, kDynSublaneAligned, kDynLaneAligned, kDynBoth, kDynRollLane, kDynRollSublane,
   kDynSublane16, kNumVariants
 };
 
-template <int V>
+// Four consecutive int32 at p: one 16-byte access when kVec (p 16-byte aligned).
+template <bool kVec>
+__device__ __forceinline__ int4 load4(const int32_t* __restrict__ p) {
+  if constexpr (kVec) return *reinterpret_cast<const int4*>(p);
+  return make_int4(p[0], p[1], p[2], p[3]);
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(int32_t* __restrict__ p, int4 v) {
+  if constexpr (kVec) {
+    *reinterpret_cast<int4*>(p) = v;
+  } else {
+    p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
+  }
+}
+
+template <int V, bool kVec>
 __global__ void __launch_bounds__(kThreads) mosaic_probe_kernel(const int32_t* __restrict__ idx,
                                                                 const int32_t* __restrict__ x,
                                                                 int32_t* __restrict__ out) {
-  extern __shared__ int32_t xs[];
-  for (int k = threadIdx.x; k < kXRows * kXCols; k += blockDim.x) xs[k] = x[k];
-  __syncthreads();
-  const int r0 = idx[0];
-  const int la = idx[1] & ~127;
+  int r0, lane;
+  if constexpr (kVec) {
+    const int2 o = *reinterpret_cast<const int2*>(idx);
+    r0 = o.x;
+    lane = o.y;
+  } else {
+    r0 = idx[0];
+    lane = idx[1];
+  }
+  const int la = lane & ~127;
   const int ra = r0 & ~7;
-  for (int e = threadIdx.x; e < kOutRows * kXCols; e += kThreads) {
-    const int i = e / kXCols;
-    const int l = e % kXCols;
-    int row = i, col = l;
+  const int i = threadIdx.x / kThreadsPerRow;                      // output row
+  const int l = (threadIdx.x % kThreadsPerRow) * kLanesPerThread;  // its first lane
+  int4 v;
+  if constexpr (V == kDynRollLane) {
+    // Lanes l..l + 3 come from lanes (l - r0) mod 256 onwards (unsigned: a
+    // floor mod for any r0): the aligned chunk holding the first and the next
+    // one, funnel-shifted by (-r0) mod 4, the same shift in every thread.
+    const int32_t* row = x + i * kXCols;
+    const uint32_t first = (static_cast<uint32_t>(l) - static_cast<uint32_t>(r0)) & 255u;
+    const uint32_t c0 = first & ~3u;
+    const int4 a = load4<kVec>(row + c0), b = load4<kVec>(row + ((c0 + 4u) & 255u));
+    switch (first & 3u) {
+      case 0: v = a; break;
+      case 1: v = make_int4(a.y, a.z, a.w, b.x); break;
+      case 2: v = make_int4(a.z, a.w, b.x, b.y); break;
+      default: v = make_int4(a.w, b.x, b.y, b.z); break;
+    }
+  } else {
+    int row = i, col = 0;
     if constexpr (V == kDynSublane) {
       row = window_start(r0, kXRows, 8) + i;
     } else if constexpr (V == kDynSublaneAligned) {
       row = window_start(ra, kXRows, 8) + i;
     } else if constexpr (V == kDynLaneAligned) {
-      col = window_start(la, kXCols, 256) + l;
+      col = window_start(la, kXCols, 256);   // always 0
     } else if constexpr (V == kDynBoth) {
       row = window_start(r0, kXRows, 8) + i;
-      col = window_start(la, kXCols, 256) + l;
-    } else if constexpr (V == kDynRollLane) {   // unsigned: a floor mod for any r0
-      col = static_cast<int>((static_cast<uint32_t>(l) - static_cast<uint32_t>(r0)) & 255u);
+      col = window_start(la, kXCols, 256);
     } else if constexpr (V == kDynRollSublane) {
       row = static_cast<int>((static_cast<uint32_t>(i) - static_cast<uint32_t>(r0)) & 15u);
-    } else {   // kDynSublane16
-      row = window_start(ra, kXRows, 16) + ((i + r0 - ra) & 15);
+    } else {   // kDynSublane16; r0 - ra is r0 & 7
+      row = window_start(ra, kXRows, 16) + ((i + (r0 & 7)) & 15);
     }
-    out[e] = xs[row * kXCols + col];
+    v = load4<kVec>(x + row * kXCols + col + l);
   }
+  store4<kVec>(out + i * kXCols + l, v);
 }
 
-template <int V>
-cudaError_t launch(const int32_t* idx, const int32_t* x, int32_t* out, cudaStream_t stream) {
-  static std::atomic<uint64_t> ready{0};
-  const cudaError_t attr =
-      hrt_probe::allow_dynamic_smem(mosaic_probe_kernel<V>, kSmemBytes, ready);
-  if (attr != cudaSuccess) return attr;
-  mosaic_probe_kernel<V><<<1, kThreads, kSmemBytes, stream>>>(idx, x, out);
-  return cudaGetLastError();
-}
-
-using Launcher = cudaError_t (*)(const int32_t*, const int32_t*, int32_t*, cudaStream_t);
-// In the order of Variant (and of probes/mosaic_probe.py::VARIANTS).
-const Launcher kLaunchers[kNumVariants] = {
-    launch<kDynSublane>,     launch<kDynSublaneAligned>, launch<kDynLaneAligned>,
-    launch<kDynBoth>,        launch<kDynRollLane>,       launch<kDynRollSublane>,
-    launch<kDynSublane16>};
+using Kernel = void (*)(const int32_t*, const int32_t*, int32_t*);
+#define HRT_MOSAIC_KERNELS(VEC)                                                          \
+  {mosaic_probe_kernel<kDynSublane, VEC>,     mosaic_probe_kernel<kDynSublaneAligned, VEC>, \
+   mosaic_probe_kernel<kDynLaneAligned, VEC>, mosaic_probe_kernel<kDynBoth, VEC>,           \
+   mosaic_probe_kernel<kDynRollLane, VEC>,    mosaic_probe_kernel<kDynRollSublane, VEC>,    \
+   mosaic_probe_kernel<kDynSublane16, VEC>}
+// [vec][variant], variants in the order of Variant (and of
+// probes/mosaic_probe.py::VARIANTS); [1] the 16-byte instantiations.
+const Kernel kKernels[2][kNumVariants] = {HRT_MOSAIC_KERNELS(false), HRT_MOSAIC_KERNELS(true)};
+#undef HRT_MOSAIC_KERNELS
 
 }  // namespace
 
@@ -99,7 +143,10 @@ const Launcher kLaunchers[kNumVariants] = {
 extern "C" int hrt_mosaic_probe(int variant, const void* idx, const void* x, void* out,
                                 void* stream) {
   if (variant < 0 || variant >= kNumVariants) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(kLaunchers[variant](
+  const bool vec = (reinterpret_cast<uintptr_t>(idx) % 8 == 0) &&
+                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 == 0);
+  kKernels[vec][variant]<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(idx), static_cast<const int32_t*>(x),
-      static_cast<int32_t*>(out), static_cast<cudaStream_t>(stream)));
+      static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,27 +1,10 @@
 // What the probe kernels share: the window rule of the TPU kernels' dynamic
-// slices, P1/P2's table and band, and P3/P4's shared-memory opt-in.
+// slices, and P1/P2's table and band.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-
 namespace hrt_probe {
-
-// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
-// device. The attribute holds per device, so it is set at the first launch on
-// each device (one bit of `ready` per device) and not on every launch.
-template <typename Kernel>
-cudaError_t allow_dynamic_smem(Kernel* kernel, int bytes, std::atomic<uint64_t>& ready) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;   // past 64: every launch
-  if (bit != 0 && (ready.load(std::memory_order_acquire) & bit) != 0) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) ready.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 // pl.ds(start, size) over a dimension of `dim`, as the JAX kernels resolve it
 // in interpret mode: a negative start counts from the end once (start + dim),

@@ -53,11 +53,8 @@ def blur_flow(offsets: torch.Tensor) -> torch.Tensor:
         raise ValueError("blur_flow: offsets must be contiguous")
     _, low_h, low_w = offsets.shape
     out = torch.empty_like(offsets)
-    lib = _build.load().lib
-    with torch.cuda.device(offsets.device):
-        stream = torch.cuda.current_stream(offsets.device).cuda_stream
-        _build.check(lib.hrt_blur_flow(offsets.data_ptr(), out.data_ptr(),
-                                       low_h, low_w, stream), "blur_flow")
+    _build.launch("hrt_blur_flow", offsets.get_device(), offsets.data_ptr(), out.data_ptr(),
+                  low_h, low_w)
     blur_flow.launches += 1
     return out
 

@@ -120,18 +120,14 @@ def _launch(tensors, black_level, white_level, band, *, res_scalar, mode, is_hdr
     dim_y, dim_x = src12_y.shape
     n_t = ts.shape[0]
     _, rows_y, _, rows_uv = band
-    out_y = torch.empty((n_t, rows_y, dim_x), dtype=src12_y.dtype, device=flow.device)
-    out_uv = torch.empty((n_t, rows_uv, dim_x), dtype=src12_y.dtype, device=flow.device)
-    lib = _build.load().lib
-    with torch.cuda.device(flow.device):
-        stream = torch.cuda.current_stream(flow.device).cuda_stream
-        code = lib.hrt_warp_frames(
-            src12_y.data_ptr(), src12_uv.data_ptr(), src21_y.data_ptr(),
-            src21_uv.data_ptr(), flow.data_ptr(), ts.data_ptr(), n_t,
-            out_y.data_ptr(), out_uv.data_ptr(), dim_y, dim_x, *band,
-            flow.shape[1], flow.shape[2], res_scalar, mode, int(raw_blend), int(is_hdr),
-            float(black_level), float(white_level), stream)
-    _build.check(code, name)
+    out_y = src12_y.new_empty((n_t, rows_y, dim_x))
+    out_uv = src12_y.new_empty((n_t, rows_uv, dim_x))
+    _build.launch("hrt_warp_frames", flow.get_device(),
+                  src12_y.data_ptr(), src12_uv.data_ptr(), src21_y.data_ptr(),
+                  src21_uv.data_ptr(), flow.data_ptr(), ts.data_ptr(), n_t,
+                  out_y.data_ptr(), out_uv.data_ptr(), dim_y, dim_x, *band,
+                  flow.shape[1], flow.shape[2], res_scalar, mode, int(raw_blend), int(is_hdr),
+                  float(black_level), float(white_level))
     return out_y, out_uv
 
 

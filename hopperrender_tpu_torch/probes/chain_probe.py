@@ -187,13 +187,9 @@ def run(variant: str, n: int, tab: torch.Tensor, band: torch.Tensor, *,
         raise ValueError(f"chain_probe: unsupported device {tab.device}")
     if not (tab.is_contiguous() and band.is_contiguous()):
         raise ValueError("chain_probe: tab and band must be contiguous")
-    out = torch.empty((blocks, *TILE), dtype=torch.uint32, device=tab.device)
-    lib = _build.load().lib
-    with torch.cuda.device(tab.device):
-        stream = torch.cuda.current_stream(tab.device).cuda_stream
-        _build.check(lib.hrt_chain_probe(VARIANTS.index(variant), n, tab.data_ptr(),
-                                         band.data_ptr(), out.data_ptr(), blocks, stream),
-                     "chain_probe")
+    out = band.new_empty((blocks, *TILE))   # uint32, as band
+    _build.launch("hrt_chain_probe", tab.get_device(), VARIANTS.index(variant), n, tab.data_ptr(),
+                  band.data_ptr(), out.data_ptr(), blocks)
     run.launches += 1
     return out
 

@@ -117,13 +117,9 @@ def run(variant: str, n: int, tab: torch.Tensor, band: torch.Tensor, res: torch.
         raise ValueError(f"chain_probe2: unsupported device {tab.device}")
     if not (tab.is_contiguous() and band.is_contiguous() and res.is_contiguous()):
         raise ValueError("chain_probe2: tab, band and res must be contiguous")
-    out = torch.empty((blocks, *TILE), dtype=torch.uint32, device=tab.device)
-    lib = _build.load().lib
-    with torch.cuda.device(tab.device):
-        stream = torch.cuda.current_stream(tab.device).cuda_stream
-        _build.check(lib.hrt_chain_probe2(KERNEL_VARIANTS.index(variant), n, tab.data_ptr(),
-                                          band.data_ptr(), res.data_ptr(), out.data_ptr(),
-                                          blocks, stream), "chain_probe2")
+    out = band.new_empty((blocks, *TILE))   # uint32, as band
+    _build.launch("hrt_chain_probe2", tab.get_device(), KERNEL_VARIANTS.index(variant), n,
+                  tab.data_ptr(), band.data_ptr(), res.data_ptr(), out.data_ptr(), blocks)
     run.launches += 1
     return out
 

@@ -40,13 +40,18 @@ def _wrap(k: torch.Tensor, size: int) -> torch.Tensor:
     return torch.where(k < 0, k + size, k)
 
 
+_VARIANT_ID = {v: i for i, v in enumerate(VARIANTS)}
+
+
 def _check(variant, x, idx):
-    if variant not in VARIANTS:
+    if variant not in _VARIANT_ID:
         raise ValueError(f"gather_probe: unknown variant {variant!r}; one of {VARIANTS}")
-    for name, t, shape in (("x", x, X_SHAPE), ("idx", idx, TILE)):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"gather_probe: {name}: expected {shape} int32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+    if x.dtype != torch.int32 or x.shape != X_SHAPE:
+        raise ValueError(f"gather_probe: x: expected {X_SHAPE} int32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if idx.dtype != torch.int32 or idx.shape != TILE:
+        raise ValueError(f"gather_probe: idx: expected {TILE} int32, got "
+                         f"{tuple(idx.shape)} {idx.dtype}")
     if x.device != idx.device:
         raise ValueError("gather_probe: x and idx must be on one device")
 
@@ -73,18 +78,15 @@ def run(variant: str, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Launches the CUDA kernel for CUDA tensors (on the current stream, no
     synchronisation); CPU tensors take the plain version."""
     _check(variant, x, idx)
-    if x.device.type == "cpu":
-        return run_reference(variant, x, idx)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return run_reference(variant, x, idx)
         raise ValueError(f"gather_probe: unsupported device {x.device}")
     if not (x.is_contiguous() and idx.is_contiguous()):
         raise ValueError("gather_probe: x and idx must be contiguous")
-    out = torch.empty(TILE, dtype=torch.int32, device=x.device)
-    lib = _build.load().lib
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.check(lib.hrt_gather_probe(VARIANTS.index(variant), x.data_ptr(), idx.data_ptr(),
-                                          out.data_ptr(), stream), "gather_probe")
+    out = torch.empty_like(idx)    # the (8, 128) int32 tile, as idx
+    _build.launch("hrt_gather_probe", x.get_device(), _VARIANT_ID[variant], x.data_ptr(),
+                  idx.data_ptr(), out.data_ptr())
     run.launches += 1
     return out
 

@@ -22,6 +22,7 @@ from hopperrender_tpu_torch import _build
 from hopperrender_tpu_torch.probes.chain_probe import window_start
 
 X_SHAPE = (128, 256)
+IDX_SHAPE = (2,)
 OUT_SHAPE = (8, 256)
 # The script's default order (its short names: sublane, sublane_aligned, lane,
 # both, roll_lane, roll_sublane, sublane16).
@@ -30,13 +31,18 @@ VARIANTS = ("dyn_sublane", "dyn_sublane_aligned", "dyn_lane_aligned", "dyn_both"
 IDX = (5, 128)            # the script's offsets
 
 
+_VARIANT_ID = {v: i for i, v in enumerate(VARIANTS)}
+
+
 def _check(variant, idx, x):
-    if variant not in VARIANTS:
+    if variant not in _VARIANT_ID:
         raise ValueError(f"mosaic_probe: unknown variant {variant!r}; one of {VARIANTS}")
-    for name, t, shape in (("idx", idx, (2,)), ("x", x, X_SHAPE)):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"mosaic_probe: {name}: expected {shape} int32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+    if idx.dtype != torch.int32 or idx.shape != IDX_SHAPE:
+        raise ValueError(f"mosaic_probe: idx: expected {IDX_SHAPE} int32, got "
+                         f"{tuple(idx.shape)} {idx.dtype}")
+    if x.dtype != torch.int32 or x.shape != X_SHAPE:
+        raise ValueError(f"mosaic_probe: x: expected {X_SHAPE} int32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
     if x.device != idx.device:
         raise ValueError("mosaic_probe: idx and x must be on one device")
 
@@ -74,18 +80,15 @@ def run(variant: str, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     synchronisation; the kernel reads idx on the card); CPU tensors take the
     plain version."""
     _check(variant, idx, x)
-    if x.device.type == "cpu":
-        return run_reference(variant, idx, x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return run_reference(variant, idx, x)
         raise ValueError(f"mosaic_probe: unsupported device {x.device}")
     if not (x.is_contiguous() and idx.is_contiguous()):
         raise ValueError("mosaic_probe: idx and x must be contiguous")
-    out = torch.empty(OUT_SHAPE, dtype=torch.int32, device=x.device)
-    lib = _build.load().lib
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.check(lib.hrt_mosaic_probe(VARIANTS.index(variant), idx.data_ptr(), x.data_ptr(),
-                                          out.data_ptr(), stream), "mosaic_probe")
+    out = x.new_empty(OUT_SHAPE)   # int32 on x's device: cheaper than torch.empty's arguments
+    _build.launch("hrt_mosaic_probe", x.get_device(), _VARIANT_ID[variant], idx.data_ptr(),
+                  x.data_ptr(), out.data_ptr())
     run.launches += 1
     return out
 

@@ -395,3 +395,107 @@ def test_mosaic_probe_kernel_matches_plain(dev, variant):
         got = mosaic_probe.run(variant, idx, x)
         assert mosaic_probe.run.launches == before + 1
         assert torch.equal(got, mosaic_probe.run_reference(variant, idx, x)), f"idx {offsets}"
+
+
+MOSAIC_LANES = (0, 127, 128, 255, 256, -1)
+
+
+def _unaligned(t):
+    """A copy of t whose data starts 4 bytes past a 16-byte boundary: the
+    kernels' scalar instantiations."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    return view
+
+
+def test_mosaic_probe_kernel_every_r0(dev):
+    """P4's seven kernels at every r0 in [-300, 300] and lanes 0, 127, 128,
+    255, 256 and -1, each equal to the plain version; at r0 = -300, 0, 7 and
+    299 also from unaligned idx and x."""
+    x_cpu = torch.from_numpy(np.random.default_rng(45).integers(
+        -2**31, 2**31, (128, 256), dtype=np.int32))
+    x = x_cpu.to(dev)
+    offsets = [(r0, lane) for r0 in range(-300, 301) for lane in MOSAIC_LANES]
+    idx = torch.tensor(offsets, dtype=torch.int32, device=dev)     # row k: 8-byte aligned
+    odd = [k for k, (r0, _) in enumerate(offsets) if r0 in (-300, 0, 7, 299)]
+    x_odd = _unaligned(x)
+    for variant in mosaic_probe.VARIANTS:
+        before = mosaic_probe.run.launches
+        got = torch.stack([mosaic_probe.run(variant, idx[k], x) for k in range(len(offsets))])
+        got_odd = torch.stack([mosaic_probe.run(variant, _unaligned(idx[k]), x_odd) for k in odd])
+        assert mosaic_probe.run.launches == before + len(offsets) + len(odd)
+        got, got_odd = got.cpu(), got_odd.cpu()
+        for k, off in enumerate(offsets):
+            want = mosaic_probe.run_reference(variant, torch.tensor(off, dtype=torch.int32), x_cpu)
+            assert torch.equal(got[k], want), f"{variant} idx {off}"
+        for j, k in enumerate(odd):
+            want = mosaic_probe.run_reference(variant, idx[k].cpu(), x_cpu)
+            assert torch.equal(got_odd[j], want), f"{variant} unaligned idx {offsets[k]}"
+
+
+def test_gather_probe_kernel_every_index(dev):
+    """P3's three kernels over index tiles that hold every value in [-263,
+    249] (every wrap, fill and clamp of both axes), each equal to the plain
+    version; the same tiles from unaligned idx."""
+    x = torch.from_numpy(np.random.default_rng(46).integers(
+        -2**31, 2**31, (64, 256), dtype=np.int32)).to(dev)
+    values = np.arange(-263, 250, dtype=np.int32)
+    tiles = [torch.from_numpy(np.resize(np.roll(values, 97 * k), (8, 128))).to(dev)
+             for k in range(3)]
+    for variant in gather_probe.VARIANTS:
+        for t, tile in enumerate(tiles):
+            want = gather_probe.run_reference(variant, x, tile)
+            assert torch.equal(gather_probe.run(variant, x, tile), want), f"{variant} tile {t}"
+            assert torch.equal(gather_probe.run(variant, x, _unaligned(tile)), want), \
+                f"{variant} unaligned tile {t}"
+
+
+def test_probe_wrappers_replay_in_a_cuda_graph(dev):
+    """P3's and P4's wrappers captured into one CUDA graph: the replay equals
+    the eager calls, and after new offsets are written into P4's idx in
+    place, the replay reads them on the card."""
+    x3, idx3 = gather_probe.make_inputs(dev)
+    idx4, x4 = mosaic_probe.make_inputs((-9, 1000), dev)
+    calls = ([lambda v=v: gather_probe.run(v, x3, idx3) for v in gather_probe.VARIANTS]
+             + [lambda v=v: mosaic_probe.run(v, idx4, x4) for v in mosaic_probe.VARIANTS])
+    eager = [call() for call in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call in calls:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [call() for call in calls]
+    graph.replay()
+    torch.cuda.synchronize()
+    for k, (got, want) in enumerate(zip(captured, eager)):
+        assert torch.equal(got, want), f"call {k}"
+    idx4.copy_(torch.tensor((121, 255), dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    for v, got in zip(mosaic_probe.VARIANTS, captured[len(gather_probe.VARIANTS):]):
+        assert torch.equal(got, mosaic_probe.run(v, idx4, x4)), f"{v} after new offsets"
+
+
+def test_probe_wrappers_on_a_device_that_is_not_current(dev):
+    """P3 and P4 on tensors of card 1 while card 0 is current: the launch
+    goes to card 1, and card 0 stays current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    x3, idx3 = gather_probe.make_inputs(other)
+    idx4, x4 = mosaic_probe.make_inputs((17, 129), other)
+    with torch.cuda.device(0):
+        for v in gather_probe.VARIANTS:
+            got = gather_probe.run(v, x3, idx3)
+            assert got.device == other
+            assert torch.equal(got, gather_probe.run_reference(v, x3, idx3)), v
+        for v in mosaic_probe.VARIANTS:
+            got = mosaic_probe.run(v, idx4, x4)
+            assert got.device == other
+            assert torch.equal(got, mosaic_probe.run_reference(v, idx4, x4)), v
+        assert torch.cuda.current_device() == 0

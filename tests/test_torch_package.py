@@ -8,6 +8,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -130,6 +131,41 @@ def test_probe_work_counts_every_variant_and_the_words_read():
     midx = mosaic_probe.make_inputs()[0]
     moved, _ = chip_smoke.probe_work(port, "mosaic_probe", "dyn_sublane_16", (midx,), 0, 1)
     assert moved == 4 * (2048 + 2048) + 8
+
+
+def test_build_entry_resolves_each_entry_point_once(monkeypatch):
+    """_build.entry resolves a C entry point from the library on its first
+    call and hands out the same object after; _build.launch passes the raw
+    stream handle last and raises on a CUDA error code. A stand-in library
+    and stream: no nvcc and no card."""
+    from hopperrender_tpu_torch import _build
+
+    resolved, calls = [], []
+
+    class FakeLibrary:
+        def __getattr__(self, name):
+            resolved.append(name)
+            return lambda *args: calls.append((name, args)) or (7 if name == "hrt_fails" else 0)
+
+        def hrt_error_string(self, code):
+            return b"stand-in error"
+
+    monkeypatch.setattr(_build, "load", lambda: types.SimpleNamespace(lib=FakeLibrary()))
+    monkeypatch.setattr(_build, "_entries", {})
+    first = _build.entry("hrt_mosaic_probe")
+    assert _build.entry("hrt_mosaic_probe") is first
+    _build.entry("hrt_gather_probe")
+    assert resolved == ["hrt_mosaic_probe", "hrt_gather_probe"]
+
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0x5000 + index,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+    _build.launch("hrt_mosaic_probe", 0, 3, 0x10, 0x20, 0x30)
+    assert calls == [("hrt_mosaic_probe", (3, 0x10, 0x20, 0x30, 0x5000))]
+    with pytest.raises(RuntimeError, match=r"hrt_fails launch failed: CUDA error 7 "
+                                           r"\(stand-in error\)"):
+        _build.launch("hrt_fails", 0, 1)
+    assert resolved == ["hrt_mosaic_probe", "hrt_gather_probe", "hrt_fails"]
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch):

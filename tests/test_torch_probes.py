@@ -32,6 +32,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from hopperrender_tpu_torch import _build
 from hopperrender_tpu_torch.probes import __main__ as probe_path
 from hopperrender_tpu_torch.probes import _timing, chain_probe, chain_probe2, gather_probe
 from hopperrender_tpu_torch.probes import mosaic_probe
@@ -257,6 +258,26 @@ def test_wrappers_check_their_inputs():
     midx, mx = mosaic_probe.make_inputs()
     with pytest.raises(ValueError, match="unsupported device"):
         mosaic_probe.run("dyn_both", midx.to("meta"), mx.to("meta"))
+
+
+def test_probe_wrappers_on_the_cpu_never_load_the_library(monkeypatch):
+    """P3 and P4 on CPU tensors take their plain versions and never ask for
+    the kernel library, its entry points or a launch."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the kernel library was asked for")
+
+    for name in ("load", "entry", "launch"):
+        monkeypatch.setattr(_build, name, refuse)
+    launches = gather_probe.run.launches, mosaic_probe.run.launches
+    x, idx = gather_probe.make_inputs()
+    for variant in gather_probe.VARIANTS:
+        assert torch.equal(gather_probe.run(variant, x, idx),
+                           gather_probe.run_reference(variant, x, idx))
+    idx4, x4 = mosaic_probe.make_inputs((-9, 1000))
+    for variant in mosaic_probe.VARIANTS:
+        assert torch.equal(mosaic_probe.run(variant, idx4, x4),
+                           mosaic_probe.run_reference(variant, idx4, x4))
+    assert (gather_probe.run.launches, mosaic_probe.run.launches) == launches
 
 
 def test_block_gather_chain_sums_the_gathered_first_words():

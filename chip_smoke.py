@@ -5,9 +5,11 @@
     python3 chip_smoke.py --parallel-only   # phases 1, 2 and 7; on four cards, 7c
                                             # adds meshes of a rank per card (NCCL)
     python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only:
-                                            # K1, K2, the band, P3, P4, the split of a
-                                            # wrapper call's host time into stages and
-                                            # the floor of a one-block launch taken apart
+                                            # K1, K2, the band, P1-P4 and the L2 read
+                                            # rate, P1/P2 on the probe path on 1 and
+                                            # 132 blocks, the split of a wrapper call's
+                                            # host time into stages and the floor of a
+                                            # one-block launch taken apart
 
 Builds the hand-written CUDA kernels from hopperrender_tpu_torch/csrc (nvcc,
 sm_90a), then runs these phases, one line each:
@@ -69,20 +71,27 @@ sm_90a), then runs these phases, one line each:
      second mode-2 step (CUDA events in the ranks);
   8. the probes P1-P4 (hopperrender_tpu_torch/probes/):
      8a. each kernel against its plain version, exactly: every P1 and P2
-     variant at n = 600 (past the 512-entry table) on 1 block and on 132,
-     every slot; P3's three and P4's seven at indices and offsets whose
-     windows clamp; transpose8 refused before a launch;
+     variant at n = 0 to 1,031 (around the kernels' groups of 8 iterations
+     and the 512-entry table's wrap) on 1 block and on 132, every slot;
+     P3's three and P4's seven at indices and offsets whose windows clamp;
+     transpose8 refused before a launch;
      8b. the probe path (probes/__main__.run_probe, what `python -m
      hopperrender_tpu_torch.probes` runs) with the counters at 0: chain and
      chain2 at 1 and 132 blocks (ns per iteration by the slope over n =
      20,000 and 120,000), the gather and mosaic kernels, and the block-gather
-     rates; every probe kernel must have launched;
-     8c. each probe's kernels against their plain versions and the bound;
-     P3's and P4's graph-timed (n calls in one CUDA graph) against an empty
-     launch per variant timed beside them (the floor) and their one-call PyTorch
-     counterparts (torch.gather; slicing copied out and torch.roll), each
-     first checked equal to the kernel's output; host us per wrapper call
-     and per library call.
+     rates; every probe kernel must have launched; and for every P1/P2
+     variant on 132 blocks t(n = 120,000) / t(n = 20,000) >= 4, or the run
+     fails: a loop whose loads were dropped would not grow with n;
+     8c. each probe's kernels against their plain versions and the bound,
+     graph-timed (n calls in one CUDA graph; P1/P2 at n = 600 on 132 blocks)
+     against an empty launch per variant timed beside them (the floor); P3's
+     and P4's against their one-call PyTorch counterparts (torch.gather;
+     slicing copied out and torch.roll), each first checked equal to the
+     kernel's output; host us per wrapper call and per library call. The
+     card's L2 read rate (132 blocks stream a 2 MB buffer in step), which
+     bounds P1 and P2 with their L2 bytes (the distinct 32-byte sectors each
+     iteration reads, per block); a P1/P2 variant timed below 0.95 of its
+     bound fails the run: that bound or that kernel is wrong.
 
 Before each served path, and before the probe path, every launch counter
 is set to 0, and after it each kernel of that path must have launched (the
@@ -90,9 +99,10 @@ ranks of 7c start at 0). Then one JSON line of the kernels
 (with each one's bound: the least time the card could take for its work;
 `ms` the graph-timed time on random flow, `smooth_ms` on smooth flow for
 K1, K2, raw_blend and the band, and their `host_us`; for the probes `ms`
-summed over the variants, graph-timed for P3/P4, `host_us` and
-`library_host_us` the means over the variants, `floor_ms` the variants'
-count times an empty launch),
+summed over the variants, graph-timed, P1/P2's bound beside the bound
+without its L2 term (`bound_ms_without_l2`) and each variant's ms and
+bound, `host_us` and `library_host_us` the means over the variants,
+`floor_ms` the variants' count times an empty launch),
 nvidia-smi's line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises: the script exits non-zero and prints no result. It imports
 nothing of JAX and nothing of the JAX package.
@@ -148,13 +158,18 @@ OPS_RATE = {"blur_flow": INT32_OPS_PER_S}
 # loop and not counted. full and full_aligned_rows write only the 8 x 16
 # elements of lanes [t_sub, t_sub + 16); each costs FULL_SECOND_WORD_OPS more
 # (the second word's lane, address, load, two shifts and the OR) in the
-# iterations whose c & 3 is not 0.
+# iterations whose c & 3 is not 0. Where the function needs fewer operations
+# than the TPU kernel's formulation, the count is the fewer: roll0's row roll
+# is one offset of the tile's window (per tile), not a roll of every element;
+# slice_static_x17's XOR of 17 neighbouring lanes is a sliding window of one
+# row, its address, its load, a prefix XOR and the XOR of two prefixes, then
+# the fold, where the TPU kernel makes 17 loads and 17 XORs per element.
 PROBE_OPS = {
     "chain_probe": {"empty": (1, 4), "smem_only": (1, 9), "load8x128": (3, 19),
-                    "load8x256": (3, 19), "load16x256": (3, 19), "roll0": (6, 20),
+                    "load8x256": (3, 19), "load16x256": (3, 19), "roll0": (3, 20),
                     "roll0_static": (3, 19), "roll1": (6, 20), "roll1_static": (3, 19),
                     "roll1_128": (6, 20), "full": (8, 28), "full_aligned_rows": (6, 28)},
-    "chain_probe2": {"slice_static": (3, 19), "slice_static_x17": (35, 19), "vsel_x17": (9, 13),
+    "chain_probe2": {"slice_static": (3, 19), "slice_static_x17": (5, 19), "vsel_x17": (9, 13),
                      "fastpath_tile": (9, 13), "cond_branch": (3, 22),
                      "dyngather_ax0_8": (6, 18), "dyngather_ax0_32": (6, 18),
                      "dyngather_ax0_256": (6, 18), "dyngather_ax1_8": (6, 18),
@@ -166,11 +181,23 @@ PROBE_OPS = {
                      "dyn_roll_sublane": (4, 1), "dyn_sublane_16": (5, 7)},
 }
 FULL_LANES, FULL_SECOND_WORD_OPS = 8 * 16, 7
-PROBE_N, PROBE_BLOCKS = 600, (1, 132)     # parity: past the table, one SM and every SM
+PROBE_N, PROBE_BLOCKS = 600, (1, 132)     # timed: past the table; one SM and every SM
+# P1/P2 parity: around the kernels' groups of 8 iterations and the table's wrap.
+PARITY_NS = (0, 1, 2, 3, 7, 8, 9, 511, 512, 513, 600, 1031)
 # Calls captured in one CUDA graph (P3/P4), and back-to-back calls on the
 # host clock (P3/P4; P1/P2, whose n = PROBE_N iterations queue up on the card
 # while the host goes on).
 PROBE_GRAPH_CALLS, HOST_CALLS, CHAIN_HOST_CALLS = 200, 1000, 200
+# P1/P2 calls captured in one CUDA graph (n = PROBE_N on 132 blocks); the
+# least ratio t(n2) / t(n1) of the probe path's two loop counts (20,000 and
+# 120,000) on 132 blocks that the check that their time grows with n accepts
+# (an unchanged loop gives 6; a loop whose loads were dropped about 1); and
+# the least ratio of a P1/P2 variant's time to its bound (below it, the
+# bound or the kernel is wrong).
+CHAIN_GRAPH_CALLS, MIN_SCALING, MIN_BOUND_RATIO = 20, 4.0, 0.95
+# The L2 read rate (csrc/errors.cu, hrt_l2_read): blocks, and passes over a
+# 2 MB buffer per block; the bytes of one sector, P1/P2's L2 traffic unit.
+L2_BLOCKS, L2_PASSES, SECTOR_BYTES = 132, 40, 32
 
 
 def log(line: str) -> None:
@@ -278,15 +305,6 @@ def time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def time_pair(kernel, plain, n_kernel: int, n_plain: int) -> tuple[float, float]:
-    """Kernel and plain version timed in turns (plain, kernel, kernel, plain)."""
-    p1 = time_ms(plain, n_plain)
-    k1 = time_ms(kernel, n_kernel)
-    k2 = time_ms(kernel, n_kernel)
-    p2 = time_ms(plain, n_plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
-
-
 def graph_ms(fn, n: int, replays: int = 3) -> float:
     """Device ms of one call: n calls captured in one CUDA graph, the graph
     replayed `replays` times, each replay timed with CUDA events; the median
@@ -372,17 +390,29 @@ def probe_numbers(port, dev) -> dict:
     and library_host_us their means, empty_launch_ms the empty launch timed
     just before and just after the probe's variants (the mean; it moves
     over a run), floor_ms the variants' count times it, and each variant's
-    four numbers. P1 and P2 (n = PROBE_N, one block): host_us only, the
-    mean over the variants of CHAIN_HOST_CALLS calls each."""
+    four numbers. P1 and P2 the same way at n = PROBE_N on 132 blocks
+    (CHAIN_GRAPH_CALLS calls in a graph), with no library call; their
+    host_us on one block over CHAIN_HOST_CALLS calls. "l2_read" is the L2
+    read rate (l2_read_rate; None in a tree without it)."""
     p1, p2, p3, p4 = (port.probes[k] for k in ("chain_probe", "chain_probe2", "gather_probe",
                                                "mosaic_probe"))
     x3, idx3 = p3.make_inputs(dev)
     idx4, x4 = p4.make_inputs(device=dev)
     library = probe_library(port, x3, idx3, x4)
-    out = {}
-    for name, mod, args in (("gather_probe", p3, (x3, idx3)), ("mosaic_probe", p4, (idx4, x4))):
+    p1_in, p2_in = p1.make_inputs(0, dev), p2.make_inputs(0, dev)
+    B = PROBE_BLOCKS[-1]
+    out = {"l2_read": l2_read_rate(port, dev)}
+    for name, mod, args in (("gather_probe", p3, (x3, idx3)), ("mosaic_probe", p4, (idx4, x4)),
+                            ("chain_probe", p1, p1_in), ("chain_probe2", p2, p2_in)):
+        chain = name.startswith("chain")
         floors, per = [empty_launch_ms(port)], {}
-        for v in mod.VARIANTS:
+        for v in (mod.KERNEL_VARIANTS if mod is p2 else mod.VARIANTS):
+            if chain:
+                kernel = lambda v=v: mod.run(v, PROBE_N, *args, blocks=B)
+                per[v] = {"ms": graph_ms(kernel, CHAIN_GRAPH_CALLS, 5),
+                          "host_us": host_us(lambda v=v: mod.run(v, PROBE_N, *args),
+                                             CHAIN_HOST_CALLS)}
+                continue
             kernel, lib_call = (lambda v=v: mod.run(v, *args)), library[v]
             require_equal(lib_call(), kernel(), f"{name} {v}: the library call")
             per[v] = {"ms": graph_ms(kernel, PROBE_GRAPH_CALLS, 5),
@@ -392,30 +422,32 @@ def probe_numbers(port, dev) -> dict:
         floors.append(empty_launch_ms(port))
         floor = None if None in floors else statistics.mean(floors)
         out[name] = {"ms": sum(p["ms"] for p in per.values()),
-                     "library_ms": sum(p["library_ms"] for p in per.values()),
+                     "library_ms": None if chain else sum(p["library_ms"] for p in per.values()),
                      "host_us": statistics.mean(p["host_us"] for p in per.values()),
-                     "library_host_us": statistics.mean(p["library_host_us"]
-                                                        for p in per.values()),
+                     "library_host_us": None if chain else statistics.mean(
+                         p["library_host_us"] for p in per.values()),
                      "empty_launch_ms": floor,
                      "floor_ms": None if floor is None else len(per) * floor, "variants": per}
-    for name, mod, variants in (("chain_probe", p1, p1.VARIANTS),
-                                ("chain_probe2", p2, p2.KERNEL_VARIANTS)):
-        inputs = mod.make_inputs(0, dev)
-        out[name] = {"host_us": statistics.mean(
-            host_us(lambda v=v: mod.run(v, PROBE_N, *inputs), CHAIN_HOST_CALLS) for v in variants)}
     return out
+
+
+def format_l2(rate: dict) -> str:
+    return f"{rate['bytes_per_s'] / 1e12:.3f} TB/s ({rate['ms']:.4f} ms for {rate['bytes']} bytes)"
 
 
 def format_probe_numbers(numbers: dict) -> str:
     parts = []
     for name, v in numbers.items():
-        if "ms" not in v:
-            parts.append(f"{name} host {v['host_us']:.2f} us/call")
+        if name == "l2_read":
+            parts.append("L2 read rate not in this build" if v is None else
+                         f"L2 read rate {format_l2(v)}")
             continue
         floor = "not in this build" if v["floor_ms"] is None else f"{v['floor_ms']:.5f} ms"
+        lib = ("" if v["library_ms"] is None else f"; library {v['library_ms']:.5f} ms, host "
+               f"{v['library_host_us']:.2f} us/call")
+        each = ", ".join(f"{k} {p['ms']:.5f}" for k, p in v["variants"].items())
         parts.append(f"{name} ({len(v['variants'])} variants) {v['ms']:.5f} ms, floor {floor}, "
-                     f"host {v['host_us']:.2f} us/call; library {v['library_ms']:.5f} ms, host "
-                     f"{v['library_host_us']:.2f} us/call")
+                     f"host {v['host_us']:.2f} us/call{lib} [{each}]")
     return "; ".join(parts)
 
 
@@ -964,23 +996,105 @@ def u32_err(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
 
 
 @contextlib.contextmanager
-def recorded_band_reads(p1):
+def recorded_band_reads(p1, sectors: list | None = None):
     """Points chain_probe.band_words, through which P1's and P2's plain
     versions read the band, at a recorder while the block runs: it marks
-    every flat index read in the mask it yields and gives zeros."""
+    every flat index read in the mask it yields and gives zeros. Where
+    `sectors` is given, it also appends to it, for each chunk of iterations
+    the plain version takes (chain_probe.table_fields marks where one
+    starts), the chunk's iteration count and the 32-byte sectors (flat index
+    >> 3, int32, one row per iteration) of each read the chunk made."""
     seen = torch.zeros(p1.ROWS * p1.W32, dtype=torch.bool)
 
     class Reads:
         def __getitem__(self, flat):
             seen[flat.reshape(-1)] = True
+            if sectors is not None:
+                sectors[-1][1].append((flat >> 3).to(torch.int32))
             return torch.zeros_like(flat)
 
-    band_words = p1.band_words
-    p1.band_words = lambda band: Reads()
+    def table_fields(tab, i0, i1):
+        if sectors is not None:
+            sectors.append((i1 - i0, []))
+        return fields(tab, i0, i1)
+
+    band_words, fields = p1.band_words, p1.table_fields
+    p1.band_words, p1.table_fields = (lambda band: Reads()), table_fields
     try:
         yield seen
     finally:
-        p1.band_words = band_words
+        p1.band_words, p1.table_fields = band_words, fields
+
+
+def probe_sectors(port, name: str, variant: str, inputs: tuple, n: int) -> torch.Tensor:
+    """The distinct 32-byte band sectors each of the n iterations of a P1 or
+    P2 variant reads on these CPU inputs (tab, band[, res]), from the words
+    its plain version names: (n,) int64. A block reads them from the L2 (the
+    band is L2-resident; blocks share no L1)."""
+    chunks = []
+    with recorded_band_reads(port.probes["chain_probe"], chunks):
+        port.probes[name].run_reference(variant, n, *inputs)
+    counts = []
+    for k, reads in chunks:
+        if not reads:
+            counts.append(torch.zeros(k, dtype=torch.int64))
+            continue
+        sec = torch.cat([r.reshape(r.shape[0], -1).expand(k, -1) for r in reads], 1)
+        sec = sec.sort(1).values
+        counts.append(1 + (sec[:, 1:] != sec[:, :-1]).sum(1))
+    return torch.cat(counts) if counts else torch.zeros(0, dtype=torch.int64)
+
+
+def probe_l2_bytes(port, name: str, variant: str, inputs: tuple, n: int, blocks: int) -> int:
+    """The L2 bytes of one call of a P1 or P2 variant: `blocks` x the sum
+    over its iterations of the distinct sectors each reads x 32 B."""
+    return SECTOR_BYTES * blocks * int(probe_sectors(port, name, variant, inputs, n).sum())
+
+
+def probe_bound(moved: int, l2_bytes: int, ops: int,
+                l2_bytes_per_s: float | None) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a probe call: the largest of its HBM bytes over
+    the memory rate, its L2 bytes over the L2 read rate measured in this run
+    (where there is one) and its integer operations over the int32 rate."""
+    terms = {"bytes": 1e3 * moved / HBM_BYTES_PER_S, "operations": 1e3 * ops / INT32_OPS_PER_S}
+    if l2_bytes_per_s:
+        terms["l2"] = 1e3 * l2_bytes / l2_bytes_per_s
+    by = max(terms, key=terms.get)
+    return terms[by], by
+
+
+def l2_read(port, src: torch.Tensor, out: torch.Tensor, passes: int, blocks: int) -> None:
+    """One launch of hrt_l2_read (csrc/errors.cu): `blocks` blocks each read
+    all of src (L2-resident) `passes` times with 16-byte loads, all in step;
+    counted in l2_read.launches."""
+    port._build.check(port._build.entry("hrt_l2_read")(
+        passes, src.numel() // 4, src.data_ptr(), out.data_ptr(), blocks,
+        torch.cuda.current_stream().cuda_stream), "l2 read")
+    l2_read.launches += 1
+
+
+l2_read.launches = 0
+
+
+def l2_read_rate(port, dev) -> dict | None:
+    """The card's L2 read rate: L2_BLOCKS blocks stream a 2 MB buffer (the
+    band's size) L2_PASSES times each, in step (as P1's and P2's identical
+    blocks read), graph-timed; every block's sum is checked first. The
+    ceiling the probes' bound uses. None where the library has no
+    hrt_l2_read (an older tree)."""
+    if getattr(port._build.load().lib, "hrt_l2_read", None) is None:
+        return None
+    src = torch.from_numpy(np.random.default_rng(5).integers(
+        -2**31, 2**31, 512 * 1024, dtype=np.int64).astype(np.int32)).to(dev)
+    out = torch.empty(L2_BLOCKS * 1024, dtype=torch.int32, device=dev)
+    want = (3 * int(src.long().sum())) & 0xFFFFFFFF
+    l2_read(port, src, out, 3, L2_BLOCKS)
+    sums = out.view(L2_BLOCKS, -1).long().sum(1) & 0xFFFFFFFF
+    if int((sums != want).sum()):
+        raise AssertionError("l2 read: a block's sum differs from the buffer's")
+    moved = L2_BLOCKS * L2_PASSES * nbytes(src)
+    ms = graph_ms(lambda: l2_read(port, src, out, L2_PASSES, L2_BLOCKS), 5)
+    return {"bytes": moved, "ms": ms, "bytes_per_s": moved / (ms / 1e3)}
 
 
 def probe_work(port, name: str, variant: str, inputs: tuple, n: int,
@@ -1029,8 +1143,8 @@ def probe_phase(port, dev, card: str) -> list[dict]:
                                       "mosaic_probe"))
     wrappers = {name: mod.run for name, mod in probes.items()}
 
-    # -- 8a. parity. P1/P2: the script's inputs (seed 0) at n = 600, which
-    # wraps the 512-entry table; every slot of 1 and of 132 blocks.
+    # -- 8a. parity. P1/P2: the script's inputs (seed 0) at every n of
+    # PARITY_NS; every slot of 1 and of 132 blocks.
     errs = dict.fromkeys(probes, 0)
     variants = {"chain_probe": p1.VARIANTS, "chain_probe2": p2.KERNEL_VARIANTS,
                 "gather_probe": p3.VARIANTS, "mosaic_probe": p4.VARIANTS}
@@ -1040,11 +1154,12 @@ def probe_phase(port, dev, card: str) -> list[dict]:
     p1_in, p2_in = p1.make_inputs(0, dev), p2.make_inputs(0, dev)
     for name, mod, inputs in (("chain_probe", p1, p1_in), ("chain_probe2", p2, p2_in)):
         for variant in variants[name]:
-            want = mod.run_reference(variant, PROBE_N, *inputs)
-            for blocks in PROBE_BLOCKS:
-                got = mod.run(variant, PROBE_N, *inputs, blocks=blocks)
-                errs[name] = max(errs[name], u32_err(
-                    got, want.expand(blocks, -1, -1), f"{name} {variant} blocks {blocks}"))
+            for n in PARITY_NS:
+                want = mod.run_reference(variant, n, *inputs)
+                for blocks in PROBE_BLOCKS:
+                    got = mod.run(variant, n, *inputs, blocks=blocks)
+                    errs[name] = max(errs[name], u32_err(
+                        got, want.expand(blocks, -1, -1), f"{name} {variant} n {n} B {blocks}"))
     before = p2.run.launches
     try:
         p2.run("transpose8", 1, *p2_in)
@@ -1070,7 +1185,7 @@ def probe_phase(port, dev, card: str) -> list[dict]:
                 f"P4 {variant} idx {offsets}"))
     torch.cuda.synchronize()
     log(f"phase 8a probes: P1's {len(p1.VARIANTS)} and P2's "
-        f"{len(p2.KERNEL_VARIANTS)} variants at n = {PROBE_N} on {PROBE_BLOCKS} blocks, "
+        f"{len(p2.KERNEL_VARIANTS)} variants at n = {PARITY_NS} on {PROBE_BLOCKS} blocks, "
         f"every slot, P3's 3 and P4's 7 kernels at clamping indices: each equal to its plain "
         f"version; transpose8 refused before a launch; max |err| {errs}")
 
@@ -1080,6 +1195,7 @@ def probe_phase(port, dev, card: str) -> list[dict]:
         run.launches = 0
     runs = [("chain", 1), ("chain", 132), ("chain2", 1), ("chain2", 132), ("gather", 1),
             ("mosaic", 1)]
+    scaling = {}    # "<probe> <variant>": its Slope on 132 blocks
     for probe, blocks in runs:
         results = probe_path.run_probe(probe, device=dev, blocks=blocks,
                                        echo=lambda line: log(f"phase 8b {probe} B={blocks}: "
@@ -1087,23 +1203,37 @@ def probe_phase(port, dev, card: str) -> list[dict]:
         failed = [r.line for r in results if r.error and not r.expected_failure]
         if failed:
             raise AssertionError(f"the probe path failed: {failed}")
+        if probe.startswith("chain") and blocks == PROBE_BLOCKS[-1]:
+            scaling.update((f"{probe} {r.variant}", r.slope) for r in results if r.slope)
     launches = {name: run.launches for name, run in wrappers.items()}
     if min(launches.values()) == 0:
         raise AssertionError(f"a probe kernel never launched on the probe path: {launches}")
     clock = f"max SM clock {hz / 1e6:.0f} MHz" if hz else "max SM clock not read"
     log(f"phase 8b probe path [{card}, {clock}]: runs {runs}; launches {launches}")
+    if len(scaling) != len(p1.VARIANTS) + len(p2.KERNEL_VARIANTS):
+        raise AssertionError(f"the probe path timed {len(scaling)} P1/P2 variants on "
+                             f"{PROBE_BLOCKS[-1]} blocks")
+    ratio = {k: sl.t2_s / sl.t1_s for k, sl in scaling.items()}
+    n1, n2 = probe_path.DEFAULT_N["chain"]
+    low = {k: round(r, 3) for k, r in ratio.items() if r < MIN_SCALING}
+    if low:
+        raise AssertionError(f"t(n = {n2}) / t(n = {n1}) on {PROBE_BLOCKS[-1]} blocks below "
+                             f"{MIN_SCALING}: the loop's work does not grow with n: {low}")
+    log(f"phase 8b scaling [{card}]: t(n = {n2}) / t(n = {n1}) on {PROBE_BLOCKS[-1]} blocks, "
+        f"each >= {MIN_SCALING}: " + ", ".join(f"{k} {r:.3f}" for k, r in ratio.items()))
 
-    # -- 8c. numbers. P1/P2 at n = 600 on 132 blocks: one call of each variant
-    # (CUDA events), summed. P3/P4: probe_numbers (graph-timed, against the
-    # one-call PyTorch counterparts and the floor timed beside them). The
-    # plain versions by CUDA events; host us per wrapper call for all four.
+    # -- 8c. numbers: probe_numbers (every probe graph-timed, P1/P2 at n = 600
+    # on 132 blocks, the floor timed beside each probe, P3/P4 against their
+    # one-call PyTorch counterparts; the L2 read rate); the plain versions by
+    # CUDA events; each P1/P2 variant held to its bound.
     B = PROBE_BLOCKS[-1]
-    floor, timed = empty_launch_ms(port), probe_numbers(port, dev)
+    timed = probe_numbers(port, dev)
+    l2 = timed["l2_read"]
+    if l2 is None:
+        raise AssertionError("no L2 read rate: the library has no hrt_l2_read")
+    log(f"phase 8c L2 read rate [{card}]: {format_l2(l2)} ({L2_BLOCKS} blocks each read a 2 "
+        f"MB buffer {L2_PASSES} times in step, 16-byte .cg loads, graph-timed)")
     idx4 = p4.make_inputs(device=dev)[0]
-    chain_calls = {
-        "chain_probe": [lambda v=v: p1.run(v, PROBE_N, *p1_in, blocks=B) for v in p1.VARIANTS],
-        "chain_probe2": [lambda v=v: p2.run(v, PROBE_N, *p2_in, blocks=B)
-                         for v in p2.KERNEL_VARIANTS]}
     plain_calls = {
         "chain_probe": [lambda v=v: p1.run_reference(v, PROBE_N, *p1_in, blocks=B)
                         for v in p1.VARIANTS],
@@ -1111,9 +1241,11 @@ def probe_phase(port, dev, card: str) -> list[dict]:
                          for v in p2.KERNEL_VARIANTS],
         "gather_probe": [lambda v=v: p3.run_reference(v, x3, idx3) for v in p3.VARIANTS],
         "mosaic_probe": [lambda v=v: p4.run_reference(v, idx4, x4) for v in p4.VARIANTS]}
-    # The bound of each entry: the sum of its variants' bounds, each the larger
-    # of its bytes over the memory rate and its integer operations over the
-    # int32 rate (probe_work).
+    # The bound of each entry: the sum of its variants' bounds, each the
+    # largest of its HBM bytes over the memory rate, its L2 bytes (P1/P2:
+    # probe_l2_bytes) over the L2 read rate measured above, and its integer
+    # operations over the int32 rate (probe_work); beside it for P1/P2 the
+    # bound without the L2 term, as it stood before the L2 term.
     cpu_inputs = {"chain_probe": tuple(t.cpu() for t in p1_in),
                   "chain_probe2": tuple(t.cpu() for t in p2_in),
                   "gather_probe": (idx3.cpu(),), "mosaic_probe": (idx4.cpu(),)}
@@ -1121,46 +1253,61 @@ def probe_phase(port, dev, card: str) -> list[dict]:
                "chain_probe2": ("chain_probe2.cu", "scripts/chain_probe2.py:113"),
                "gather_probe": ("gather_probe.cu", "scripts/gather_probe.py:40"),
                "mosaic_probe": ("mosaic_probe.cu", "scripts/mosaic_probe.py:14")}
-    entries, numbers = [], []
+    entries, numbers, per_variant = [], [], []
     for name, plains in plain_calls.items():
-        n_var, t = len(plains), timed[name]
-        if name in chain_calls:
-            pairs = [time_pair(kernel, plain, 20, 2)
-                     for kernel, plain in zip(chain_calls[name], plains)]
-            ms, plain_ms = sum(k for k, _ in pairs), sum(p for _, p in pairs)
-            library_ms = library_host = None
-            floor_ms = None if floor is None else n_var * floor
-        else:
-            plain_ms = sum((time_ms(plain, 2) + time_ms(plain, 2)) / 2 for plain in plains)
-            ms, library_ms, library_host = t["ms"], t["library_ms"], t["library_host_us"]
-            floor_ms = t["floor_ms"]
-        by_kind = {"bytes": 0.0, "operations": 0.0}
+        n_var, t, chain = len(plains), timed[name], name.startswith("chain")
+        plain_ms = sum((time_ms(plain, 2) + time_ms(plain, 2)) / 2 for plain in plains)
+        by_kind = {"bytes": 0.0, "l2": 0.0, "operations": 0.0}
+        without_l2, l2_total, variant_bounds = 0.0, 0, {}
         for variant in variants[name]:
-            ms_v, by_v = roofline(*probe_work(port, name, variant, cpu_inputs[name], PROBE_N, B),
-                                  INT32_OPS_PER_S)
+            moved, ops = probe_work(port, name, variant, cpu_inputs[name], PROBE_N, B)
+            l2_bytes = (probe_l2_bytes(port, name, variant, cpu_inputs[name], PROBE_N, B)
+                        if chain else 0)
+            ms_v, by_v = probe_bound(moved, l2_bytes, ops, l2["bytes_per_s"])
+            variant_bounds[variant] = ms_v, by_v
             by_kind[by_v] += ms_v
+            without_l2 += probe_bound(moved, 0, ops, None)[0]
+            l2_total += l2_bytes
         bound_ms = sum(by_kind.values())
         bound_by = max(by_kind, key=by_kind.get)
         src, replaces = sources[name]
-        entries.append({"name": name, "route": "cuda",
-                        "source": f"hopperrender_tpu_torch/csrc/{src}", "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms, "host_us": t["host_us"],
-                        "library_host_us": library_host, "floor_ms": floor_ms})
-        timing = "CUDA events" if name in chain_calls else "graph-timed"
-        lib = ("none" if library_ms is None else
-               f"{library_ms:.5f} ms graph-timed, host {library_host:.2f} us/call")
-        numbers.append(f"{name} ({n_var} variants) {ms:.5f} ms {timing}, floor "
+        entry = {"name": name, "route": "cuda",
+                 "source": f"hopperrender_tpu_torch/csrc/{src}", "replaces": replaces,
+                 "launches": launches[name], "max_abs_err": errs[name], "ms": t["ms"],
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": t["library_ms"], "host_us": t["host_us"],
+                 "library_host_us": t["library_host_us"], "floor_ms": t["floor_ms"]}
+        if chain:
+            entry.update(bound_ms_without_l2=without_l2, l2_bytes=l2_total,
+                         l2_bytes_per_s=l2["bytes_per_s"],
+                         variants_ms={v: p["ms"] for v, p in t["variants"].items()},
+                         variants_bound_ms={v: b for v, (b, _) in variant_bounds.items()})
+            below = {v: round(p["ms"] / variant_bounds[v][0], 3) for v, p in t["variants"].items()
+                     if p["ms"] < MIN_BOUND_RATIO * variant_bounds[v][0]}
+            if below:
+                raise AssertionError(f"{name}: variants timed below {MIN_BOUND_RATIO} of their "
+                                     f"bound (time / bound): {below}")
+            per_variant.append(f"{name} " + ", ".join(
+                f"{v} {p['ms']:.5f} ms ({p['ms'] / variant_bounds[v][0]:.2f}x its bound, "
+                f"{variant_bounds[v][1]})" for v, p in t["variants"].items()))
+        entries.append(entry)
+        lib = ("none" if t["library_ms"] is None else
+               f"{t['library_ms']:.5f} ms graph-timed, host {t['library_host_us']:.2f} us/call")
+        floor_ms = t["floor_ms"]
+        old = f", without the L2 term {without_l2:.5f} ms" if chain else ""
+        numbers.append(f"{name} ({n_var} variants) {t['ms']:.5f} ms graph-timed, floor "
                        f"{floor_ms if floor_ms is None else f'{floor_ms:.5f}'} ms, host "
                        f"{t['host_us']:.2f} us/call; plain {plain_ms:.4f} ms; library {lib}; bound "
-                       f"{bound_ms:.5f} ms ({bound_by})")
-    log(f"phase 8c numbers [{card}]: one call of each variant, summed (P1/P2 at n = {PROBE_N} "
-        f"on {B} blocks; P3/P4 {PROBE_GRAPH_CALLS} calls a CUDA graph, each library call "
-        f"equal to its kernel, the floor timed beside them; host us per call over "
-        f"{HOST_CALLS} calls for P3/P4, {CHAIN_HOST_CALLS} on one block for P1/P2, the mean "
-        f"over the variants): " + "; ".join(numbers)
-        + f"; phase 8 took {time.perf_counter() - start:.1f} s")
+                       f"{bound_ms:.5f} ms ({bound_by}; " + ", ".join(
+                           f"{k} {v:.5f}" for k, v in by_kind.items()) + f"){old}")
+    log(f"phase 8c numbers [{card}]: one call of each variant, summed, graph-timed (P1/P2 at n "
+        f"= {PROBE_N} on {B} blocks, {CHAIN_GRAPH_CALLS} calls a CUDA graph; P3/P4 "
+        f"{PROBE_GRAPH_CALLS} calls, each library call equal to its kernel), the floor timed "
+        f"beside each probe; host us per call over {HOST_CALLS} calls for P3/P4, "
+        f"{CHAIN_HOST_CALLS} on one block for P1/P2, the mean over the variants: "
+        + "; ".join(numbers) + f"; phase 8 took {time.perf_counter() - start:.1f} s")
+    log(f"phase 8c P1/P2 per variant [{card}] (graph-timed ms at n = {PROBE_N} on {B} blocks, "
+        f"against its bound): " + "; ".join(per_variant))
     return entries
 
 
@@ -1233,6 +1380,10 @@ def main(argv: list[str]) -> int:
         log(f"probe times [{card}] of {ROOT} (graph-timed device ms of one call of each variant, "
             f"summed; host us per call, the mean over the variants): "
             f"{format_probe_numbers(numbers['probes'])}")
+        for probe in ("chain", "chain2"):
+            for b in PROBE_BLOCKS:
+                port.probe_path.run_probe(probe, device=dev, blocks=b, echo=lambda line: log(
+                    f"probe path {probe} B={b} [{card}] of {ROOT}: {line}"))
         log(f"wrapper split [{card}] of {ROOT} (host us per call of each stage alone): "
             f"{format_split(numbers['wrapper_split_us'])}")
         anatomy = numbers["launch_anatomy_ms"]

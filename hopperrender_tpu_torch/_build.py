@@ -52,6 +52,8 @@ SIGNATURES = {
     "hrt_empty_launch": (_P,),
     # (kind, threads, src, out, stream): that floor taken apart
     "hrt_floor_launch": (_I, _I, _P, _P, _P),
+    # (passes, n16, src, out, blocks, stream): reads of an L2-resident buffer
+    "hrt_l2_read": (_I, _I, _P, _P, _I, _P),
     # The probes (probes/): (variant, n, tab, band, out, blocks, stream)
     "hrt_chain_probe": (_I, _I, _P, _P, _P, _I, _P),
     # (variant, n, tab, band, res, out, blocks, stream)

@@ -20,19 +20,37 @@
 // they load the same one word per element too, and differ from load8x128
 // only in their window's clamp.
 //
-// Where the data lives. The block stages the table (6 KB) into shared memory,
-// the counterpart of the TPU kernel's SMEM. The band (512 x 1024 uint32,
-// 2 MB) cannot fit a block's 227 KB of shared memory, so it stays in device
-// memory and is L2-resident after the first iterations (the L2 holds 50 MB):
-// every load of the loop is an L2 (or L1) hit.
-//
-// What bounds it on an H100: not bytes (2 MB read once) but the latency of
-// the loop. Per iteration a few shared-memory loads, ~10 integer operations
-// for the fields and the address, and one L2 load. The table, not the
-// accumulator, names the address, yet the loop is not unrolled and a warp
-// stalls on its load before the XOR, so each warp holds one load in flight:
-// measured, an iteration costs one L2 round trip, alike on 1 and 132 blocks.
-// That is the probe's answer, so the loop is left as the TPU kernel wrote it.
+// What bounds it on an H100. The iterations are independent: every address
+// comes from the table, and the accumulator only folds the loaded words
+// together (an add, an XOR, or a replacement in which the last iteration
+// wins). The band (512 x 1024 uint32, 2 MB) cannot fit a block's shared
+// memory; it stays in device memory, L2-resident after the first iterations.
+// So the least time is the L2 traffic: per iteration and block, the distinct
+// 32-byte sectors the tile reads (128 for an aligned (8, 128) window), over
+// the card's L2 read rate, and on one block the rate one SM can draw from the
+// L2. The design keeps that traffic moving:
+//   - the loads of U = 8 iterations are issued before any of them is folded
+//     in, and the next 8 iterations' loads are issued before those are: a
+//     warp holds 8 to 16 loads in flight, not one;
+//   - the table is staged once per block as a per-entry descriptor (the
+//     window's first word, the row roll folded in, and the variant's lane
+//     shift), made in the preamble: an iteration reads U descriptors as
+//     16-byte vectors and adds the thread's offset, with no per-iteration
+//     field arithmetic;
+//   - `full`'s second word w1 is the next lane's word, taken by a shuffle;
+//     the byte realign is one funnel shift. Only lanes 0 .. 22 can be
+//     written (the mask [t_sub, t_sub + 16) with t_sub < 8), so lane 31
+//     needs no second word, and only the first warp of each row folds the
+//     words in; the others load theirs, as the TPU kernel loads its whole
+//     window, and keep them alive (keep_alive). Warp w takes row w mod 8 and
+//     lanes 32 (w / 8) ..: the eight folding warps are warps 0 .. 7, spread
+//     over the SM's four schedulers (warp w issues on scheduler w mod 4).
+// Every iteration's loads are issued: once the loop is unrolled, the compilers
+// could drop the loads of a replaced accumulator, and the probe's answer is
+// the time per iteration, which must grow with n (probe_common.h, load_band
+// and keep_alive). empty and smem_only read the raw table with `asm
+// volatile` shared loads, so that their sum of table words stays a sum of
+// loads.
 // One block of 1,024 threads (one per element of the tile) is the TPU's one
 // core on one SM; `blocks` identical blocks, each writing its own (8, 128)
 // slot, put one on every SM (132) for the card's throughput. The variant is a
@@ -51,65 +69,150 @@ enum Variant : int {
   kRoll1Static, kRoll1_128, kFull, kFullAlignedRows, kNumVariants
 };
 
+__host__ __device__ constexpr bool is_table_only(int v) {
+  return v == kEmpty || v == kSmemOnly;
+}
+__host__ __device__ constexpr bool is_full(int v) {
+  return v == kFull || v == kFullAlignedRows;
+}
+
+// The descriptor of one table entry: `base`, the flat index of the first word
+// row s = 0 reads (the window's, plus roll0's and full's row roll r0 - ra:
+// s + r0 - ra < 16, so the roll never wraps its 16-row window); `aux`, the
+// variant's lane shift. roll1, roll1_128: c32 - la, masked to the window;
+// full: that (bits 0-7), the realign shift 8 (c & 3) (bits 8-12) and t_sub
+// (bits 13-15).
+template <int V>
+__device__ __forceinline__ void describe(int r0, int c, int t, int& base, int& aux) {
+  const int c32 = c >> 2;
+  const int la = min(c32 & ~127, kW32 - 256);
+  const int ra = r0 & ~7;
+  const int rows = window_start(ra, kRows, V == kLoad16x256 || V == kRoll0 ||
+                                               V == kRoll0Static || V == kFull ? 16 : 8);
+  const int lanes = window_start(la, kW32, V == kLoad8x128 || V == kRoll1_128 ? 128 : 256);
+  const int roll = V == kRoll0 || V == kFull ? r0 - ra : 0;
+  base = (rows + roll) * kW32 + lanes;
+  aux = 0;
+  if constexpr (V == kRoll1) aux = (c32 - la) & 255;
+  if constexpr (V == kRoll1_128) aux = (c32 - la) & 127;
+  if constexpr (is_full(V)) aux = ((c32 - la) & 255) | ((8 * (c & 3)) << 8) | ((t & 7) << 13);
+}
+
+// The flat band index element (s, l) reads, from its iteration's descriptor.
+template <int V>
+__device__ __forceinline__ int word(int base, int aux, int s, int l) {
+  if constexpr (V == kRoll0Static) return base + ((s - 5) & 15) * kW32 + l;   // down by 5 rows
+  if constexpr (V == kRoll1) return base + s * kW32 + ((l + aux) & 255);
+  if constexpr (V == kRoll1Static) return base + s * kW32 + ((l - 37) & 255);  // right by 37
+  if constexpr (V == kRoll1_128) return base + s * kW32 + ((l + aux) & 127);
+  if constexpr (is_full(V)) return base + s * kW32 + ((l + (aux & 255)) & 255);
+  return base + s * kW32 + l;   // the load variants and roll0
+}
+
+// Whether a variant's words depend on its descriptor's lane shift aux.
+__host__ __device__ constexpr bool has_aux(int v) {
+  return v == kRoll1 || v == kRoll1_128 || is_full(v);
+}
+
+// Folds U issued iterations into acc, in iteration order. `sink` takes the
+// words no element keeps (full's lanes past 31).
+template <int V, int U>
+__device__ __forceinline__ void fold(uint32_t& acc, uint32_t& sink, const Group<U>& g, int l) {
+  if constexpr (is_full(V)) {
+    if (l < 32) {   // the warp whose lanes a mask can cover (warp-uniform)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        // w1: the next lane's word (lane 31's own w, never written)
+        const uint32_t w1 = __shfl_down_sync(0xffffffffu, g.w[u], 1);
+        // (w1:w) >> 8 (c & 3): the word at byte offset c; w itself where c & 3 == 0
+        const uint32_t v = __funnelshift_r(g.w[u], w1, (g.aux[u] >> 8) & 31);
+        if (static_cast<unsigned>(l - (g.aux[u] >> 13)) < 16u) acc = v;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u) sink ^= g.w[u];
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc ^= g.w[u];
+  }
+}
+
+// empty and smem_only: U iterations' table words, read as 16-byte vectors.
+template <int V, int U>
+__device__ __forceinline__ void fold_table(uint32_t& acc, int j0, const int32_t* st) {
+  int r0[U], c[U], t[U];
+  read_entries_volatile<U>(st, j0, r0);
+  if constexpr (V == kSmemOnly) {
+    read_entries_volatile<U>(st + kT, j0, c);
+    read_entries_volatile<U>(st + 2 * kT, j0, t);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    acc += static_cast<uint32_t>(r0[u]);
+    if constexpr (V == kSmemOnly) {
+      acc += static_cast<uint32_t>(c[u]) + static_cast<uint32_t>(t[u] & 7);
+    }
+  }
+}
+
 template <int V>
 __global__ void __launch_bounds__(kTile) chain_probe_kernel(int n, const int32_t* __restrict__ tab,
                                                             const uint32_t* __restrict__ band,
                                                             uint32_t* __restrict__ out) {
-  __shared__ int32_t st[3 * kT];
-  for (int k = threadIdx.x; k < 3 * kT; k += blockDim.x) st[k] = tab[k];
-  __syncthreads();
-  const int s = threadIdx.x >> 7;    // sublane (row of the tile)
-  const int l = threadIdx.x & 127;   // lane
-  uint32_t acc = 0;
-  for (int i = 0; i < n; ++i) {
-    const int j = i & (kT - 1);
-    const int r0 = st[j];
-    const int c = st[kT + j];
-    const int t_sub = st[2 * kT + j] & 7;
-    const int c32 = c >> 2;
-    const int sub = c & 3;
-    const int la = min(c32 & ~127, kW32 - 256);
-    const int ra = r0 & ~7;
-    if constexpr (V == kEmpty) {
-      acc += static_cast<uint32_t>(r0);
-    } else if constexpr (V == kSmemOnly) {
-      acc += static_cast<uint32_t>(r0) + static_cast<uint32_t>(c) + static_cast<uint32_t>(t_sub);
-    } else if constexpr (V == kLoad8x128) {
-      acc ^= band_word(band, window_start(ra, kRows, 8) + s, window_start(la, kW32, 128) + l);
-    } else if constexpr (V == kLoad8x256) {
-      acc ^= band_word(band, window_start(ra, kRows, 8) + s, window_start(la, kW32, 256) + l);
-    } else if constexpr (V == kLoad16x256) {
-      acc ^= band_word(band, window_start(ra, kRows, 16) + s, window_start(la, kW32, 256) + l);
-    } else if constexpr (V == kRoll0) {   // the (16, 256) window rolled up by r0 - ra rows
-      acc ^= band_word(band, window_start(ra, kRows, 16) + ((s + r0 - ra) & 15),
-                  window_start(la, kW32, 256) + l);
-    } else if constexpr (V == kRoll0Static) {   // rolled down by 5 rows
-      acc ^= band_word(band, window_start(ra, kRows, 16) + ((s - 5) & 15),
-                  window_start(la, kW32, 256) + l);
-    } else if constexpr (V == kRoll1) {   // the (8, 256) window rolled left by c32 - la lanes
-      acc ^= band_word(band, window_start(ra, kRows, 8) + s,
-                  window_start(la, kW32, 256) + ((l + c32 - la) & 255));
-    } else if constexpr (V == kRoll1Static) {   // rolled right by 37 lanes
-      acc ^= band_word(band, window_start(ra, kRows, 8) + s,
-                  window_start(la, kW32, 256) + ((l - 37) & 255));
-    } else if constexpr (V == kRoll1_128) {
-      acc ^= band_word(band, window_start(ra, kRows, 8) + s,
-                  window_start(la, kW32, 128) + ((l + c32 - la) & 127));
-    } else {   // kFull, kFullAlignedRows: the byte-realigned word, into lanes [t_sub, t_sub + 16)
-      const int row = V == kFull ? window_start(ra, kRows, 16) + ((s + r0 - ra) & 15)
-                                 : window_start(ra, kRows, 8) + s;
-      const int l0 = window_start(la, kW32, 256);
-      const uint32_t w = band_word(band, row, l0 + ((l + c32 - la) & 255));
-      uint32_t v = w;
-      if (sub != 0) {   // a shift by 32 is undefined in C++: sub == 0 keeps w
-        const uint32_t w1 = band_word(band, row, l0 + ((l + 1 + c32 - la) & 255));
-        const int sh = 8 * sub;
-        v = (w >> sh) | (w1 << (32 - sh));
-      }
-      if (l >= t_sub && l < t_sub + 16) acc = v;
+  // The raw table (empty, smem_only) or one descriptor per entry.
+  __shared__ __align__(16) int32_t st[3 * kT];
+  int32_t* sbase = st;
+  int32_t* saux = st + kT;
+  if constexpr (is_table_only(V)) {
+    for (int k = threadIdx.x; k < 3 * kT; k += blockDim.x) st[k] = tab[k];
+  } else {
+    for (int j = threadIdx.x; j < kT; j += blockDim.x) {
+      describe<V>(tab[j], tab[kT + j], tab[2 * kT + j], sbase[j], saux[j]);
     }
   }
-  out[blockIdx.x * kTile + threadIdx.x] = acc;
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int s = warp & 7;                           // sublane (row of the tile)
+  const int l = 32 * (warp >> 3) + (threadIdx.x & 31);   // lane
+  uint32_t acc = 0, sink = 0;
+  int i = 0;
+  if constexpr (is_table_only(V)) {
+    // Groups of kU start at multiples of kU, which divides the table: a
+    // group never wraps; the last n mod kU iterations go one by one.
+    for (; i + kU <= n; i += kU) fold_table<V, kU>(acc, i & (kT - 1), st);
+    for (; i < n; ++i) fold_table<V, 1>(acc, i & (kT - 1), st);
+  } else {
+    // Two groups of kU in turn: one group's loads are in flight while the
+    // other is folded in. A group starts at a multiple of kU (it never wraps
+    // the table); the last n mod kU iterations go one by one.
+    const auto at = [=](int base, int aux) { return word<V>(base, aux, s, l); };
+    if (n >= kU) {
+      Group<kU> a, b;
+      issue_group<has_aux(V)>(a, 0, sbase, saux, band, at);
+      for (i = kU; i + 2 * kU <= n; i += 2 * kU) {
+        issue_group<has_aux(V)>(b, i & (kT - 1), sbase, saux, band, at);
+        fold<V>(acc, sink, a, l);
+        issue_group<has_aux(V)>(a, (i + kU) & (kT - 1), sbase, saux, band, at);
+        fold<V>(acc, sink, b, l);
+      }
+      if (i + kU <= n) {
+        issue_group<has_aux(V)>(b, i & (kT - 1), sbase, saux, band, at);
+        fold<V>(acc, sink, a, l);
+        fold<V>(acc, sink, b, l);
+        i += kU;
+      } else {
+        fold<V>(acc, sink, a, l);
+      }
+    }
+    for (; i < n; ++i) {
+      Group<1> g;
+      issue_group<has_aux(V)>(g, i & (kT - 1), sbase, saux, band, at);
+      fold<V>(acc, sink, g, l);
+    }
+  }
+  out[blockIdx.x * kTile + s * 128 + l] = acc;
+  keep_alive(sink, n, out + blockIdx.x * kTile + s * 128 + l);
 }
 
 template <int V>

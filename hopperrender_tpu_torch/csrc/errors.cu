@@ -1,7 +1,8 @@
 // Error text for the codes the kernels' C entry points return, an empty
 // launch: the floor under the device time of any launch-bound kernel, which
-// chip_smoke.py times beside the kernels, and the launches that take that
-// floor apart for a one-block kernel such as P3's and P4's.
+// chip_smoke.py times beside the kernels, the launches that take that floor
+// apart for a one-block kernel such as P3's and P4's, and a stream of reads
+// from an L2-resident buffer: the card's L2 read rate, which bounds P1 and P2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -19,6 +20,30 @@ __global__ void one_load_kernel(const int32_t* __restrict__ src, int32_t* __rest
 // offsets and window.
 __global__ void two_loads_kernel(const int32_t* __restrict__ src, int32_t* __restrict__ out) {
   out[threadIdx.x] = src[64 + (src[0] & 63)];
+}
+
+constexpr int kL2Threads = 1024, kL2InFlight = 8;
+
+// Every block sums the whole buffer of n16 16-byte words (a multiple of
+// kL2Threads * kL2InFlight), `passes` times, all blocks in step: they read
+// the same lines together, as the probes' identical blocks do. Each thread
+// keeps kL2InFlight 16-byte loads in flight. The loads are .cg (cached in
+// the L2 only): no L1 hit inflates the rate. out[block, thread] = the
+// thread's sum of the words it read, so no load is dead.
+__global__ void __launch_bounds__(kL2Threads) l2_read_kernel(const uint4* __restrict__ src,
+                                                             int n16, int passes,
+                                                             uint32_t* __restrict__ out) {
+  uint32_t acc = 0;
+  for (int p = 0; p < passes; ++p) {
+    for (int k = threadIdx.x; k < n16; k += kL2Threads * kL2InFlight) {
+      uint4 v[kL2InFlight];
+#pragma unroll
+      for (int u = 0; u < kL2InFlight; ++u) v[u] = __ldcg(src + k + u * kL2Threads);
+#pragma unroll
+      for (int u = 0; u < kL2InFlight; ++u) acc += v[u].x + v[u].y + v[u].z + v[u].w;
+    }
+  }
+  out[blockIdx.x * kL2Threads + threadIdx.x] = acc;
 }
 
 }  // namespace
@@ -49,5 +74,20 @@ extern "C" int hrt_floor_launch(int kind, int threads, const void* src, void* ou
     case 3: return static_cast<int>(cudaSuccess);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `blocks` blocks of 1,024 threads, each reading all of src (n16 16-byte
+// words, a multiple of 8,192; 16-byte aligned) `passes` times, in step:
+// blocks * passes * n16 * 16 bytes from the L2 once src is resident. out
+// holds blocks * 1,024 uint32: each thread's sum of the words it read.
+extern "C" int hrt_l2_read(int passes, int n16, const void* src, void* out, int blocks,
+                           void* stream) {
+  if (passes < 0 || blocks < 1 || n16 < kL2Threads * kL2InFlight ||
+      n16 % (kL2Threads * kL2InFlight) != 0 || (reinterpret_cast<uintptr_t>(src) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  l2_read_kernel<<<blocks, kL2Threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), n16, passes, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

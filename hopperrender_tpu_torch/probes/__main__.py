@@ -49,6 +49,7 @@ class Result:
     line: str
     error: str | None = None          # "<type>: <first line of the message>"
     expected_failure: bool = False
+    slope: _timing.Slope | None = None    # its two times; None where it failed
 
 
 def _caller(probe: str, variant: str, device: torch.device,
@@ -102,7 +103,7 @@ def run_probe(probe: str, variants=None, *, device: str | torch.device = "cuda",
         try:
             k1, k2 = BLOCK_K if variant in BLOCK_VARIANTS else (n1, n2)
             sl = _timing.slope(_caller(probe, variant, device, blocks), k1, k2, device)
-            result = Result(variant, _line(probe, variant, sl))
+            result = Result(variant, _line(probe, variant, sl), slope=sl)
         except Exception as exc:   # a variant that fails prints FAIL, as the scripts do
             msg = f"{type(exc).__name__}: {(str(exc).splitlines() or [''])[0][:200]}"
             result = Result(variant, f"{variant:20s} FAIL {msg}", error=msg,

@@ -329,24 +329,33 @@ def _probe_tables(r0_high):
     return {"script": script, "edges": edges, "wild": wild}
 
 
+# Loop counts around the kernels' groups of 8 iterations (the remainder of
+# n mod 8) and the 512-entry table's wrap.
+CHAIN_NS = (0, 1, 2, 3, 7, 8, 9, 511, 512, 513, 600, 1031)
+
+
 @pytest.mark.parametrize("variant", chain_probe.VARIANTS)
 def test_chain_probe_kernel_matches_plain(dev, variant):
-    """P1 at n = 0, 1 and 600 (past the 512-entry table), on one block and on
-    132; every slot equal to the plain version."""
+    """P1 at every n of CHAIN_NS, on one block and on 132; every slot equal
+    to the plain version."""
     band = torch.from_numpy(chain_probe.make_band(np.random.default_rng(41))).to(dev)
     for name, tab in _probe_tables(chain_probe.ROWS - 16).items():
         tab = torch.from_numpy(tab).to(dev)
-        for n in (0, 1, 600):
+        for n in CHAIN_NS:
+            want = chain_probe.run_reference(variant, n, tab, band)
             for blocks in (1, 132):
                 before = chain_probe.run.launches
                 got = chain_probe.run(variant, n, tab, band, blocks=blocks)
                 assert chain_probe.run.launches == before + 1
-                want = chain_probe.run_reference(variant, n, tab, band, blocks=blocks)
-                assert torch.equal(_u32(got), _u32(want)), f"{name} n {n} blocks {blocks}"
+                assert torch.equal(_u32(got), _u32(want.expand(blocks, -1, -1))), \
+                    f"{name} n {n} blocks {blocks}"
 
 
 @pytest.mark.parametrize("variant", chain_probe2.KERNEL_VARIANTS)
 def test_chain_probe2_kernel_matches_plain(dev, variant):
+    """P2 at every n of CHAIN_NS, on one block and on 132, with the script's
+    residuals and residuals outside 0..16; every slot equal to the plain
+    version."""
     rng = np.random.default_rng(42)
     band = torch.from_numpy(chain_probe.make_band(rng)).to(dev)
     residuals = {"res": rng.integers(0, 17, (8, 128), dtype=np.int32),
@@ -355,11 +364,46 @@ def test_chain_probe2_kernel_matches_plain(dev, variant):
         tab = torch.from_numpy(tab).to(dev)
         for r, res in residuals.items():
             res = torch.from_numpy(res).to(dev)
-            for n in (0, 1, 600):
+            for n in CHAIN_NS:
+                want = chain_probe2.run_reference(variant, n, tab, band, res)
                 for blocks in (1, 132):
+                    before = chain_probe2.run.launches
                     got = chain_probe2.run(variant, n, tab, band, res, blocks=blocks)
-                    want = chain_probe2.run_reference(variant, n, tab, band, res, blocks=blocks)
-                    assert torch.equal(_u32(got), _u32(want)), f"{name} {r} n {n} B {blocks}"
+                    assert chain_probe2.run.launches == before + 1
+                    assert torch.equal(_u32(got), _u32(want.expand(blocks, -1, -1))), \
+                        f"{name} {r} n {n} B {blocks}"
+
+
+def test_chain_probe2_x17_on_a_band_off_16_bytes(dev):
+    """slice_static_x17 loads and stores 16 bytes where the band and the
+    output allow it; a band view one word into its storage takes the word
+    loads, with the same result."""
+    tab, band, res = chain_probe2.make_inputs(3, dev)
+    storage = torch.empty(band.numel() + 1, dtype=torch.int32, device=dev)
+    storage[1:].copy_(band.view(torch.int32).reshape(-1))
+    off = storage[1:].view(torch.uint32).view(band.shape)
+    assert off.data_ptr() % 16 == 4
+    for n in (9, 600):
+        want = chain_probe2.run_reference("slice_static_x17", n, tab, band, res, blocks=2)
+        got = chain_probe2.run("slice_static_x17", n, tab, off, res, blocks=2)
+        assert torch.equal(_u32(got), _u32(want)), f"n {n}"
+
+
+def test_l2_read_entry_point(dev):
+    """chip_smoke's L2 read rate: one call of hrt_l2_read launches once and
+    every block sums the whole buffer, passes times; the rate is finite."""
+    import chip_smoke
+
+    port = chip_smoke.import_port()
+    src = torch.arange(512 * 1024, dtype=torch.int32, device=dev) * 7919
+    out = torch.zeros(3 * 1024, dtype=torch.int32, device=dev)
+    before = chip_smoke.l2_read.launches
+    chip_smoke.l2_read(port, src, out, 2, 3)
+    assert chip_smoke.l2_read.launches == before + 1
+    sums = out.view(3, -1).long().sum(1) & 0xFFFFFFFF
+    assert sums.tolist() == [(2 * int(src.long().sum())) & 0xFFFFFFFF] * 3
+    rate = chip_smoke.l2_read_rate(port, dev)
+    assert np.isfinite(rate["bytes_per_s"]) and rate["bytes_per_s"] > 0
 
 
 def test_transpose8_is_refused_before_a_launch(dev):

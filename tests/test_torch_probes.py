@@ -164,6 +164,7 @@ def test_transpose8_is_refused_on_both_sides():
     assert chain_probe2.run.launches == launches
     [result] = probe_path.run_probe("chain2", ["transpose8"], device="cpu", n1=1, n2=2)
     assert result.line.split()[1:3] == ["FAIL", "TypeError:"] and result.expected_failure
+    assert result.slope is None
 
 
 def _gather_kernels():
@@ -237,6 +238,70 @@ def test_mosaic_probe_matches_the_tpu_kernel(variant):
         want = np.asarray(kernel(idx.numpy(), x))
         got = mosaic_probe.run(variant, idx, torch.from_numpy(x))
         np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{variant} idx {offsets}")
+
+
+def _window_start(start, dim, size):
+    return min(max(start + dim if start < 0 else start, 0), dim - size)
+
+
+def _brute_words(variant, r0, c):
+    """The flat band index of every word one iteration of `variant` reads at
+    table entry (r0, c), from the closed forms of the TPU kernels."""
+    s, l = np.meshgrid(np.arange(8), np.arange(128), indexing="ij")
+    c32 = c >> 2
+    la, ra = min(c32 & ~127, 768), r0 & ~7
+    rows8 = _window_start(ra, 512, 8) + s
+    if variant == "load8x128":
+        rows, lanes = rows8, _window_start(la, 1024, 128) + l
+    elif variant == "roll1":
+        rows, lanes = rows8, _window_start(la, 1024, 256) + ((l + c32 - la) & 255)
+    elif variant == "slice_static_x17":
+        rows = rows8[..., None]
+        lanes = _window_start(la, 1024, 256) + 8 + l[..., None] + np.arange(17)
+    else:   # dyngather_ax0_256
+        rows = _window_start(ra & ~31, 512, 256) + ((s + l + r0) & 255)
+        lanes = _window_start(la, 1024, 128) + l
+    return (rows * 1024 + lanes).ravel()
+
+
+# (probe, variant, table entries (r0, c, t_sub), what each iteration's count must be)
+L2_CASES = [
+    ("chain_probe", "load8x128", [(40, 4 * 256, 0)], lambda k: k == 128),   # aligned: 8 x 16
+    ("chain_probe", "roll1", [(40, 4 * 259, 0), (8, 4 * 264, 0), (0, 0, 0)],
+     lambda k: k >= 128),                       # a lane shift of 3 crosses sectors: 8 x 17
+    ("chain_probe2", "slice_static_x17", [(40, 4 * 256, 0), (479, 3839, 0)],
+     lambda k: k in (8 * 18, 8 * 19)),          # one row's 144 words
+    ("chain_probe2", "dyngather_ax0_256", [(100, 4 * 300, 0), (479, 0, 0)],
+     lambda k: 128 < k <= 8 * 128),             # its diagonal rows
+]
+
+
+@pytest.mark.parametrize("name,variant,entries,expect", L2_CASES,
+                         ids=[c[1] for c in L2_CASES])
+def test_l2_sectors_match_a_brute_force_count(name, variant, entries, expect):
+    """chip_smoke's L2 term of P1/P2: the distinct 32-byte sectors each
+    iteration reads, counted from the plain version, equal a count over the
+    closed forms of hand-made tables of 1-3 iterations; the bytes are 32 per
+    sector per block."""
+    import chip_smoke
+
+    port = chip_smoke.import_port()
+    tab = np.zeros((3, chain_probe.T), np.int32)
+    for j, entry in enumerate(entries):
+        tab[:, j] = entry
+    inputs = (torch.from_numpy(tab), torch.from_numpy(_band()))
+    if name == "chain_probe2":
+        inputs += (torch.zeros(chain_probe.TILE, dtype=torch.int32),)
+    n = len(entries)
+    got = chip_smoke.probe_sectors(port, name, variant, inputs, n).tolist()
+    brute = [len({int(w) >> 3 for w in _brute_words(variant, r0, c)}) for r0, c, _ in entries]
+    assert got == brute
+    assert all(expect(k) for k in got), got
+    if variant == "roll1":
+        assert got[0] > 128
+    one = chip_smoke.probe_l2_bytes(port, name, variant, inputs, n, 1)
+    assert one == 32 * sum(brute)
+    assert chip_smoke.probe_l2_bytes(port, name, variant, inputs, n, 132) == 132 * one
 
 
 def test_wrappers_check_their_inputs():
@@ -316,6 +381,15 @@ def test_probe_path_prints_one_line_per_variant(capsys, probe, variants):
         else:
             assert line.split()[0] == variant and f"ns/{probe_path.UNIT[probe]}" in line
             assert "(t1=" in line and " t3=" in line
+
+
+def test_probe_path_results_carry_their_two_times():
+    """run_probe's Result carries its slope: the two times its line prints,
+    which chip_smoke's check that P1's and P2's time grows with n reads."""
+    [result] = probe_path.run_probe("chain2", ["slice_static"], device="cpu", n1=1, n2=3)
+    sl = result.slope
+    assert (sl.n1, sl.n2) == (1, 3) and 0 < sl.t1_s and 0 < sl.t2_s
+    assert f"(t1={sl.t1_s * 1e3:.3f}ms t3={sl.t2_s * 1e3:.3f}ms)" in result.line
 
 
 def test_probe_path_fails_on_a_failing_variant(capsys):

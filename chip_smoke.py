@@ -91,14 +91,32 @@ sm_90a), then runs these phases, one line each:
      card's L2 read rate (132 blocks stream a 2 MB buffer in step), which
      bounds P1 and P2 with their L2 bytes (the distinct 32-byte sectors each
      iteration reads, per block); a P1/P2 variant timed below 0.95 of its
-     bound fails the run: that bound or that kernel is wrong.
+     bound fails the run: that bound or that kernel is wrong;
+  9. the serving surface:
+     9a. `python -m hopperrender_tpu_torch interpolate` and `serve
+     --status-port 0 --stats`, two processes at once, on 12 panning 1080p
+     SDR frames, mode 2, 24 -> 60, the scaler off: both Y4M outputs byte-equal
+     to each other and to the stream through FrameServers in this process on
+     the kernels and on the plain versions; each CLI process's K1 and K2
+     counters (set to 0 before, printed at exit) and the native ring loaded;
+     9b. the four pinned-digest streams of tests/fixtures/digests.json;
+     9c. PipelinedServer with the StatusServer, 4K HDR P010 24 -> 60, mode
+     2, levels 16/235, the quality scaler on, 40 panning frames, /metrics
+     and /healthz polled throughout: the radius per source frame, the
+     ACTIVE/TOO_SLOW edges, the median flow and push_frame times and the
+     output fps, printed; it fails if the scaler's recorded calls differ
+     from their replay on a fresh AutoQualityScaler, a radius leaves [5,
+     16], an output made while TOO_SLOW is not the copy of its source
+     frame, the engine thread raised, or /healthz answered other than 200.
 
 Before each served path, and before the probe path, every launch counter
 is set to 0, and after it each kernel of that path must have launched (the
-ranks of 7c start at 0). Then one JSON line of the kernels
+ranks of 7c and the CLI's processes of 9a start at 0). Then one JSON line of
+the kernels
 (with each one's bound: the least time the card could take for its work;
 `ms` the graph-timed time on random flow, `smooth_ms` on smooth flow for
-K1, K2, raw_blend and the band, and their `host_us`; for the probes `ms`
+K1, K2, raw_blend and the band, and their `host_us`; K1's and K2's
+`cli_launches` in 9a's two CLI processes; for the probes `ms`
 summed over the variants, graph-timed, P1/P2's bound beside the bound
 without its L2 term (`bound_ms_without_l2`) and each variant's ms and
 bound, `host_us` and `library_host_us` the means over the variants,
@@ -119,8 +137,11 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -216,16 +237,22 @@ def import_port() -> types.SimpleNamespace:
     from hopperrender_tpu_torch.probes import __main__ as probe_path
     from hopperrender_tpu_torch.probes import chain_probe, chain_probe2, gather_probe
     from hopperrender_tpu_torch.probes import mosaic_probe
-    from hopperrender_tpu_torch.server.control import CadenceController
+    from hopperrender_tpu_torch import native
+    from hopperrender_tpu_torch.server import digests
+    from hopperrender_tpu_torch.server.control import AutoQualityScaler, CadenceController
     from hopperrender_tpu_torch.server.frame_server import FrameServer
-    from hopperrender_tpu_torch.vio import nv12
+    from hopperrender_tpu_torch.server.pipeline import PipelinedServer
+    from hopperrender_tpu_torch.server.status_http import StatusServer
+    from hopperrender_tpu_torch.vio import nv12, video
     return types.SimpleNamespace(
         _build=_build, blur_kernel=blur_kernel, warp_kernel=warp_kernel, warp_viz=warp_viz,
         warp_ops=warp_ops, CadenceController=CadenceController, FrameServer=FrameServer,
         Settings=Settings, config=config, nv12=nv12, entry=entry, flow_ops=flow_ops,
         launch=launch, batched_step=batched_step, probe_path=probe_path,
         probes=dict(chain_probe=chain_probe, chain_probe2=chain_probe2,
-                    gather_probe=gather_probe, mosaic_probe=mosaic_probe))
+                    gather_probe=gather_probe, mosaic_probe=mosaic_probe),
+        native=native, video=video, digests=digests, AutoQualityScaler=AutoQualityScaler,
+        PipelinedServer=PipelinedServer, StatusServer=StatusServer)
 
 
 @contextlib.contextmanager
@@ -1311,6 +1338,336 @@ def probe_phase(port, dev, card: str) -> list[dict]:
     return entries
 
 
+# -- 9. the serving surface ------------------------------------------------------
+
+# `python -m hopperrender_tpu_torch ARGS`, with the launch counters of K1 and
+# K2 set to 0 before it and printed to stderr (one line, "launches {...}")
+# after it, however it ends.
+CLI_WITH_COUNTERS = """
+import json, runpy, sys
+from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel
+k1, k2 = blur_kernel.blur_flow, warp_kernel.warp_frames
+k1.launches = k2.launches = k2.raw_launches = 0
+try:
+    runpy.run_module("hopperrender_tpu_torch", run_name="__main__", alter_sys=True)
+finally:
+    print("launches " + json.dumps({"blur_flow": k1.launches, "warp_frames": k2.launches}),
+          file=sys.stderr, flush=True)
+"""
+CLI_H, CLI_W, CLI_FRAMES = 1080, 1920, 12   # 9a: the CLI's SDR stream
+SERVE_FRAMES = 40            # 9c: 4K HDR source frames through the pipeline
+
+
+def panning_frames(port, h: int, w: int, n: int, *, is_hdr: bool, step: int = 3) -> list:
+    """n frames of one textured canvas, each `step` px further right: a pan
+    whose noise moves with it, made with one synthetic_frame call."""
+    y, uv = port.nv12.synthetic_frame(np.random.default_rng(9), h, w + step * n, is_hdr=is_hdr)
+    if is_hdr:
+        y, uv = y & P010_MASK, uv & P010_MASK
+    return [(y[:, step * i:step * i + w], uv[:, step * i:step * i + w]) for i in range(n)]
+
+
+def serve_to_y4m(port, srv, frames, path: str) -> None:
+    """frames through FrameServer srv, written as the CLI writes them."""
+    writer = port.video.Y4MWriter(path, srv.width, srv.height, 60.0, is_hdr=srv.is_hdr)
+    try:
+        for y, uv in frames:
+            for out in srv.push_frame(y, uv):
+                writer.write(out.y, out.uv)
+    finally:
+        writer.close()
+
+
+def cli_phase(port, dev, tmp: str) -> dict:
+    """9a: 12 panning 1080p SDR frames through `python -m hopperrender_tpu_torch
+    interpolate` and `serve --status-port 0 --stats` (two processes at once),
+    mode 2, 24 -> 60, the scaler off; both outputs byte-equal to each other and
+    to the stream through two FrameServers in this process, on the kernels and
+    on the plain versions; each run's K1 and K2 launch counters."""
+    k1, k2, k2_band = port.blur_kernel.blur_flow, port.warp_kernel.warp_frames, \
+        port.warp_kernel.warp_frames_band
+    if not port.native.is_native():
+        raise AssertionError("the native frame ring did not build or load (NumPy fallback)")
+    h, w, n = CLI_H, CLI_W, CLI_FRAMES
+    frames = panning_frames(port, h, w, n, is_hdr=False)
+    src, settings = os.path.join(tmp, "pan.nv12"), os.path.join(tmp, "settings.json")
+    with open(src, "wb") as f:
+        for y, uv in frames:
+            f.write(port.nv12.pack(y, uv).tobytes())
+    with open(settings, "w") as f:
+        json.dump({"auto_quality": False}, f)
+    args = ["--width", str(w), "--height", str(h), "--fps", "24", "--target-fps", "60",
+            "--mode", "2", "--settings", settings, "--stats", "--device", dev.type]
+    runs = {"interpolate": ["interpolate", src, os.path.join(tmp, "interpolate.y4m"), *args],
+            "serve": ["serve", src, os.path.join(tmp, "serve.y4m"), *args,
+                      "--status-port", "0"]}
+    start = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-c", CLI_WITH_COUNTERS, *argv], cwd=ROOT,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, argv in runs.items()}
+    results = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"the CLI's {name} exited {proc.returncode}:\n{err[-3000:]}")
+            counts = [l for l in err.splitlines() if l.startswith("launches ")]
+            results[name] = dict(stats=json.loads(out.strip().splitlines()[-1]),
+                                 launches=json.loads(counts[-1].split(" ", 1)[1]))
+            if name == "serve" and "status endpoint: http://" not in err:
+                raise AssertionError("serve printed no status endpoint")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cli_s = time.perf_counter() - start
+
+    st = port.Settings(target_fps=60.0, use_display_fps=False, frame_output=2,
+                       auto_quality=False)
+    new_server = lambda: port.FrameServer(w, h, source_fps=24.0, device=dev, settings=st)
+    reset_launches(k1, k2, k2_band)
+    serve_to_y4m(port, new_server(), frames, os.path.join(tmp, "kernels.y4m"))
+    torch.cuda.synchronize()
+    launches = read_launches(k1, k2, k2_band)
+    with plain_versions(port):
+        serve_to_y4m(port, new_server(), frames, os.path.join(tmp, "plain.y4m"))
+    if read_launches(k1, k2, k2_band) != launches:
+        raise AssertionError("the plain-version stream launched a kernel")
+    counts = {"this process": launches, **{f"the CLI's {k}": v["launches"]
+                                           for k, v in results.items()}}
+    for run, count in counts.items():
+        if min(count["blur_flow"], count["warp_frames"]) == 0:
+            raise AssertionError(f"9a, {run}: K1 or K2 never launched: {count}")
+    outputs = {}
+    for name in ("interpolate", "serve", "kernels", "plain"):
+        with open(os.path.join(tmp, f"{name}.y4m"), "rb") as f:
+            outputs[name] = f.read()
+    for name, data in outputs.items():
+        if data != outputs["plain"]:
+            raise AssertionError(f"9a: the {name} Y4M differs from the plain-version stream's")
+    expected = cadence_count(port, n)
+    for name, r in results.items():
+        if (r["stats"]["frames_in"], r["stats"]["frames_out"]) != (n, expected):
+            raise AssertionError(f"the CLI's {name}: {r['stats']['frames_in']} in, "
+                                 f"{r['stats']['frames_out']} out (cadence {expected})")
+    return dict(results=results, launches=launches, cli_s=cli_s, frames_out=expected,
+                y4m_bytes=len(outputs["plain"]))
+
+
+def digest_phase(port, dev) -> dict:
+    """9b: the four pinned-digest streams of tests/fixtures/digests.json on
+    the card, through K1 and K2."""
+    k1, k2, k2_band = port.blur_kernel.blur_flow, port.warp_kernel.warp_frames, \
+        port.warp_kernel.warp_frames_band
+    with open(os.path.join(ROOT, "tests", "fixtures", "digests.json")) as f:
+        pinned = json.load(f)
+    reset_launches(k1, k2, k2_band)
+    for name in port.digests.STREAMS:
+        got = port.digests.stream_digest(name, dev)
+        if got != pinned[name]:
+            raise AssertionError(f"digest {name}: {got} != pinned {pinned[name]}")
+    launches = read_launches(k1, k2, k2_band)
+    if min(launches["blur_flow"], launches["warp_frames"]) == 0:
+        raise AssertionError(f"9b: K1 or K2 never launched: {launches}")
+    return launches
+
+
+def get_json(url: str) -> tuple[int, dict]:
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def scaler_phase(port, dev) -> dict:
+    """9c: PipelinedServer with a StatusServer, 4K HDR P010 24 -> 60, mode 2,
+    levels 16/235, the quality scaler on, SERVE_FRAMES panning frames. A
+    thread polls /metrics and /healthz throughout. Every call the server
+    makes to its scaler is recorded (wrapped here, not in the package) and
+    replayed on a fresh AutoQualityScaler; each source frame's state and
+    outputs are recorded on the engine thread. Fails on what the control
+    logic guarantees: the replay differs, a radius leaves [5, 16], an output
+    made while TOO_SLOW is not the copy of its source frame, the engine
+    thread raised, or /healthz answered other than 200. What the scaler does
+    on this card is reported, not judged."""
+    config = port.config
+    k1, k2, k2_band = port.blur_kernel.blur_flow, port.warp_kernel.warp_frames, \
+        port.warp_kernel.warp_frames_band
+    frames = panning_frames(port, H, W, SERVE_FRAMES, is_hdr=True)
+    st = port.Settings(target_fps=60.0, use_display_fps=False, frame_output=2,
+                       black_level=16, white_level=235)
+    srv = port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev, settings=st)
+    if not srv.scaler.enabled:
+        raise AssertionError("the quality scaler is off")
+
+    calls = []            # ("warp", seconds) and ("adjust", args, returned, too_slow)
+    scaler = srv.scaler
+    add_warp, adjust = scaler.add_warp_duration, scaler.adjust
+
+    def record_warp(seconds):
+        calls.append(("warp", seconds))
+        add_warp(seconds)
+
+    def record_adjust(*a):
+        radius = adjust(*a)
+        calls.append(("adjust", a, radius, scaler.too_slow))
+        return radius
+
+    scaler.add_warp_duration, scaler.adjust = record_warp, record_adjust
+    per_frame = []        # (state, outputs, flow seconds or None, push_frame wall seconds)
+    push = srv.push_frame
+
+    def record_push(y, uv, **kw):
+        start = time.perf_counter()
+        outs = push(y, uv, **kw)
+        wall = time.perf_counter() - start
+        eng = srv.engine
+        per_frame.append((srv.cadence.state, len(outs),
+                          eng.ofc_time.current if eng.frame_count >= 3 else None, wall))
+        return outs
+
+    srv.push_frame = record_push
+    reset_launches(k1, k2, k2_band)
+    pipe = port.PipelinedServer(srv)
+    status = port.StatusServer(srv, pipeline=pipe)
+    base = f"http://{status.host}:{status.port}"
+    polls, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            try:
+                code, health = get_json(base + "/healthz")
+                _, metrics = get_json(base + "/metrics")
+                polls.append((code, health, metrics["search_radius"]))
+            except OSError as e:     # no answer counts as unhealthy
+                polls.append((None, repr(e), config.MIN_SEARCH_RADIUS))
+            stop.wait(0.05)
+
+    def feed():
+        try:
+            for y, uv in frames:
+                pipe.feed(y, uv)
+        finally:
+            pipe.close()
+
+    poller = threading.Thread(target=poll, name="chip-smoke-poll", daemon=True)
+    feeder = threading.Thread(target=feed, name="chip-smoke-feed", daemon=True)
+    outs, arrivals = [], []
+    start = time.perf_counter()
+    poller.start()
+    feeder.start()
+    try:
+        for out in pipe.outputs(timeout=300):   # raises if the engine thread failed
+            outs.append(out)
+            arrivals.append(time.perf_counter())
+        wall = time.perf_counter() - start
+    finally:
+        feeder.join(timeout=60)
+        pipe.join()
+        stop.set()
+        poller.join(timeout=30)
+        status.close()
+    torch.cuda.synchronize()
+    launches = read_launches(k1, k2, k2_band)
+    if pipe._error is not None or not pipe.healthy():
+        raise AssertionError(f"the engine thread failed: {pipe._error!r}")
+    if not polls or any(code != 200 for code, *_ in polls):
+        raise AssertionError(f"/healthz: {[p[:2] for p in polls if p[0] != 200][:3]} "
+                             f"({len(polls)} polls)")
+    if len(per_frame) != SERVE_FRAMES or sum(f[1] for f in per_frame) != len(outs):
+        raise AssertionError("the pipeline lost or added frames")
+    if launches["blur_flow"] == 0 or (launches["warp_frames"] == 0
+                                      and any(o.interpolated for o in outs)):
+        raise AssertionError(f"9c: a kernel of the path never launched: {launches}")
+
+    # The replay: the same calls on a fresh scaler give the same radii and flags.
+    fresh = port.AutoQualityScaler(enabled=True)
+    radii = []
+    for call in calls:
+        if call[0] == "warp":
+            fresh.add_warp_duration(call[1])
+            continue
+        _, a, radius, too_slow = call
+        if (fresh.adjust(*a), fresh.too_slow) != (radius, too_slow):
+            raise AssertionError(f"the scaler's call {len(radii)} differs from its replay")
+        radii.append(radius)
+    if len(radii) != SERVE_FRAMES:
+        raise AssertionError(f"{len(radii)} scaler calls for {SERVE_FRAMES} frames")
+    seen = radii + [p[2] for p in polls]
+    if not all(config.MIN_SEARCH_RADIUS <= r <= config.MAX_SEARCH_RADIUS for r in seen):
+        raise AssertionError(f"a radius outside [5, 16]: {sorted(set(seen))}")
+
+    # Outputs made while TOO_SLOW: copies (with levels) of their source frame,
+    # the one two frames back (the engine's pipeline latency).
+    dev_frames = {}
+    copies, i = 0, 0
+    for k, (state, n, _, _) in enumerate(per_frame):
+        for out in outs[i:i + n]:
+            if state != config.ActiveState.TOO_SLOW:
+                continue
+            if out.interpolated:
+                raise AssertionError(f"source frame {k}: an interpolated output while TOO_SLOW")
+            j = max(k - 2, 0)
+            if j not in dev_frames:
+                y, uv = (torch.tensor(np.ascontiguousarray(p), device=dev) for p in frames[j])
+                cy, cuv = port.warp_ops.copy_frame(y, uv, 16 * 256.0, 235 * 256.0, is_hdr=True)
+                dev_frames[j] = (cy.cpu().numpy(), cuv.cpu().numpy())
+            if not (np.array_equal(out.y, dev_frames[j][0])
+                    and np.array_equal(out.uv, dev_frames[j][1])):
+                raise AssertionError(f"source frame {k}: an output while TOO_SLOW is not the "
+                                     f"copy of source frame {j}")
+            copies += 1
+        i += n
+    states = [int(f[0]) for f in per_frame]
+    edges = [(k, config.ActiveState(states[k - 1]).name, config.ActiveState(states[k]).name)
+             for k in range(1, len(states)) if states[k] != states[k - 1]]
+    flows = [f[2] for f in per_frame if f[2] is not None]
+    return dict(radii=radii, edges=edges, copies=copies, launches=launches, polls=len(polls),
+                flow_ms=1e3 * statistics.median(flows), outputs=len(outs), wall=wall,
+                out_fps=len(outs) / wall, interpolated=sum(o.interpolated for o in outs),
+                steady_fps=(len(outs) - 1) / (arrivals[-1] - arrivals[0]),
+                push_ms=1e3 * statistics.median(f[3] for f in per_frame[3:]),
+                high_water=pipe.stats.input_ring_high_water,
+                metrics_radii=sorted({p[2] for p in polls}))
+
+
+def serving_phase(port, dev, card: str) -> dict:
+    """Phase 9: the command line (9a), the pinned digests (9b) and the
+    quality scaler live in the threaded pipeline (9c), on the card."""
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        cli = cli_phase(port, dev, tmp)
+    r = cli["results"]
+    log(f"phase 9a CLI [{card}] {CLI_W}x{CLI_H} SDR 24->60 mode 2, {CLI_FRAMES} frames: "
+        f"interpolate and serve "
+        f"(python -m hopperrender_tpu_torch, two processes, {cli['cli_s']:.1f} s) gave "
+        f"{cli['frames_out']} frames, Y4M ({cli['y4m_bytes']} bytes) equal to each other and to "
+        f"the kernel and plain-version streams in this process; launches: interpolate "
+        f"{r['interpolate']['launches']}, serve {r['serve']['launches']}, in process "
+        f"{cli['launches']}; out fps (the CLI's stats, engine build included): interpolate "
+        f"{r['interpolate']['stats']['out_fps']}, serve {r['serve']['stats']['out_fps']}; "
+        f"native ring loaded")
+    launches = digest_phase(port, dev)
+    log(f"phase 9b pinned digests: {', '.join(port.digests.STREAMS)} equal to "
+        f"tests/fixtures/digests.json on the card; launches {launches}")
+    sc = scaler_phase(port, dev)
+    log(f"phase 9c scaler live [{card}] {W}x{H} HDR 24->60 mode 2, PipelinedServer + "
+        f"StatusServer, {SERVE_FRAMES} frames: radius per source frame {sc['radii']}; "
+        f"ACTIVE/TOO_SLOW edges (frame, from, to) {sc['edges'] or 'none'}; {sc['outputs']} "
+        f"outputs ({sc['interpolated']} interpolated, {sc['copies']} TOO_SLOW copies checked); "
+        f"median flow {sc['flow_ms']:.3f} ms/source frame (CUDA events), median push_frame "
+        f"{sc['push_ms']:.3f} ms on the engine thread (host clock, frames 3-); output "
+        f"{sc['out_fps']:.2f} fps over {sc['wall']:.3f} s (engine build included), "
+        f"{sc['steady_fps']:.2f} fps from the first output to the last; input ring high "
+        f"water {sc['high_water']}; "
+        f"{sc['polls']} polls, /healthz 200 throughout, /metrics radii {sc['metrics_radii']}; "
+        f"launches {sc['launches']}; equal to the replay on a fresh AutoQualityScaler; "
+        f"phase 9 took {time.perf_counter() - start:.1f} s")
+    return cli
+
+
 def finish(port, kernels: list[dict], card: str, kind: str) -> int:
     """The last three lines: the kernels, nvidia-smi's card line, the result."""
     log(json.dumps({"kernels": kernels}))
@@ -1605,6 +1962,9 @@ def main(argv: list[str]) -> int:
     # -- 8. the probes ------------------------------------------------------------
     probe_entries = probe_phase(port, dev, card)
 
+    # -- 9. the serving surface ----------------------------------------------------
+    cli = serving_phase(port, dev, card)
+
     # Bounds from this run's inputs: K1 reads and writes one (2, 270, 480) int16
     # flow; K2 reads both source frames and the flow once and writes T outputs.
     k2_out = 3 * nbytes(src[0], src[1])
@@ -1633,6 +1993,8 @@ def main(argv: list[str]) -> int:
          "replaces": "hopperrender_tpu/ops/warp_band.py:695 (variant raw_blend)",
          "launches": viz_launches[3]["warp_frames_raw_blend"], "max_abs_err": raw_err},
     ]
+    for k in kernels[:2]:   # K1 and K2 in the CLI's processes (9a)
+        k["cli_launches"] = {c: r["launches"][k["name"]] for c, r in cli["results"].items()}
     for k in kernels:
         v = numbers[k["name"]]
         k["ms"], k["smooth_ms"], k["plain_ms"] = v["ms"], v["smooth_ms"], v["plain_ms"]

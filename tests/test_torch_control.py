@@ -1,6 +1,6 @@
 """The PyTorch port's own control plane (config, server/control, sidedata,
-display, vio/nv12) against the JAX package's modules it was copied from: the
-same inputs give the same trajectories and values."""
+display, vio/nv12, vio/video, native) against the JAX package's modules it was
+copied from: the same inputs give the same trajectories, values and bytes."""
 
 import dataclasses
 
@@ -8,13 +8,15 @@ import numpy as np
 import pytest
 
 from hopperrender_tpu import config as jax_config
+from hopperrender_tpu import native as jax_native
 from hopperrender_tpu.server import control as jax_control
 from hopperrender_tpu.server import display as jax_display
 from hopperrender_tpu.server import sidedata as jax_sidedata
 from hopperrender_tpu.vio import nv12 as jax_nv12
-from hopperrender_tpu_torch import config
+from hopperrender_tpu.vio import video as jax_video
+from hopperrender_tpu_torch import config, native
 from hopperrender_tpu_torch.server import control, display, sidedata
-from hopperrender_tpu_torch.vio import nv12
+from hopperrender_tpu_torch.vio import nv12, video
 
 BOTH = ((jax_control, jax_config), (control, config))
 
@@ -142,3 +144,69 @@ def test_sidedata_and_display_match_jax():
         polls.append([poller.poll(now=t) for t in (1.0, 2.0, 7.0, 8.0)]
                      + [poller.poll(now=9.0, force=True)])
     assert polls[1] == polls[0] == [59.94, None, 120.0, None, 144.0]
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_video_matches_jax(tmp_path, is_hdr):
+    """vio/video.py: the port's raw and Y4M writers write JAX's bytes (a
+    strided raw stream too), its readers read them into JAX's planes and
+    attributes, open_reader/open_writer pick the same classes, and the
+    ffmpeg reader is gated alike."""
+    rng = np.random.default_rng(11)
+    frames = [nv12.synthetic_frame(rng, 16, 32, is_hdr=is_hdr, motion_x=i) for i in range(3)]
+    ext = ".p010" if is_hdr else ".nv12"
+    for mod, tag in ((jax_video, "jax"), (video, "port")):
+        for name in ("s" + ext, "s.y4m"):
+            w = mod.open_writer(str(tmp_path / f"{tag}_{name}"), 32, 16, 24.0, is_hdr=is_hdr)
+            for y, uv in frames:
+                w.write(y, uv)
+            w.close()
+        strided = mod.RawWriter(str(tmp_path / f"{tag}_strided{ext}"), stride=40)
+        strided.write(*frames[0])
+        strided.close()
+    for name in ("s" + ext, "s.y4m", "strided" + ext):
+        assert (tmp_path / f"port_{name}").read_bytes() == (tmp_path / f"jax_{name}").read_bytes()
+        if name.startswith("strided"):
+            continue
+        path = str(tmp_path / f"jax_{name}")
+        got = video.open_reader(path, width=32, height=16, is_hdr=is_hdr)
+        want = jax_video.open_reader(path, width=32, height=16, is_hdr=is_hdr)
+        assert type(got).__name__ == type(want).__name__
+        assert (got.width, got.height, got.fps, got.is_hdr) == \
+            (want.width, want.height, want.fps, want.is_hdr)
+        got_frames, want_frames = list(got), list(want)
+        assert len(got_frames) == len(want_frames) == 3
+        for (gy, guv), (wy, wuv) in zip(got_frames, want_frames):
+            np.testing.assert_array_equal(gy, wy)
+            np.testing.assert_array_equal(guv, wuv)
+    assert type(video.open_writer("-", 32, 16, 24.0)).__name__ == "Y4MWriter"
+    if not video.have_ffmpeg():
+        for mod in (video, jax_video):
+            with pytest.raises(RuntimeError, match="ffmpeg not found"):
+                mod.FfmpegReader("x.mp4")
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_native_pack_unpack_match_jax(monkeypatch, path, is_hdr):
+    """native.py: pack and unpack give the JAX module's bytes, through the
+    port's C++ library and through its NumPy fallback."""
+    if path == "numpy":
+        monkeypatch.setattr(native, "_lib", False)
+        monkeypatch.setattr(jax_native, "_lib", False)
+    assert native.is_native() is (path == "native")
+    h, w, stride = 32, 40, 48
+    dtype = np.uint16 if is_hdr else np.uint8
+    buf = np.random.default_rng(5).integers(0, 65536 if is_hdr else 256,
+                                            nv12.frame_size_samples(h, stride), dtype=dtype)
+    y, uv = native.unpack(buf, h, w, stride, is_hdr=is_hdr)
+    jy, juv = jax_native.unpack(buf, h, w, stride, is_hdr=is_hdr)
+    np.testing.assert_array_equal(y, jy)
+    np.testing.assert_array_equal(uv, juv)
+    y2, uv2 = native.unpack(buf.tobytes(), h, w, stride, is_hdr=is_hdr)
+    np.testing.assert_array_equal(y2, jy)
+    for s in (None, stride):
+        got, want = native.pack(y, uv, s), jax_native.pack(jy, juv, s)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    with pytest.raises(ValueError, match="too small"):
+        native.unpack(buf[:100], h, w, stride, is_hdr=is_hdr)

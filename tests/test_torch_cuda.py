@@ -2,7 +2,8 @@
 mesh-sharded row-band variant) against their plain PyTorch versions on a
 CUDA card, exactly, across bit depths, res scalars, modes and ragged shapes;
 the HSV colour on the card against the CPU; the mesh's dryrun and its mode-3
-route on the card; and the probe kernels P1-P4 against their plain versions.
+route on the card; the probe kernels P1-P4 against their plain versions; the
+four pinned-digest streams and the threaded pipeline served on the card.
 Every test skips without a card.
 
 On the card (whose machine may lack jax, which tests/conftest.py imports):
@@ -16,6 +17,7 @@ import torch
 from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel, warp_viz
 from hopperrender_tpu_torch.ops import warp as warp_ops
 from hopperrender_tpu_torch.probes import chain_probe, chain_probe2, gather_probe, mosaic_probe
+from hopperrender_tpu_torch.server import digests
 
 from torch_warp_cases import BAND_CASES, WARP_CASES, make_inputs
 
@@ -543,3 +545,58 @@ def test_probe_wrappers_on_a_device_that_is_not_current(dev):
             assert got.device == other
             assert torch.equal(got, mosaic_probe.run_reference(v, idx4, x4)), v
         assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.parametrize("name", list(digests.STREAMS))
+def test_pinned_digest_on_the_card(dev, name):
+    """The pinned-digest streams of tests/fixtures/digests.json served through
+    K1 and K2 on the card."""
+    import json
+    import os
+    with open(os.path.join(os.path.dirname(__file__), "fixtures", "digests.json")) as f:
+        pinned = json.load(f)[name]
+    before = blur_kernel.blur_flow.launches, warp_kernel.warp_frames.launches
+    assert digests.stream_digest(name, dev) == pinned
+    assert blur_kernel.blur_flow.launches > before[0]
+    assert warp_kernel.warp_frames.launches > before[1]
+
+
+def test_pipelined_server_on_the_card(dev):
+    """PipelinedServer builds the engine and launches K1 and K2 on its engine
+    thread; the stream equals the same frames served on the CPU."""
+    from hopperrender_tpu_torch.config import Settings
+    from hopperrender_tpu_torch.server.frame_server import FrameServer
+    from hopperrender_tpu_torch.server.pipeline import PipelinedServer
+    from hopperrender_tpu_torch.vio import nv12
+
+    settings = Settings(target_fps=60.0, use_display_fps=False, auto_quality=False,
+                        max_calc_res=36)
+    h, w = 72, 96
+    rng = np.random.default_rng(12)
+    frames = [nv12.synthetic_frame(rng, h, w, motion_x=2 * i) for i in range(6)]
+    import threading
+
+    srv = FrameServer(w, h, device=dev, settings=settings)
+    pipe = PipelinedServer(srv, input_slots=2, output_slots=4)
+    before = blur_kernel.blur_flow.launches, warp_kernel.warp_frames.launches
+
+    def feed():   # on its own thread: the rings are smaller than the stream
+        for y, uv in frames:
+            pipe.feed(y, uv)
+        pipe.close()
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    feeder.start()
+    outs = list(pipe.outputs(timeout=120))
+    feeder.join(timeout=60)
+    pipe.join()
+    assert not feeder.is_alive()
+    assert blur_kernel.blur_flow.launches > before[0]
+    assert warp_kernel.warp_frames.launches > before[1]
+    cpu = FrameServer(w, h, device="cpu", settings=settings)
+    want = [o for y, uv in frames for o in cpu.push_frame(y, uv)]
+    assert len(outs) == len(want) and any(o.interpolated for o in outs)
+    for got, ref in zip(outs, want):
+        assert (got.start_time, got.interpolated) == (ref.start_time, ref.interpolated)
+        np.testing.assert_array_equal(got.y, ref.y)
+        np.testing.assert_array_equal(got.uv, ref.uv)

@@ -42,10 +42,13 @@ def _port_modules():
 def test_port_never_imports_jax():
     """Every port module and chip_smoke, imported with JAX_PLATFORMS set
     (which makes hopperrender_tpu/__init__.py import jax), leave neither jax
-    nor anything of the JAX package in sys.modules."""
+    nor anything of the JAX package in sys.modules; importing the command
+    line's __main__ runs nothing."""
     mods = _port_modules()
     assert "hopperrender_tpu_torch.server.control" in mods
     assert "hopperrender_tpu_torch.probes.__main__" in mods
+    assert {"hopperrender_tpu_torch.__main__", "hopperrender_tpu_torch.cli",
+            "hopperrender_tpu_torch.native"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -2,7 +2,6 @@
 of tests/fixtures/digests.json, and 24->60 streams of every output mode 2-6
 against the JAX FrameServer (outputs, timestamps, interpolated flags)."""
 
-import hashlib
 import json
 import os
 
@@ -12,6 +11,7 @@ import pytest
 from hopperrender_tpu.config import Settings
 from hopperrender_tpu.server.frame_server import FrameServer as JaxFrameServer
 from hopperrender_tpu.vio import nv12
+from hopperrender_tpu_torch.server import digests
 from hopperrender_tpu_torch.server.frame_server import FrameServer
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "digests.json")
@@ -26,31 +26,14 @@ CONFIGS = {
 }
 
 
-def _stream(name):
-    """tests/test_regression_digests.py::_stream with the port's FrameServer."""
-    h, w, mcr, is_hdr, mode, radius, n = CONFIGS[name]
-    srv = FrameServer(w, h, source_fps=24.0, is_hdr=is_hdr, device="cpu",
-                      settings=Settings(target_fps=60.0, use_display_fps=False,
-                                        frame_output=mode, auto_quality=False,
-                                        max_calc_res=mcr))
-    rng = np.random.default_rng(2026)
-    digest = hashlib.sha256()
-    for i in range(n):
-        y, uv = nv12.synthetic_frame(rng, h, w, is_hdr=is_hdr, motion_x=i * 2)
-        srv.engine and setattr(srv.engine, "search_radius", radius)
-        for out in srv.push_frame(y, uv):
-            digest.update(np.asarray(out.y).tobytes())
-            digest.update(np.asarray(out.uv).tobytes())
-            digest.update(np.int64(out.start_time).tobytes())
-            digest.update(b"\x01" if out.interpolated else b"\x00")
-    return digest.hexdigest()
-
-
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_pinned_digest(name):
+    """tests/test_regression_digests.py::_stream with the port's FrameServer
+    on the CPU (hopperrender_tpu_torch/server/digests.py, which the card
+    replays too)."""
     with open(FIXTURE) as f:
         pinned = json.load(f)
-    assert _stream(name) == pinned[name]
+    assert digests.stream_digest(name, "cpu") == pinned[name]
 
 
 @pytest.mark.parametrize("batched", [None, False])
@@ -124,3 +107,9 @@ def test_server_refuses_unported_modes():
             srv.update_settings(frame_output=mode)
     srv.update_settings(frame_output=6)
     assert srv.metrics().frame_output == 6
+
+
+def test_shared_digest_streams_are_these_streams():
+    """hopperrender_tpu_torch/server/digests.py, which test_pinned_digest, the
+    card's tests and chip_smoke.py replay, defines the streams of CONFIGS."""
+    assert digests.STREAMS == CONFIGS

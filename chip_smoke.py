@@ -61,14 +61,15 @@ sm_90a), then runs these phases, one line each:
      7b. batched_step on two 4K HDR streams (panning 3 px/frame, radius 16,
      three steps): outputs, flow and delta against the single-stream path
      (pyramid_flow + K2), and against the same run on the plain versions;
-     7c. make_multichip_step through launch.run_ranks at 4K HDR, rs 3, modes 2
-     and 3, t_batch 3, on meshes (1, 2) and (2, 1) of ranks sharing this card
+     7c. make_multichip_step through launch.run_ranks at 4K HDR, rs 3, modes
+     2-6, t_batch 3, on meshes (1, 2) and (2, 1) of ranks sharing this card
      over gloo (and (1, 4), (2, 2) over NCCL where four cards are visible):
      each rank writes its outputs to an .npz, held byte for byte to 7b's
-     single-device results (mode 3: K2's raw_blend variant and the HSV
-     overlay on the full frame); every rank must have launched the band
-     kernel, and in mode 3 its raw_blend variant. Its numbers: each mesh's
-     second mode-2 step (CUDA events in the ranks);
+     single-device results (modes 3-6: warp_viz.warp_outputs on the full
+     frame); every rank must have launched the band kernel in modes 2, 5
+     and 6, its raw_blend variant in mode 3, and neither in mode 4, and no
+     rank may load a module of jax or of the JAX package. Its numbers: each
+     rank's second step in each mode (CUDA events in the ranks);
   8. the probes P1-P4 (hopperrender_tpu_torch/probes/):
      8a. each kernel against its plain version, exactly: every P1 and P2
      variant at n = 0 to 1,031 (around the kernels' groups of 8 iterations
@@ -116,7 +117,9 @@ the kernels
 (with each one's bound: the least time the card could take for its work;
 `ms` the graph-timed time on random flow, `smooth_ms` on smooth flow for
 K1, K2, raw_blend and the band, and their `host_us`; K1's and K2's
-`cli_launches` in 9a's two CLI processes; for the probes `ms`
+`cli_launches` in 9a's two CLI processes; the band's `launches` over
+7c's modes 2, 5 and 6, and `launches_by_mode` (mode 3: its raw_blend
+variant's); for the probes `ms`
 summed over the variants, graph-timed, P1/P2's bound beside the bound
 without its L2 term (`bound_ms_without_l2`) and each variant's ms and
 bound, `host_us` and `library_host_us` the means over the variants,
@@ -929,17 +932,18 @@ def parallel_path(port, dev, card: str) -> dict:
         f"{blend}: outputs, flow and delta equal to the single-stream path and to the "
         f"plain-version run; launches {batched_launches}")
 
-    # -- 7c. make_multichip_step on ranks of this card (gloo), rs 3, modes 2
-    # and 3, t_batch 3: frames 1-4 of 7b's streams, the prior flow of 7b's
+    # -- 7c. make_multichip_step on ranks of this card (gloo), rs 3, modes
+    # 2-6, t_batch 3: frames 1-4 of 7b's streams, the prior flow of 7b's
     # first step, two steps; the outputs against 7b's single-stream results
-    # (mode 3: K2's raw_blend variant and the HSV overlay on the full frame).
+    # (modes 3-6: warp_viz.warp_outputs on the full frame, K2 beneath).
     meshes = [(1, 2), (2, 1)]
     if torch.cuda.device_count() >= 4:
         meshes += [(1, 4), (2, 2)]        # NCCL, a rank per card
-    mode3 = [[port.warp_viz.warp_outputs(ys[b, 1 + i], uvs[b, 1 + i], ys[b, 2 + i],
-                                         uvs[b, 2 + i], single[b][i][2], t3, black, white,
-                                         mode=3, res_scalar=3, is_hdr=True)
-              for i in range(2)] for b in range(2)]
+    mesh_modes = (2, 3, 4, 5, 6)
+    viz = {mode: [[port.warp_viz.warp_outputs(ys[b, 1 + i], uvs[b, 1 + i], ys[b, 2 + i],
+                                              uvs[b, 2 + i], single[b][i][2], t3, black, white,
+                                              mode=mode, res_scalar=3, is_hdr=True)
+                   for i in range(2)] for b in range(2)] for mode in mesh_modes[1:]}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh.")
     try:
         in_path = os.path.join(tmp, "streams.npz")
@@ -948,8 +952,8 @@ def parallel_path(port, dev, card: str) -> dict:
                  ts=t3.cpu().numpy())
         jobs = [dict(in_path=in_path, mode=mode, res_scalar=3, radius=scal[0],
                      delta_scalar=scal[1], neighbor_scalar=scal[2], black=black, white=white)
-                for mode in (2, 3)]
-        mesh_launches, mesh_raw_launches, mesh_lines = 0, 0, []
+                for mode in mesh_modes]
+        mesh_launches, mesh_raw_launches, mode_launches, mesh_lines = 0, 0, {}, []
         for dp, sp in meshes:
             for job in jobs:
                 job["out_path"] = os.path.join(tmp, f"mesh{dp}x{sp}.mode{job['mode']}."
@@ -958,45 +962,52 @@ def parallel_path(port, dev, card: str) -> dict:
             rank_paths = launch.run_ranks(entry.run_stream_steps, dp, sp, device="cuda",
                                           workdir=tmp, args=(jobs,), timeout=600)
             wall = time.perf_counter() - start
-            step_ms, backends = [], set()
-            for rank, (path2, path3) in enumerate(rank_paths):
-                with np.load(path2) as z2, np.load(path3) as z3:
-                    # The counters of a rank run on: the mode-3 job's raw_blend
-                    # launches are its own.
-                    launched = (int(z2["band_launches"]), int(z3["band_raw_launches"]))
-                    if min(launched) == 0 or z3["foreign_modules"].size:
-                        raise AssertionError(f"mesh {dp}x{sp} rank {rank}: band launches "
-                                             f"(mode 2, mode 3 raw_blend) {launched}, jax "
-                                             f"modules {list(z3['foreign_modules'])}")
-                    mesh_launches += launched[0]
-                    mesh_raw_launches += launched[1]
-                    step_ms.append(float(z2["step_ms"][-1]))
-                    backends.add(str(z2["backend"]))
-            for j, mode in enumerate((2, 3)):
+            step_ms, backends = {mode: [] for mode in mesh_modes}, set()
+            for rank, paths in enumerate(rank_paths):
+                for mode, path in zip(mesh_modes, paths):
+                    with np.load(path) as z:
+                        # Each job's own launches: the band (modes 2, 5, 6)
+                        # and its raw_blend variant (mode 3); mode 4 none.
+                        band_n, raw_n = int(z["band_launches"]), int(z["band_raw_launches"])
+                        need = {3: raw_n}.get(mode, band_n)
+                        if (mode == 4 and band_n + raw_n) or (mode != 4 and need == 0) \
+                                or z["foreign_modules"].size:
+                            raise AssertionError(
+                                f"mesh {dp}x{sp} rank {rank} mode {mode}: band launches "
+                                f"{band_n}, raw_blend {raw_n}, jax modules "
+                                f"{list(z['foreign_modules'])}")
+                        mesh_launches += band_n
+                        mesh_raw_launches += raw_n
+                        mode_launches[mode] = mode_launches.get(mode, 0) + band_n + raw_n
+                        step_ms[mode].append(float(z["step_ms"][-1]))
+                        backends.add(str(z["backend"]))
+            for j, mode in enumerate(mesh_modes):
                 got = entry.gather_dp([p[j] for p in rank_paths], sp)
                 for b in range(2):
                     for i in range(2):
                         y, uv, blurred, delta = single[b][i + 1]
-                        if mode == 3:
-                            y, uv = mode3[b][i]
+                        if mode != 2:
+                            y, uv = viz[mode][b][i]
                         what = f"mesh {dp}x{sp} mode {mode} stream {b} step {i}"
                         for g, want, name in ((got["y"][b, i], y, "Y"),
                                               (got["uv"][b, i], uv, "UV"),
                                               (got["blurred"][b, i], blurred, "flow")):
                             if not np.array_equal(g, want.cpu().numpy()):
-                                raise AssertionError(f"{what}: {name} differs from 7b's "
+                                raise AssertionError(f"{what}: {name} differs from the "
                                                      "single-device result")
                         if int(got["delta"][b, i]) != int(delta):
                             raise AssertionError(f"{what}: delta differs")
+            per_mode = ", ".join(f"mode {mode} " + "/".join(f"{ms:.3f}" for ms in step_ms[mode])
+                                 for mode in mesh_modes)
             mesh_lines.append(f"{dp}x{sp} ({'/'.join(sorted(backends))}) {wall:.1f} s wall, "
-                              f"second mode-2 step {statistics.median(step_ms):.3f} ms (median "
-                              f"of {len(step_ms)} ranks, CUDA events)")
+                              f"second step ms per rank (CUDA events): {per_mode}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"phase 7c make_multichip_step {W}x{H} HDR rs 3 modes 2 and 3 t_batch 3, 2 streams x 2 "
-        f"steps on meshes {meshes}: every rank's outputs, flow and delta equal to 7b's single-"
-        f"device results byte for byte; K2 band launched {mesh_launches} times over the ranks "
-        f"(mode 2), its raw_blend variant {mesh_raw_launches} times (mode 3); "
+    log(f"phase 7c make_multichip_step {W}x{H} HDR rs 3 modes 2-6 t_batch 3, 2 streams x 2 "
+        f"steps on meshes {meshes}: every rank's outputs, flow and delta equal to the "
+        f"single-device results (7b; warp_outputs in modes 3-6) byte for byte; K2 band "
+        f"launched {mesh_launches} times over the ranks (modes 2, 5, 6), its raw_blend variant "
+        f"{mesh_raw_launches} times (mode 3); launches by mode {mode_launches}; "
         + "; ".join(mesh_lines))
     log(f"phase 7 numbers [{card}]: K2 band (n 2, shard 0, mode 2, T = 3, {W}x{H} HDR) "
         f"graph-timed {band['ms']:.5f} ms (random +-64 flow), {band['smooth_ms']:.5f} ms "
@@ -1005,7 +1016,9 @@ def parallel_path(port, dev, card: str) -> dict:
     return {"name": "warp_frames_band", "route": "cuda",
             "source": "hopperrender_tpu_torch/csrc/warp_frame.cu",
             "replaces": "hopperrender_tpu/ops/warp_band.py:695 (mesh-sharded variant)",
-            "launches": mesh_launches, "max_abs_err": band_err, "ms": band["ms"],
+            "launches": mesh_launches,
+            "launches_by_mode": {str(mode): n for mode, n in sorted(mode_launches.items())},
+            "max_abs_err": band_err, "ms": band["ms"],
             "smooth_ms": band["smooth_ms"], "host_us": band["host_us"],
             "plain_ms": band["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}

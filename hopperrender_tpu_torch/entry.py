@@ -92,11 +92,14 @@ def run_stream_steps(mesh, jobs: list[dict]) -> list[str]:
     B streams and runs F - 2 steps (frames i, i+1, i+2 of each stream, each
     step warping with the previous step's flow). It writes y (B_local, F-2,
     [T,] H, W), uv, blurred (B_local, F-2, 2, low_h, low_w), delta (B_local,
-    F-2), each step's ms, warp_frames_band.launches and .raw_launches (mode
-    3), the rank's place and backend, and foreign_modules(); returns the
-    paths."""
+    F-2), each step's ms, the job's own launches of K2's band
+    (warp_frames_band.launches: modes 0/1/2/5/6) and of its raw_blend
+    variant (.raw_launches: mode 3), the rank's place and backend, and
+    foreign_modules(); returns the paths."""
     paths = []
+    band = warp_kernel.warp_frames_band
     for job in jobs:
+        launches_before = band.launches, band.raw_launches
         with np.load(job["in_path"]) as z:
             y, uv, flow, ts = z["y"], z["uv"], z["flow"], z["ts"]
         n_streams, n_frames, h, w = y.shape
@@ -125,8 +128,8 @@ def run_stream_steps(mesh, jobs: list[dict]) -> list[str]:
         y_o, uv_o, blurred, delta = (np.stack(parts, axis=1) for parts in zip(*outs))
         path = job["out_path"].format(rank=mesh.rank)
         np.savez(path, y=y_o, uv=uv_o, blurred=blurred, delta=delta,
-                 step_ms=np.asarray(step_ms), band_launches=warp_kernel.warp_frames_band.launches,
-                 band_raw_launches=warp_kernel.warp_frames_band.raw_launches,
+                 step_ms=np.asarray(step_ms), band_launches=band.launches - launches_before[0],
+                 band_raw_launches=band.raw_launches - launches_before[1],
                  dp_index=mesh.dp_index, sp_index=mesh.sp_index, backend=mesh.backend,
                  foreign_modules=np.asarray(foreign_modules(), dtype=str))
         paths.append(path)

@@ -20,7 +20,9 @@ The JAX package's versions repeat the flow over whole cells (they assume
 dim_x % (1 << res_scalar) == 0); these look the flow up per pixel as
 warp_frame_plane does, so every even geometry works. All are plain PyTorch:
 none of them is a TPU kernel in the JAX package. Warp outputs come batched,
-(T, H, W) and (T, H/2, W), with their (T,) blending scalars.
+(T, H, W) and (T, H/2, W), with their (T,) blending scalars. Modes 3-5 also
+take row_offsets, for the row bands of the mesh (parallel/mesh.py); mode 6
+reads rows outside a band, so the mesh composes it after its row all-gather.
 """
 
 from __future__ import annotations
@@ -88,27 +90,44 @@ def hsv_flow_overlay(raw_y: torch.Tensor, raw_uv: torch.Tensor, flow: torch.Tens
 
 
 def grey_flow_frame(flow: torch.Tensor, *, res_scalar: int, is_hdr: bool, dim_y: int,
-                    dim_x: int):
+                    dim_x: int, row_offsets: tuple[int, int] = (0, 0),
+                    out_rows: tuple[int, int] | None = None):
     """Mode 4: (|ox| + |oy|) of each pixel's cell, shifted and capped, as Y;
-    neutral UV (ref: warpFrameKernelSDR.h:161-164). (H, W), (H/2, W)."""
+    neutral UV (ref: warpFrameKernelSDR.h:161-164). (H, W), (H/2, W).
+    row_offsets (Y, UV) and out_rows (Y, UV): the band of plane rows
+    [row0, row0 + rows) of each plane, for the row bands of the mesh; rows
+    past the plane are 0, as in K2's mesh-sharded variant."""
     dtype = torch.uint16 if is_hdr else torch.uint8
     planes = []
-    for cz, h in ((0, dim_y), (1, dim_y // 2)):
-        cx, cy = _plane_coords(h, dim_x, flow.device)
-        planes.append(from_int32(warp_ops.grey_flow_plane(
-            flow, cx, cy, res_scalar=res_scalar, cz=cz, is_hdr=is_hdr), dtype))
+    for cz, plane_h in ((0, dim_y), (1, dim_y // 2)):
+        row0 = row_offsets[cz]
+        rows = plane_h - row0 if out_rows is None else out_rows[cz]
+        valid = max(0, min(rows, plane_h - row0))
+        grey = torch.zeros((rows, dim_x), dtype=torch.int32, device=flow.device)
+        if valid:
+            cx, cy = _plane_coords(valid, dim_x, flow.device, row0)
+            grey[:valid] = warp_ops.grey_flow_plane(flow, cx, cy, res_scalar=res_scalar,
+                                                    cz=cz, is_hdr=is_hdr)
+        planes.append(from_int32(grey, dtype))
     return tuple(planes)
 
 
 def side_by_side_1(src12_y: torch.Tensor, src12_uv: torch.Tensor,
-                   warp2_y: torch.Tensor, warp2_uv: torch.Tensor):
+                   warp2_y: torch.Tensor, warp2_uv: torch.Tensor, *,
+                   row_offsets: tuple[int, int] = (0, 0)):
     """Mode 5: source 1's left half beside the mode-2 output's right half
-    (ref: warpFrameKernelSDR.h:128-133)."""
+    (ref: warpFrameKernelSDR.h:128-133). row_offsets (Y, UV): the plane row
+    of the mode-2 inputs' first row, for the row bands of the mesh (K2's
+    mesh-sharded variant); rows past the plane keep the band's 0."""
     half = src12_y.shape[-1] >> 1
-    y, uv = warp2_y.clone(), warp2_uv.clone()
-    y[..., :half] = src12_y[:, :half]
-    uv[..., :half] = src12_uv[:, :half]
-    return y, uv
+    out = []
+    for src, warp2, row0 in ((src12_y, warp2_y, row_offsets[0]),
+                             (src12_uv, warp2_uv, row_offsets[1])):
+        plane = warp2.clone()
+        valid = max(0, min(plane.shape[-2], src.shape[0] - row0))
+        plane[..., :valid, :half] = src[row0:row0 + valid, :half]
+        out.append(plane)
+    return tuple(out)
 
 
 def side_by_side_2(src12_y: torch.Tensor, src12_uv: torch.Tensor, src21_uv: torch.Tensor,

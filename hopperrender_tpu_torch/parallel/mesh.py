@@ -11,10 +11,17 @@ single-GPU; the scale-out maps its axes onto a 2-D mesh of ranks:
         window sums (kilobytes) gives every rank the whole volume, and every
         rank runs the same argmin and adjust, so the offsets stay replicated;
       - the warp splits output rows: the sources stay whole on every rank,
-        each rank computes its row band of each plane (K2's mesh-sharded
-        variant, ops/warp_kernel.warp_frames_band; mode 3 colours the band
-        of its raw_blend variant), and an all-gather over the dp row's ranks
-        joins the bands.
+        each rank computes its row band of each plane, and an all-gather
+        over the dp row's ranks joins the bands. Every output mode 0-6 is
+        composed from K2's mesh-sharded variant
+        (ops/warp_kernel.warp_frames_band), as ops/warp_viz.warp_outputs
+        composes the full frame: modes 0/1/2 are its own, mode 3 colours
+        its raw_blend band, mode 4 is the grey flow of the band's rows (no
+        K2), mode 5 puts source 1's band rows beside its mode-2 band, and
+        mode 6, whose rows read rows outside the band, is composed from the
+        gathered mode-2 frame. The plain row route (warp_frame_sharded)
+        stays as the reference the tests hold these bands to; it takes CPU
+        tensors only.
 
 Rank r of a dp x sp mesh is (dp_index, sp_index) = divmod(r, sp). Collectives
 go through the sp group of the rank's dp row, on the rank's device: gloo's
@@ -39,11 +46,6 @@ from hopperrender_tpu_torch.ops import warp as warp_ops
 from hopperrender_tpu_torch.ops import warp_kernel, warp_viz
 
 MAX_R = flow_ops.MAX_R
-# The modes the mesh warps through K2's row band: 0/1/2, and 3 as the HSV
-# overlay of the raw_blend band.
-BAND_MODES = (0, 1, 2, 3)
-NOT_ON_THE_CARD = ("modes 4-6 on the mesh run only on the CPU (plain row route); on the "
-                   "card they are ROADMAP Queue 1, 'modes 4-6 on the mesh'")
 
 
 class Mesh:
@@ -109,28 +111,46 @@ def pyramid_flow_sharded(f1y, f1uv, f2y, f2uv, radius: int, delta_scalar: int,
 
 def warp_frame_band_sharded(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black, white, *,
                             res_scalar: int, mode: int, is_hdr: bool, mesh: Mesh):
-    """K2's mesh-sharded variant for this rank's row band of each plane:
-    (T, r_y, W), (T, r_uv, W) for the (T,) blending scalars ts. Modes 0/1/2
-    are the kernel's own; mode 3 is the HSV overlay of its raw_blend band, as
-    ops/warp_viz.warp_outputs composes the full frame."""
+    """This rank's row band of each plane, (T, r_y, W) and (T, r_uv, W) for
+    the (T,) blending scalars ts, r = ops/warp.band_rows(plane_h, mesh.sp),
+    in a band-local mode 0-5, composed from K2's mesh-sharded variant as
+    ops/warp_viz.warp_outputs composes the full frame. Modes 0/1/2 are the
+    kernel's own; mode 3 is the HSV overlay of its raw_blend band; mode 4
+    is the grey flow of the band's rows and launches no K2; mode 5 is source
+    1's band rows beside the mode-2 band. Rows past the plane are 0 (mode 3
+    colours them; the step crops them)."""
+    if mode == 6:
+        raise ValueError("mode 6 reads rows outside the band: make_multichip_step composes it "
+                         "from the gathered mode-2 frame")
+    dim_y, dim_x = src12_y.shape
+    r_y, r_uv = warp_ops.band_rows(dim_y, mesh.sp), warp_ops.band_rows(dim_y // 2, mesh.sp)
+    rows = (mesh.sp_index * r_y, mesh.sp_index * r_uv)
+    if mode == 4:
+        y, uv = warp_viz.grey_flow_frame(flow, res_scalar=res_scalar, is_hdr=is_hdr, dim_y=dim_y,
+                                         dim_x=dim_x, row_offsets=rows, out_rows=(r_y, r_uv))
+        return y.expand(len(ts), -1, -1), uv.expand(len(ts), -1, -1)
     kw = dict(res_scalar=res_scalar, is_hdr=is_hdr, num_shards=mesh.sp,
               shard_index=mesh.sp_index)
     srcs = (src12_y, src12_uv, src21_y, src21_uv, flow, ts, black, white)
-    if mode != 3:
-        return warp_kernel.warp_frames_band(*srcs, mode=mode, **kw)
-    raw_y, raw_uv = warp_kernel.warp_frames_band(*srcs, mode=2, raw_blend=True, **kw)
-    rows = (mesh.sp_index * raw_y.shape[1], mesh.sp_index * raw_uv.shape[1])
-    return warp_viz.hsv_flow_overlay(raw_y, raw_uv, flow, black, white, res_scalar=res_scalar,
-                                     is_hdr=is_hdr, row_offsets=rows)
+    if mode == 3:
+        raw_y, raw_uv = warp_kernel.warp_frames_band(*srcs, mode=2, raw_blend=True, **kw)
+        return warp_viz.hsv_flow_overlay(raw_y, raw_uv, flow, black, white,
+                                         res_scalar=res_scalar, is_hdr=is_hdr, row_offsets=rows)
+    y, uv = warp_kernel.warp_frames_band(*srcs, mode=2 if mode == 5 else mode, **kw)
+    if mode == 5:
+        return warp_viz.side_by_side_1(src12_y, src12_uv, y, uv, row_offsets=rows)
+    return y, uv
 
 
 def warp_frame_sharded(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black, white, *,
                        res_scalar: int, mode: int, is_hdr: bool, mesh: Mesh):
     """The plain row route, any mode 0-6, for this rank's row band of each
-    plane (ops/warp.warp_frame_rows). CPU tensors only: on the card the mesh
-    warps through K2's mesh-sharded variant."""
+    plane (ops/warp.warp_frame_rows): the reference the tests hold the mesh
+    to. CPU tensors only; the step itself warps through K2's mesh-sharded
+    variant, on the card and on the CPU alike."""
     if flow.device.type != "cpu":
-        raise NotImplementedError(NOT_ON_THE_CARD)
+        raise NotImplementedError("the plain row route takes CPU tensors only; on the card "
+                                  "the mesh warps through K2's mesh-sharded variant")
     return warp_ops.warp_frame_rows(
         src12_y, src12_uv, src21_y, src21_uv, flow, ts, black, white, res_scalar=res_scalar,
         mode=mode, is_hdr=is_hdr, num_shards=mesh.sp, shard_index=mesh.sp_index)
@@ -151,18 +171,20 @@ def make_multichip_step(mesh: Mesh, frame_height: int, frame_width: int, *, low_
     t_batch > 1, with the rows gathered over sp and cropped to the frame on
     every rank; the (B, 2, low_h, low_w) int16 flow and (B,) int64 raw deltas.
 
-    Modes 0/1/2 warp through K2's mesh-sharded variant (the kernel on the
-    card, its plain version on the CPU), mode 3 through its raw_blend band
-    and the HSV overlay; modes 4-6 take the plain row route, which runs on
-    the CPU only."""
+    Every mode 0-6 warps through K2's mesh-sharded variant (the kernel on
+    the card, its plain version on the CPU): warp_frame_band_sharded
+    composes the band-local modes 0-5 on each rank. Mode 6's output row y
+    in [H/4, 3H/4) reads mode-2 and source row 2(y - H/4), outside the
+    rank's band, so each rank warps its mode-2 band, the row all-gather
+    joins them as in mode 2, and ops/warp_viz.side_by_side_2 composes the
+    gathered frame, as on one card. Every rank does mode 2's K2 work; a
+    band over the rows that mode 6's band reads would give the middle
+    ranks twice the rows and the edge ranks none."""
     if mode not in warp_ops.WARP_MODES:
         raise ValueError(f"output mode {mode} is not one of {warp_ops.WARP_MODES}")
     if t_batch < 1:
         raise ValueError(f"t_batch {t_batch} < 1")
-    use_kernel = mode in BAND_MODES
-    if not use_kernel and mesh.device.type != "cpu":
-        raise NotImplementedError(NOT_ON_THE_CARD)
-    warp = warp_frame_band_sharded if use_kernel else warp_frame_sharded
+    band_mode = 2 if mode == 6 else mode
 
     def step(f0y, f0uv, f1y, f1uv, f2y, f2uv, flow_prev, radius, delta_scalar,
              neighbor_scalar, t, black, white):
@@ -178,11 +200,15 @@ def make_multichip_step(mesh: Mesh, frame_height: int, frame_width: int, *, low_
                 f1y[b], f1uv[b], f2y[b], f2uv[b], int(radius), int(delta_scalar),
                 int(neighbor_scalar), low_h=low_h, low_w=low_w, res_scalar=res_scalar,
                 is_hdr=is_hdr, mesh=mesh)
-            band_y, band_uv = warp(f0y[b], f0uv[b], f1y[b], f1uv[b], flow_prev[b], ts,
-                                   float(black), float(white), res_scalar=res_scalar,
-                                   mode=mode, is_hdr=is_hdr, mesh=mesh)
+            band_y, band_uv = warp_frame_band_sharded(
+                f0y[b], f0uv[b], f1y[b], f1uv[b], flow_prev[b], ts, float(black), float(white),
+                res_scalar=res_scalar, mode=band_mode, is_hdr=is_hdr, mesh=mesh)
             y = mesh.all_gather_sp(band_y, dim=1)[:, :frame_height]
             uv = mesh.all_gather_sp(band_uv, dim=1)[:, :frame_height // 2]
+            if mode == 6:
+                y, uv = warp_viz.side_by_side_2(f0y[b], f0uv[b], f1uv[b], y, uv, flow_prev[b],
+                                                ts, float(white), res_scalar=res_scalar,
+                                                is_hdr=is_hdr)
             if t_batch == 1:
                 y, uv = y[0], uv[0]
             outs.append((y, uv, blurred, delta_raw))

@@ -315,6 +315,36 @@ def test_mesh_mode_3_on_the_card_matches_the_cpu(tmp_path):
         np.testing.assert_array_equal(got["cuda"][k], got["cpu"][k], err_msg=k)
 
 
+@pytest.mark.parametrize("mode", (4, 5, 6))
+def test_mesh_modes_4_to_6_on_the_card_match_the_cpu(tmp_path, mode):
+    """make_multichip_step in modes 4-6 on a (1, 2) mesh of ranks sharing
+    the card (gloo): the same outputs as the CPU ranks, byte for byte.
+    Modes 5 and 6 launch K2's band on every rank, mode 4 none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hopperrender_tpu_torch import entry
+    from hopperrender_tpu_torch.parallel import launch
+    y, uv, flow = entry.example_frames(64, 128, 16, 32, batch=1)
+    in_path = str(tmp_path / "in.npz")
+    np.savez(in_path, y=y, uv=uv, flow=flow, ts=np.asarray([0.25, 0.5, 0.75], np.float32))
+    got = {}
+    for device in ("cpu", "cuda"):
+        job = dict(in_path=in_path, out_path=str(tmp_path / (device + ".{rank}.npz")), mode=mode,
+                   res_scalar=2, radius=9, delta_scalar=8, neighbor_scalar=6, black=16.0,
+                   white=235.0)
+        paths = [p for (p,) in launch.run_ranks(entry.run_stream_steps, 1, 2, device=device,
+                                                 workdir=str(tmp_path), args=([job],),
+                                                 timeout=300)]
+        for path in paths:
+            with np.load(path) as z:
+                launched = int(z["band_launches"])
+                assert (launched > 0) == (device == "cuda" and mode != 4), (device, launched)
+                assert int(z["band_raw_launches"]) == 0
+        got[device] = entry.gather_dp(paths, 2)
+    for k in ("y", "uv", "blurred", "delta"):
+        np.testing.assert_array_equal(got["cuda"][k], got["cpu"][k], err_msg=k)
+
+
 def _u32(t):
     return t.view(torch.int32)
 

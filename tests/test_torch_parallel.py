@@ -1,9 +1,10 @@
 """The port's parallel path against the JAX package's, on the CPU:
 the layer-sharded cost volume (delta_window_sums with layer_offset), the
 row-sharded warp (warp_frame_plane with row_offset/out_rows), the plain
-version of K2's mesh-sharded variant, batched_step, and make_multichip_step
-on gloo ranks (launch.run_ranks) against JAX's make_multichip_step on the
-8-device virtual CPU mesh of tests/conftest.py.
+version of K2's mesh-sharded variant, the bands of modes 3-6 composed from
+it, batched_step, and make_multichip_step on gloo ranks (launch.run_ranks)
+against JAX's make_multichip_step on the 8-device virtual CPU mesh of
+tests/conftest.py.
 
 Tolerances: exact everywhere, except the mode-2 output against the JAX mesh
 step, which may differ by 1 LSB. That step warps through the JAX package's
@@ -165,19 +166,98 @@ def test_banded_hsv_overlay_stacks_to_the_full_overlay(rng, n, is_hdr):
         assert torch.equal(buv[:, :valid_uv], puv[:, :valid_uv])
 
 
-def test_multichip_step_on_the_card_refuses_only_modes_4_to_6():
-    """On a CUDA mesh, modes 0-3 build a step (mode 3 through the raw_blend
-    band and the overlay); modes 4-6 raise, naming only themselves. The
-    check comes before any collective, so a stand-in mesh is enough."""
+def _shard_rows(frame: torch.Tensor, n: int, s: int) -> torch.Tensor:
+    """Shard s of n's row band of a (T, plane_h, W) plane, padded with 0 to
+    band_rows(plane_h, n) rows, as the mesh's bands are."""
+    rows = torch_warp.band_rows(frame.shape[1], n)
+    band = torch.zeros((frame.shape[0], rows, frame.shape[2]), dtype=torch.int32)
+    part = torch_warp.to_int32(frame[:, s * rows:(s + 1) * rows])
+    band[:, :part.shape[1]] = part
+    return torch_warp.from_int32(band, frame.dtype)
+
+
+# (n, is_hdr, rs, ts, h, w): n = 2 and 4, both bit depths, res_scalar 0-3,
+# T = 1 and 3; 50 rows split unevenly over 4 (Y 13-row bands, the last 11;
+# UV 7-row bands, the last 4).
+COMPOSED_BAND_CASES = [(2, False, 0, (0.375,), 32, 64), (4, True, 1, (0.2, 0.6, 1.0), 32, 64),
+                       (4, False, 2, (0.25, 0.5, 0.875), 50, 96), (2, True, 3, (0.6,), 48, 64)]
+
+
+@pytest.mark.parametrize("n,is_hdr,rs,ts,h,w", COMPOSED_BAND_CASES)
+def test_composed_bands_of_modes_4_to_6_match_the_row_route_and_jax(n, is_hdr, rs, ts, h, w):
+    """Modes 4-6 on the mesh, per shard, through the composed band route
+    (warp_frame_band_sharded; mode 6 from the gathered mode-2 bands and
+    side_by_side_2, as make_multichip_step does), with K2's band in its
+    plain version: exactly the plain row route (warp_frame_rows), padding
+    included, and JAX's warp_frame_plane with row_offset/out_rows on the
+    rows inside the plane; stacked and cropped, exactly warp_outputs."""
+    from hopperrender_tpu_torch.parallel import mesh as torch_mesh
+    rng = np.random.default_rng(60 + rs)
+    srcs = make_frame(rng, h, w, is_hdr) + make_frame(rng, h, w, is_hdr)
+    flow = make_flow(rng, -(-h >> rs), -(-w >> rs), max_mag=30)
+    args = (*map(_t, srcs), _t(flow))
+    black, white = _levels(is_hdr)
+    tts = torch.tensor(ts, dtype=torch.float32)
+    kw = dict(res_scalar=rs, is_hdr=is_hdr)
+    for mode in (4, 5, 6):
+        bands = [torch_mesh.warp_frame_band_sharded(
+            *args, tts, black, white, mode=2 if mode == 6 else mode, **kw,
+            mesh=types.SimpleNamespace(sp=n, sp_index=s)) for s in range(n)]
+        y = torch.cat([b[0] for b in bands], 1)[:, :h]
+        uv = torch.cat([b[1] for b in bands], 1)[:, :h // 2]
+        if mode == 6:
+            y, uv = warp_viz.side_by_side_2(*args[:2], args[3], y, uv, args[4], tts, white, **kw)
+            bands = [(_shard_rows(y, n, s), _shard_rows(uv, n, s)) for s in range(n)]
+        want = warp_viz.warp_outputs(*args, tts, black, white, mode=mode, **kw)
+        assert torch.equal(y, want[0]) and torch.equal(uv, want[1]), f"mode {mode}"
+        for s, band in enumerate(bands):
+            rows = torch_warp.warp_frame_rows(*args, tts, black, white, mode=mode, num_shards=n,
+                                              shard_index=s, **kw)
+            for cz, (got, plain) in enumerate(zip(band, rows)):
+                what = f"mode {mode} shard {s} cz {cz}"
+                assert got.shape == plain.shape and torch.equal(got, plain), what
+                plane_h = h >> cz
+                row0 = s * got.shape[1]
+                valid = min(got.shape[1], plane_h - row0)
+                for i, t in enumerate(ts):
+                    jband = jax_warp.warp_frame_plane(
+                        *map(jnp.asarray, srcs), jnp.asarray(flow), jnp.float32(t),
+                        jnp.float32(black), jnp.float32(white), jnp.int32(row0), cz=cz,
+                        out_rows=valid, mode=mode, **kw)
+                    np.testing.assert_array_equal(got[i, :valid].numpy(), np.asarray(jband),
+                                                  err_msg=f"{what} t {t}")
+
+
+@pytest.mark.parametrize("mode", range(7))
+def test_multichip_step_on_the_card_builds_every_mode(mode):
+    """On a CUDA mesh every output mode 0-6 builds a step: nothing is left
+    to the plain row route. The build touches no collective, so a stand-in
+    mesh is enough; the step itself runs on the card in
+    tests/test_torch_cuda.py and chip_smoke.py phase 7c."""
     from hopperrender_tpu_torch.parallel import mesh as torch_mesh
     card = types.SimpleNamespace(device=torch.device("cuda"))
-    kw = dict(low_h=LOW_H, low_w=LOW_W, res_scalar=RS)
-    for mode in (0, 1, 2, 3):
-        assert callable(torch_mesh.make_multichip_step(card, H, W, mode=mode, **kw))
-    for mode in (4, 5, 6):
-        with pytest.raises(NotImplementedError, match="modes 4-6 on the mesh") as exc:
-            torch_mesh.make_multichip_step(card, H, W, mode=mode, **kw)
-        assert "3" not in str(exc.value).split("ROADMAP")[0]
+    step = torch_mesh.make_multichip_step(card, H, W, mode=mode, low_h=LOW_H, low_w=LOW_W,
+                                          res_scalar=RS)
+    assert callable(step)
+
+
+def test_plain_row_route_takes_cpu_tensors_only(rng):
+    """warp_frame_sharded, the plain reference of the mesh's bands, refuses
+    tensors off the CPU (here on the meta device), so nothing on the card
+    can fall back to it; on the CPU it is warp_frame_rows."""
+    from hopperrender_tpu_torch.parallel import mesh as torch_mesh
+    srcs = [_t(a) for a in make_frame(rng, H, W) + make_frame(rng, H, W)]
+    flow = _t(make_flow(rng, LOW_H, LOW_W))
+    ts = torch.tensor([T1])
+    shard = types.SimpleNamespace(sp=2, sp_index=1)
+    kw = dict(res_scalar=RS, mode=6, is_hdr=False)
+    got = torch_mesh.warp_frame_sharded(*srcs, flow, ts, 16.0, 235.0, mesh=shard, **kw)
+    want = torch_warp.warp_frame_rows(*srcs, flow, ts, 16.0, 235.0, num_shards=2,
+                                      shard_index=1, **kw)
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    with pytest.raises(NotImplementedError, match="CPU tensors only"):
+        torch_mesh.warp_frame_sharded(*(t.to("meta") for t in srcs), flow.to("meta"),
+                                      ts.to("meta"), 16.0, 235.0, mesh=shard, **kw)
 
 
 @pytest.mark.parametrize("is_hdr,mode", [(False, 2), (True, 0)])
@@ -214,8 +294,9 @@ H, W, RS, LOW_H, LOW_W = 32, 64, 1, 16, 32
 RADIUS, DSC, NSC, T1 = 9, 8, 6, 0.375
 T3 = (0.25, 0.5, 0.875)
 # (mode, ts) of the jobs each mesh runs: modes 0/1/2 at one t, mode 2 at three,
-# and two visualisation modes (the plain row route on the CPU).
-JOBS = [(0, (T1,)), (1, (T1,)), (2, (T1,)), (2, T3), (3, (T1,)), (6, (T1,))]
+# and the visualisation modes 3-6 (composed from K2's band), at one t and three.
+JOBS = [(0, (T1,)), (1, (T1,)), (2, (T1,)), (2, T3), (3, (T1,)), (6, (T1,)), (4, (T1,)),
+        (5, T3), (6, T3)]
 
 
 # (dp, sp, is_hdr, the modes also held to JAX's mesh step): at most four ranks
@@ -282,6 +363,39 @@ def test_multichip_step_on_gloo_ranks_matches_jax_mesh(tmp_path, rng, dp, sp, is
                     is_hdr=is_hdr)
                 np.testing.assert_array_equal(gy[b], np.asarray(wy), err_msg=f"mode {mode}")
                 np.testing.assert_array_equal(guv[b], np.asarray(wuv), err_msg=f"mode {mode}")
+
+
+def test_modes_4_to_6_on_gloo_ranks_match_jax_mesh_at_res_scalar_0(tmp_path, rng):
+    """At res_scalar 0 JAX's make_multichip_step takes its row route
+    (warp_frame_plane over each shard's rows), which runs every mode: on a
+    (1, 2) SDR mesh the port's step in modes 4, 5 and 6, through the
+    composed band route on gloo ranks, equals it exactly, outputs, flow and
+    delta."""
+    low_h, low_w = H, W
+    frames = [make_frame(rng, H, W) for _ in range(3)]
+    y, uv = np.stack([[f[0] for f in frames]]), np.stack([[f[1] for f in frames]])
+    flow_prev = make_flow(rng, low_h, low_w, max_mag=5)[None]
+    black, white = _levels(False)
+    in_path = os.path.join(tmp_path, "in.npz")
+    np.savez(in_path, y=y, uv=uv, flow=flow_prev, ts=np.asarray([T1], np.float32))
+    modes = (4, 5, 6)
+    jobs = [dict(in_path=in_path, out_path=os.path.join(tmp_path, f"out{mode}." "{rank}.npz"),
+                 mode=mode, res_scalar=0, radius=RADIUS, delta_scalar=DSC,
+                 neighbor_scalar=NSC, black=black, white=white) for mode in modes]
+    paths = launch.run_ranks(entry.run_stream_steps, 1, 2, device="cpu",
+                             workdir=str(tmp_path), args=(jobs,), timeout=300)
+    jmesh = JaxMesh(np.array(jax.devices()[:2]).reshape(1, 2), ("dp", "sp"))
+    jframes = [jnp.asarray(a[:, k]) for k in range(3) for a in (y, uv)]
+    for j, mode in enumerate(modes):
+        got = entry.gather_dp([p[j] for p in paths], 2)
+        jstep = jax_multichip_step(jmesh, H, W, low_h=low_h, low_w=low_w, res_scalar=0,
+                                   is_hdr=False, mode=mode)
+        want = jstep(*jframes, jnp.asarray(flow_prev), jnp.int32(RADIUS), jnp.int32(DSC),
+                     jnp.int32(NSC), jnp.float32(T1), jnp.float32(black), jnp.float32(white))
+        for k, w_ in zip(("y", "uv", "blurred", "delta"), want):
+            np.testing.assert_array_equal(got[k][:, 0], np.asarray(w_).astype(got[k].dtype),
+                                          err_msg=f"mode {mode} {k}")
+    assert np.abs(got["blurred"]).max() > 0          # the search moved
 
 
 def test_entry_gives_the_1080p_single_stream_step():

@@ -195,3 +195,50 @@ def test_compositions_any_even_geometry(rs, is_hdr, h, w):
         for plane, g, wnt in zip(("Y", "UV"), planes, want):
             np.testing.assert_array_equal(g[0].numpy(), np.asarray(wnt),
                                           err_msg=f"mode {mode} {plane}")
+
+
+@pytest.mark.parametrize("rs,is_hdr,h,w", [(1, False, 50, 86), (3, True, 48, 112)])
+def test_banded_grey_flow_and_side_by_side_stack_to_the_full_frame(rs, is_hdr, h, w):
+    """Modes 4 and 5 on the mesh's row bands (row_offsets, out_rows): three
+    bands of each plane (50 rows split unevenly, the last band padded),
+    stacked and cropped, equal the full-frame composition, and the rows past
+    the plane are 0.
+    Mode 4's full frame is held to the JAX package's grey_flow_frame, mode
+    5's band rows to its reference-formulation warp with row_offset."""
+    rng = np.random.default_rng(70 + rs)
+    srcs, flow = _inputs(rng, rs, is_hdr, h, w)
+    black, white = _levels(is_hdr)
+    kw = dict(res_scalar=rs, is_hdr=is_hdr)
+    tsrcs, tflow = [_t(a) for a in srcs], _t(flow)
+    tts = torch.tensor([0.3, 0.8], dtype=torch.float32)
+    n = 3
+    rows = (-(-h // n), -(-(h // 2) // n))
+    w2 = warp_kernel.warp_frames(*tsrcs, tflow, tts, black, white, mode=2, **kw)
+    grey_full = warp_viz.grey_flow_frame(tflow, dim_y=h, dim_x=w, **kw)
+    sbs_full = warp_viz.side_by_side_1(tsrcs[0], tsrcs[1], *w2)
+    jgrey = warp_strip.grey_flow_frame(jnp.asarray(flow), dim_y=h, dim_x=w, **kw)
+    for got, want in zip(grey_full, jgrey):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    grey_bands, sbs_bands = [], []
+    for s in range(n):
+        offsets = (s * rows[0], s * rows[1])
+        grey_bands.append(warp_viz.grey_flow_frame(tflow, dim_y=h, dim_x=w, **kw,
+                                                   row_offsets=offsets, out_rows=rows))
+        band2 = [torch.zeros((2, r, w), dtype=p.dtype) for r, p in zip(rows, w2)]
+        for b, p, row0, r in zip(band2, w2, offsets, rows):
+            part = p[:, row0:row0 + r]
+            b[:, :part.shape[1]] = part
+        sbs_bands.append(warp_viz.side_by_side_1(tsrcs[0], tsrcs[1], *band2,
+                                                 row_offsets=offsets))
+        for cz, row0 in enumerate(offsets):
+            valid = min(rows[cz], (h >> cz) - row0)
+            assert not grey_bands[-1][cz][valid:].any() and not sbs_bands[-1][cz][:, valid:].any()
+            want = jax_warp.warp_frame_plane(
+                *(jnp.asarray(a) for a in srcs), jnp.asarray(flow), jnp.float32(0.8),
+                jnp.float32(black), jnp.float32(white), jnp.int32(row0), cz=cz,
+                out_rows=valid, mode=5, **kw)
+            np.testing.assert_array_equal(sbs_bands[-1][cz][1, :valid].numpy(), np.asarray(want),
+                                          err_msg=f"mode 5 band {s} cz {cz}")
+    for cz, plane_h in enumerate((h, h // 2)):
+        assert torch.equal(torch.cat([b[cz] for b in grey_bands])[:plane_h], grey_full[cz])
+        assert torch.equal(torch.cat([b[cz] for b in sbs_bands], 1)[:, :plane_h], sbs_full[cz])

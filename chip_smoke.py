@@ -4,6 +4,7 @@
     python3 chip_smoke.py                   # from the repository root; needs one CUDA card
     python3 chip_smoke.py --parallel-only   # phases 1, 2 and 7; on four cards, 7c
                                             # adds meshes of a rank per card (NCCL)
+    python3 chip_smoke.py --bench-only      # phases 1, 2 and 10: the bench
     python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only:
                                             # K1, K2, the band, P1-P4 and the L2 read
                                             # rate, P1/P2 on the probe path on 1 and
@@ -108,16 +109,31 @@ sm_90a), then runs these phases, one line each:
      output fps, printed; it fails if the scaler's recorded calls differ
      from their replay on a fresh AutoQualityScaler, a radius leaves [5,
      16], an output made while TOO_SLOW is not the copy of its source
-     frame, the engine thread raised, or /healthz answered other than 200.
+     frame, the engine thread raised, or /healthz answered other than 200;
+ 10. the bench (hopperrender_tpu_torch/bench.py, the port of the JAX
+     package's bench.py):
+     10a. bench.main in this process, stdout captured, for `--config 4k-hdr
+     --json-only` (radius auto) and `--config 4k-hdr --target-fps 120
+     --radius 16`: the last line's metric, a radius bucket, a positive value
+     and vs_baseline = 41.667 / value, not partial, not bench_failed, and K1
+     and K2 launched in each run;
+     10b. the bench units (flow_unit at radius 16, warp_unit and
+     warp_batch_unit in modes 0/1/2) on 4K HDR panning frames on the card
+     against the same calls on a CPU engine, exactly;
+     10c. `python -m hopperrender_tpu_torch.bench --config 1080p-sdr
+     --radius 16 --json-only` in a process of its own on the default device.
+     It prints each run's flow, warp and per-source ms at each radius
+     measured beside phase 6's median flow; no rule is set on any time.
 
-Before each served path, and before the probe path, every launch counter
+Before each served path, the probe path and each of 10a's runs, every launch counter
 is set to 0, and after it each kernel of that path must have launched (the
 ranks of 7c and the CLI's processes of 9a start at 0). Then one JSON line of
 the kernels
 (with each one's bound: the least time the card could take for its work;
 `ms` the graph-timed time on random flow, `smooth_ms` on smooth flow for
 K1, K2, raw_blend and the band, and their `host_us`; K1's and K2's
-`cli_launches` in 9a's two CLI processes; the band's `launches` over
+`cli_launches` in 9a's two CLI processes and `bench_launches` in 10a's
+runs; the band's `launches` over
 7c's modes 2, 5 and 6, and `launches_by_mode` (mode 3: its raw_blend
 variant's); for the probes `ms`
 summed over the variants, graph-timed, P1/P2's bound beside the bound
@@ -133,6 +149,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -230,8 +247,9 @@ def log(line: str) -> None:
 
 def import_port() -> types.SimpleNamespace:
     """Everything the run uses, imported from hopperrender_tpu_torch only."""
-    from hopperrender_tpu_torch import _build, config, entry
+    from hopperrender_tpu_torch import _build, bench, config, entry
     from hopperrender_tpu_torch.config import Settings
+    from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
     from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel, warp_viz
     from hopperrender_tpu_torch.ops import flow as flow_ops
     from hopperrender_tpu_torch.ops import warp as warp_ops
@@ -255,7 +273,8 @@ def import_port() -> types.SimpleNamespace:
         probes=dict(chain_probe=chain_probe, chain_probe2=chain_probe2,
                     gather_probe=gather_probe, mosaic_probe=mosaic_probe),
         native=native, video=video, digests=digests, AutoQualityScaler=AutoQualityScaler,
-        PipelinedServer=PipelinedServer, StatusServer=StatusServer)
+        PipelinedServer=PipelinedServer, StatusServer=StatusServer, bench=bench,
+        OpticalFlowEngine=OpticalFlowEngine)
 
 
 @contextlib.contextmanager
@@ -1681,6 +1700,121 @@ def serving_phase(port, dev, card: str) -> dict:
     return cli
 
 
+# Phase 10: the bench's runs in this process (10a), and the run as a user
+# starts it (10c).
+BENCH_RUNS = {"4k-hdr": ("--config", "4k-hdr", "--json-only"),
+              "4k-hdr_to120fps": ("--config", "4k-hdr", "--target-fps", "120", "--radius", "16")}
+BENCH_USER_RUN = ("--config", "1080p-sdr", "--radius", "16", "--json-only")
+
+
+def bench_result(port, lines: list[dict], metric: str, what: str) -> dict:
+    """The bench's last line, checked: the metric, a radius bucket, a positive
+    value and vs_baseline = budget / value (each rounded to 3 places)."""
+    if not lines:
+        raise AssertionError(f"{what}: no JSON line")
+    last = lines[-1]
+    if last.get("metric") != metric or last.get("partial"):
+        raise AssertionError(f"{what}: last line {last}, wanted metric {metric}, not partial")
+    value, budget = last["value"], 1e3 / 24.0
+    if last["radius"] not in port.bench.BUCKETS or not value > 0:
+        raise AssertionError(f"{what}: radius {last['radius']}, value {value}")
+    tol = 5e-4 + budget * 5e-4 / value ** 2
+    if abs(last["vs_baseline"] - budget / value) > tol:
+        raise AssertionError(f"{what}: vs_baseline {last['vs_baseline']} != {budget} / {value}")
+    return last
+
+
+def bench_in_process(port, argv) -> tuple[int, list[dict]]:
+    """bench.main(argv) with its stdout captured: (exit code, its JSON lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = port.bench.main(list(argv))
+    print(out.getvalue(), end="", file=sys.stderr)
+    return rc, [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+
+
+def bench_units_on_the_card(port, dev) -> int:
+    """10b: flow_unit, warp_unit (modes 0/1/2) and warp_batch_unit (t 0.2,
+    0.6, 1.0; modes 0/1/2) on 4K HDR panning frames at radius 16, on a CPU
+    engine and on the card: equal, exactly. The warps take the CPU engine's
+    flow of the pair. Returns the number of units compared."""
+    frames = [a for pair in panning_frames(port, H, W, 2, is_hdr=True) for a in pair]
+    units, flow = [], None
+    for where in (torch.device("cpu"), dev):
+        eng = port.OpticalFlowEngine(H, W, is_hdr=True, device=where, black_level=16,
+                                     white_level=235)
+        eng.search_radius = 16
+        src = [torch.tensor(a, device=where) for a in frames]
+        if flow is None:
+            flow = eng._run_pyramid(*src, num_layers=16)[0]
+        fl = flow.to(where)
+        flow_unit, warp_unit, _, warp_batch_unit = eng.bench_units()
+        got = {"flow_unit": flow_unit(*src)}
+        for mode in (0, 1, 2):
+            got[f"warp_unit mode {mode}"] = warp_unit(*src, fl, 0.4, mode=mode)
+            got[f"warp_batch_unit mode {mode}"] = warp_batch_unit(*src, fl, (0.2, 0.6, 1.0),
+                                                                  mode=mode)
+        units.append({k: int(v) for k, v in got.items()})
+    if units[0] != units[1]:
+        raise AssertionError(f"bench units: CPU {units[0]} != card {units[1]}")
+    return len(units[0])
+
+
+def bench_phase(port, dev, card: str, flow16_ms: float | None) -> dict:
+    """Phase 10: the bench on the card. 10a: bench.main in this process for
+    each of BENCH_RUNS, K1's and K2's counters set to 0 before each and read
+    after, both of which must have moved; 10b: the units on the card against
+    a CPU engine; 10c: `python -m hopperrender_tpu_torch.bench` as a user runs
+    it, on the default device. Prints each run's times at each radius beside
+    phase 6's median flow; sets no rule on any time. Returns the launches."""
+    start = time.perf_counter()
+    k1, k2, k2_band = port.blur_kernel.blur_flow, port.warp_kernel.warp_frames, \
+        port.warp_kernel.warp_frames_band
+    launches, lines_by_run = {}, {}
+    for name, argv in BENCH_RUNS.items():
+        reset_launches(k1, k2, k2_band)
+        rc, lines = bench_in_process(port, argv)
+        torch.cuda.synchronize()
+        launches[name] = read_launches(k1, k2, k2_band)
+        if rc != 0:
+            raise AssertionError(f"bench {name}: exit code {rc}: {lines[-1:]}")
+        bench_result(port, lines, f"{name}_flow_plus_warp_per_source_frame", f"bench {name}")
+        if min(launches[name]["blur_flow"], launches[name]["warp_frames"]) == 0:
+            raise AssertionError(f"bench {name}: a kernel of the path never launched: "
+                                 f"{launches[name]}")
+        lines_by_run[name] = lines
+    n_units = bench_units_on_the_card(port, dev)
+    out = subprocess.run([sys.executable, "-m", "hopperrender_tpu_torch.bench",
+                          *BENCH_USER_RUN], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    print(out.stderr, end="", file=sys.stderr)
+    if out.returncode != 0:
+        raise AssertionError(f"python -m hopperrender_tpu_torch.bench: exit code "
+                             f"{out.returncode}: {out.stdout[-500:]}")
+    user_lines = [json.loads(line) for line in out.stdout.splitlines() if line.strip()]
+    bench_result(port, user_lines, "1080p-sdr_flow_plus_warp_per_source_frame", "10c")
+
+    def fmt(lines):
+        done = [ln["measured"] for ln in lines if "measured" in ln]
+        last = lines[-1]
+        return ("; ".join(f"r{m['radius']} flow {m['flow_ms']:.3f}, warp {m['warp_ms']:.3f}, "
+                          f"per source {m['per_source_ms']:.3f}" for m in done)
+                + f" -> {json.dumps(last)}")
+
+    for name, lines in lines_by_run.items():
+        log(f"phase 10a bench [{card}] {' '.join(BENCH_RUNS[name])}: {fmt(lines)}; "
+            f"launches {launches[name]}")
+    log(f"phase 10b bench units: {n_units} units (flow_unit r16, warp_unit and warp_batch_unit "
+        f"modes 0/1/2) on 4K HDR panning frames equal on the card and the CPU")
+    log(f"phase 10c bench [{card}] python -m hopperrender_tpu_torch.bench "
+        f"{' '.join(BENCH_USER_RUN)}: {fmt(user_lines)}")
+    log(f"phase 10 numbers [{card}]: phase 6's median flow at radius 16 (served, this run) "
+        + ("not run" if flow16_ms is None else f"{flow16_ms:.3f} ms")
+        + f"; ms are the bench's slope (CUDA events around eager chains); phase 10 took "
+          f"{time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def finish(port, kernels: list[dict], card: str, kind: str) -> int:
     """The last three lines: the kernels, nvidia-smi's card line, the result."""
     log(json.dumps({"kernels": kernels}))
@@ -1698,6 +1832,9 @@ def main(argv: list[str]) -> int:
     parser.add_argument("--parallel-only", action="store_true",
                         help="run phases 1, 2 and 7 only: the parallel path, e.g. on a host "
                              "with four cards, where 7c adds the NCCL meshes")
+    parser.add_argument("--bench-only", action="store_true",
+                        help="run phases 1, 2 and 10 only: the bench (hopperrender_tpu_torch/"
+                             "bench.py) in this process and as a user runs it")
     parser.add_argument("--kernel-times", action="store_true",
                         help="run phases 1 and 2, then time the kernels only (phase 6's and "
                              "7a's kernel numbers, P3's and P4's of 8c, and the host split of a "
@@ -1738,6 +1875,11 @@ def main(argv: list[str]) -> int:
         f"instantiations, library {os.path.relpath(lib.path, ROOT)}")
     if args.parallel_only:
         return finish(port, [parallel_path(port, dev, card)], card, kind)
+    if args.bench_only:
+        launches = bench_phase(port, dev, card, None)
+        return finish(port, [{"name": name, "bench_launches": {run: n[name] for run, n in
+                                                                launches.items()}}
+                             for name in ("blur_flow", "warp_frames")], card, kind)
     if args.kernel_times:
         inp = k2_inputs(port, dev)
         numbers = kernel_numbers(port, inp)
@@ -1978,6 +2120,9 @@ def main(argv: list[str]) -> int:
     # -- 9. the serving surface ----------------------------------------------------
     cli = serving_phase(port, dev, card)
 
+    # -- 10. the bench ----------------------------------------------------------------
+    bench_launches = bench_phase(port, dev, card, ms(flow_s))
+
     # Bounds from this run's inputs: K1 reads and writes one (2, 270, 480) int16
     # flow; K2 reads both source frames and the flow once and writes T outputs.
     k2_out = 3 * nbytes(src[0], src[1])
@@ -2006,8 +2151,9 @@ def main(argv: list[str]) -> int:
          "replaces": "hopperrender_tpu/ops/warp_band.py:695 (variant raw_blend)",
          "launches": viz_launches[3]["warp_frames_raw_blend"], "max_abs_err": raw_err},
     ]
-    for k in kernels[:2]:   # K1 and K2 in the CLI's processes (9a)
+    for k in kernels[:2]:   # K1 and K2 in the CLI's processes (9a) and the bench's runs (10a)
         k["cli_launches"] = {c: r["launches"][k["name"]] for c, r in cli["results"].items()}
+        k["bench_launches"] = {run: n[k["name"]] for run, n in bench_launches.items()}
     for k in kernels:
         v = numbers[k["name"]]
         k["ms"], k["smooth_ms"], k["plain_ms"] = v["ms"], v["smooth_ms"], v["plain_ms"]

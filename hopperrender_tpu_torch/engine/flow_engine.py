@@ -188,15 +188,23 @@ class OpticalFlowEngine:
         scaler's low end, a handful of distinct shapes overall."""
         return next(b for b in RADIUS_BUCKETS if self.search_radius <= b)
 
+    def _run_pyramid(self, f1y, f1uv, f2y, f2uv, *, num_layers: int):
+        """The engine's flow for one pair at the current search radius: the one
+        definition that streaming (calculate_optical_flow) and bench_units()
+        share. Returns (blurred, delta_raw); records no time."""
+        _, blurred, delta_raw = flow_ops.pyramid_flow(
+            f1y, f1uv, f2y, f2uv, self.search_radius, self.delta_scalar,
+            self.neighbor_scalar, low_h=self.low_h, low_w=self.low_w,
+            res_scalar=self.res_scalar, is_hdr=self.is_hdr,
+            num_iterations=self.num_iterations, num_layers=num_layers)
+        return blurred, delta_raw
+
     def calculate_optical_flow(self) -> None:
         """Compute flow for the newest pair (slots 1, 2); swap the flow double
         buffer so warping uses the previous pair's flow
         (ref: opticalFlowCalcSDR.cpp:44-139)."""
-        _, blurred, delta_raw = flow_ops.pyramid_flow(
+        blurred, delta_raw = self._run_pyramid(
             self._frames_y[1], self._frames_uv[1], self._frames_y[2], self._frames_uv[2],
-            self.search_radius, self.delta_scalar, self.neighbor_scalar,
-            low_h=self.low_h, low_w=self.low_w, res_scalar=self.res_scalar,
-            is_hdr=self.is_hdr, num_iterations=self.num_iterations,
             num_layers=self._radius_bucket())
         self._blurred = [self._blurred[1], blurred]
         self._pending_delta_raw = delta_raw
@@ -219,20 +227,27 @@ class OpticalFlowEngine:
             return self.black_level * 256.0, self.white_level * 256.0
         return self.black_level, self.white_level
 
-    def _warp(self, scalars: list[float], mode: int):
-        """The warp of slots 0, 1 with the previous pair's flow, one output per
-        blending scalar: (T, H, W), (T, H/2, W), any mode (ops/warp_viz.py)."""
-        if any(s > 1.0 for s in scalars):
-            raise ValueError("Blending scalar is greater than 1.0")
+    def _run_warp(self, f0y, f0uv, f1y, f1uv, flow, ts: torch.Tensor, mode: int):
+        """The engine's warp of one source pair with `flow`, one output per
+        blending scalar of the (T,) float32 device vector ts: (T, H, W),
+        (T, H/2, W), any mode (ops/warp_viz.py). The one definition that
+        streaming (warp_frames, warp_frames_batch) and bench_units() share;
+        records no time."""
         mode = int(mode)
         if mode not in warp_ops.WARP_MODES:
             raise ValueError(f"output mode {mode} is not one of {warp_ops.WARP_MODES}")
         black, white = self._levels()
+        return warp_viz.warp_outputs(f0y, f0uv, f1y, f1uv, flow, ts, black, white, mode=mode,
+                                     res_scalar=self.res_scalar, is_hdr=self.is_hdr)
+
+    def _warp(self, scalars: list[float], mode: int):
+        """The warp of slots 0, 1 with the previous pair's flow, one output per
+        blending scalar."""
+        if any(s > 1.0 for s in scalars):
+            raise ValueError("Blending scalar is greater than 1.0")
         ts = torch.tensor(scalars, dtype=torch.float32, device=self.device)
-        return warp_viz.warp_outputs(
-            self._frames_y[0], self._frames_uv[0], self._frames_y[1], self._frames_uv[1],
-            self._blurred[0], ts, black, white, mode=mode, res_scalar=self.res_scalar,
-            is_hdr=self.is_hdr)
+        return self._run_warp(self._frames_y[0], self._frames_uv[0], self._frames_y[1],
+                              self._frames_uv[1], self._blurred[0], ts, mode)
 
     def warp_frames(self, blending_scalar: float, frame_output_mode: int):
         """One output: warp slots 0, 1 with the previous pair's flow
@@ -290,3 +305,48 @@ class OpticalFlowEngine:
         self.frame_count = int(state["frame_count"])
         self.search_radius = int(state["search_radius"])
         self._pending_delta_raw = None
+
+    def bench_units(self):
+        """Closures over the engine's own flow and warp (_run_pyramid,
+        _run_warp) at the current radius bucket, for hopperrender_tpu_torch/
+        bench.py: the bench times the served chain, not a second
+        implementation of it. Each returns an int64 device scalar in
+        [0, 2**32) and none waits for the device; the caller decides when to
+        synchronise.
+
+          flow_unit(y1, uv1, y2, uv2): (delta_raw + blurred[0, 0, 0]) mod 2**32
+            of the pair's flow (K1 on the card);
+          warp_unit(y1, uv1, y2, uv2, flow, t, mode=2): the sum of the first 8
+            samples of row 0 of the output's Y and UV planes, mod 2**32 (K2
+            in modes 0/1/2);
+          warp_batch_unit(y1, uv1, y2, uv2, flow, ts, mode=2): the same sum
+            over all T outputs of one call (one K2 launch for a (T,) ts);
+          wctx_unit(y, uv): 0. The JAX engine's unit builds the warp context
+            a TPU needs; the port builds none.
+
+        Returns (flow_unit, warp_unit, wctx_unit, warp_batch_unit), the order
+        of the JAX engine's bench_units."""
+        num_layers = self._radius_bucket()
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+
+        def as_ts(ts, shape) -> torch.Tensor:
+            return torch.as_tensor(ts, dtype=torch.float32, device=self.device).reshape(shape)
+
+        def head_sum(y: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+            return (warp_ops.to_int32(y[:, 0, :8]).sum()
+                    + warp_ops.to_int32(uv[:, 0, :8]).sum()) & 0xFFFFFFFF
+
+        def flow_unit(y1, uv1, y2, uv2):
+            blurred, delta_raw = self._run_pyramid(y1, uv1, y2, uv2, num_layers=num_layers)
+            return (delta_raw + blurred[0, 0, 0].to(torch.int64)) & 0xFFFFFFFF
+
+        def warp_unit(y1, uv1, y2, uv2, flow, t, mode=2):
+            return head_sum(*self._run_warp(y1, uv1, y2, uv2, flow, as_ts(t, 1), mode))
+
+        def warp_batch_unit(y1, uv1, y2, uv2, flow, ts, mode=2):
+            return head_sum(*self._run_warp(y1, uv1, y2, uv2, flow, as_ts(ts, -1), mode))
+
+        def wctx_unit(y, uv):
+            return zero
+
+        return flow_unit, warp_unit, wctx_unit, warp_batch_unit

@@ -630,3 +630,38 @@ def test_pipelined_server_on_the_card(dev):
         assert (got.start_time, got.interpolated) == (ref.start_time, ref.interpolated)
         np.testing.assert_array_equal(got.y, ref.y)
         np.testing.assert_array_equal(got.uv, ref.uv)
+
+
+@pytest.mark.parametrize("h,w,is_hdr", [(1080, 1920, False), (2160, 3840, True)],
+                         ids=["1080p-sdr", "4k-hdr"])
+def test_bench_units_on_the_card_match_the_cpu(dev, h, w, is_hdr):
+    """The bench's units (hopperrender_tpu_torch/bench.py) on panning frames at
+    radius 16: flow_unit, and warp_unit and warp_batch_unit in modes 0/1/2 with
+    the CPU's flow of the pair, equal on the card and the CPU; K1 and K2
+    launched on the card."""
+    from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
+    from hopperrender_tpu_torch.vio import nv12
+
+    rng = np.random.default_rng(6)
+    frames = [a for i in range(2) for a in nv12.synthetic_frame(
+        rng, h, w, is_hdr=is_hdr, motion_x=3 * i, coherent=True)]
+    units, flow = [], None
+    before = blur_kernel.blur_flow.launches, warp_kernel.warp_frames.launches
+    for where in (torch.device("cpu"), dev):
+        eng = OpticalFlowEngine(h, w, is_hdr=is_hdr, device=where, black_level=16,
+                                white_level=235)
+        eng.search_radius = 16
+        src = [torch.tensor(a, device=where) for a in frames]
+        if flow is None:
+            flow = eng._run_pyramid(*src, num_layers=16)[0]
+            assert flow.abs().max() > 0
+        flow_unit, warp_unit, _, warp_batch_unit = eng.bench_units()
+        got = {"flow": int(flow_unit(*src))}
+        for mode in (0, 1, 2):
+            got[f"warp {mode}"] = int(warp_unit(*src, flow.to(where), 0.4, mode=mode))
+            got[f"batch {mode}"] = int(warp_batch_unit(*src, flow.to(where), (0.2, 0.6, 1.0),
+                                                       mode=mode))
+        units.append(got)
+    assert units[1] == units[0]
+    assert blur_kernel.blur_flow.launches > before[0]
+    assert warp_kernel.warp_frames.launches == before[1] + 6

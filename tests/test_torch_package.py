@@ -48,7 +48,7 @@ def test_port_never_imports_jax():
     assert "hopperrender_tpu_torch.server.control" in mods
     assert "hopperrender_tpu_torch.probes.__main__" in mods
     assert {"hopperrender_tpu_torch.__main__", "hopperrender_tpu_torch.cli",
-            "hopperrender_tpu_torch.native"} <= set(mods)
+            "hopperrender_tpu_torch.native", "hopperrender_tpu_torch.bench"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

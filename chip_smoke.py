@@ -6,7 +6,7 @@
                                             # adds meshes of a rank per card (NCCL)
     python3 chip_smoke.py --bench-only      # phases 1, 2 and 10: the bench
     python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only:
-                                            # K1, K2, the band, P1-P4 and the L2 read
+                                            # K1, K2, the band, K3, K4, P1-P4 and the L2 read
                                             # rate, P1/P2 on the probe path on 1 and
                                             # 132 blocks, the split of a wrapper call's
                                             # host time into stages and the floor of a
@@ -19,6 +19,14 @@ sm_90a), then runs these phases, one line each:
   2. the build: nvcc's time and the library's path;
   3. K1 (flow blur) against its plain PyTorch version at the 4K flow grid
      (2, 270, 480) and at (2, 33, 65), exact;
+     3b. K3 (the cost volume's window sums) and K4 (the argmin and its
+     commit) against their plain versions, exact: 4K HDR and 1080p SDR on
+     the 270 x 480 grid, radius 5/8/12/16 at the engine's layers, every
+     (iteration, window) of the schedule, both steps, offsets random +-64
+     and near +-32767, scalars 8/6 and 10/10 (the uint32 sums wrap), K4
+     new and in place; K3's layer shards for sp = 2 and 4 at radius 12 and
+     16, stacked against the full K3; pyramid_flow on 4K HDR panning frames
+     at radius 16 and 5 against the plain run;
   4. K2 (batched warp) against its plain version at 4K HDR P010, on three
      flow grids: random +-64, smooth (K1 over random +-500) and mirror-edge
      (+-64 toward both edges in x and y), t = (0.4, 0.8) and (0.2, 0.6,
@@ -31,12 +39,13 @@ sm_90a), then runs these phases, one line each:
   5. the served slice: FrameServer at 3840x2160 HDR, 24 -> 60, mode 2, levels
      16/235, search radius 16, ten panning frames through the kernels; the
      output count against the cadence controller's, the kernels' launch
-     counters, every output against the same stream run with the plain
-     versions, and all five golden fixtures replayed byte for byte;
+     counters (K1-K4 must each have launched), every output against the
+     same stream run with the plain versions, and all five golden fixtures
+     replayed byte for byte;
      5b. served mode 3 (HSV flow) the same way: ten frames through K1 and
      K2's raw_blend variant;
-     5c. served modes 4, 5 and 6, six frames each (mode 4 runs K1 only,
-     modes 5/6 K1 and K2);
+     5c. served modes 4, 5 and 6, six frames each (mode 4 runs K1, K3 and
+     K4 only, modes 5/6 K2 too);
   6. the numbers: served wall time per source frame (host clock around
      push_frame), flow time per source frame, warp time per output, copy
      time, peak memory, and a torch.profiler pass over three more served
@@ -49,7 +58,12 @@ sm_90a), then runs these phases, one line each:
      host clock over back-to-back calls before a synchronise), the plain
      versions (CUDA events), and the floor of an empty launch; beside them,
      what holds K2: mode 0 T = 3 and mode 2 T = 1, zero and pan flow, and a
-     copy of K2's bytes (the card's reachable rate);
+     copy of K2's bytes (the card's reachable rate); the flow a source
+     frame at radius 16 and 5 (in turns on one server), K3's and K4's
+     launches a source frame, and K3 and K4 on one 4K HDR flow's 16 steps
+     at radius 16 and 5, graph-timed, with their plain versions, host us a
+     call and bound (the largest of HBM bytes, L2 bytes over this run's L2
+     read rate and int32 operations);
   7. the parallel path:
      7a. K2's mesh-sharded variant (warp_frames_band) against its plain
      version for every shard, and the shards stacked against the full K2:
@@ -62,13 +76,15 @@ sm_90a), then runs these phases, one line each:
      7b. batched_step on two 4K HDR streams (panning 3 px/frame, radius 16,
      three steps): outputs, flow and delta against the single-stream path
      (pyramid_flow + K2), and against the same run on the plain versions;
+     K1-K4 must each have launched;
      7c. make_multichip_step through launch.run_ranks at 4K HDR, rs 3, modes
      2-6, t_batch 3, on meshes (1, 2) and (2, 1) of ranks sharing this card
      over gloo (and (1, 4), (2, 2) over NCCL where four cards are visible):
      each rank writes its outputs to an .npz, held byte for byte to 7b's
      single-device results (modes 3-6: warp_viz.warp_outputs on the full
      frame); every rank must have launched the band kernel in modes 2, 5
-     and 6, its raw_blend variant in mode 3, and neither in mode 4, and no
+     and 6, its raw_blend variant in mode 3, and neither in mode 4, K3 and
+     K4 in every mode, and no
      rank may load a module of jax or of the JAX package. Its numbers: each
      rank's second step in each mode (CUDA events in the ranks);
   8. the probes P1-P4 (hopperrender_tpu_torch/probes/):
@@ -99,24 +115,27 @@ sm_90a), then runs these phases, one line each:
      --status-port 0 --stats`, two processes at once, on 12 panning 1080p
      SDR frames, mode 2, 24 -> 60, the scaler off: both Y4M outputs byte-equal
      to each other and to the stream through FrameServers in this process on
-     the kernels and on the plain versions; each CLI process's K1 and K2
-     counters (set to 0 before, printed at exit) and the native ring loaded;
+     the kernels and on the plain versions; each CLI process's K1-K4
+     counters (set to 0 before, printed at exit; each must have moved) and
+     the native ring loaded;
      9b. the four pinned-digest streams of tests/fixtures/digests.json;
      9c. PipelinedServer with the StatusServer, 4K HDR P010 24 -> 60, mode
      2, levels 16/235, the quality scaler on, 40 panning frames, /metrics
      and /healthz polled throughout: the radius per source frame, the
-     ACTIVE/TOO_SLOW edges, the median flow and push_frame times and the
-     output fps, printed; it fails if the scaler's recorded calls differ
-     from their replay on a fresh AutoQualityScaler, a radius leaves [5,
+     ACTIVE/TOO_SLOW edges (whether TooSlow trips and recovers), the median
+     flow and push_frame times and the output fps, printed; it fails if the
+     scaler's recorded calls differ from their replay on a fresh
+     AutoQualityScaler, a kernel of the path never launched, a radius leaves [5,
      16], an output made while TOO_SLOW is not the copy of its source
      frame, the engine thread raised, or /healthz answered other than 200;
  10. the bench (hopperrender_tpu_torch/bench.py, the port of the JAX
      package's bench.py):
      10a. bench.main in this process, stdout captured, for `--config 4k-hdr
-     --json-only` (radius auto) and `--config 4k-hdr --target-fps 120
-     --radius 16`: the last line's metric, a radius bucket, a positive value
-     and vs_baseline = 41.667 / value, not partial, not bench_failed, and K1
-     and K2 launched in each run;
+     --json-only` (radius auto), `--config 4k-hdr --target-fps 120
+     --radius 16`, and `--config 4k-hdr --radius 16` and `--radius 5` in
+     turns (16, 5, 5, 16): the last line's metric, a radius bucket, a
+     positive value and vs_baseline = 41.667 / value, not partial, not
+     bench_failed, and K1-K4 launched in each run;
      10b. the bench units (flow_unit at radius 16, warp_unit and
      warp_batch_unit in modes 0/1/2) on 4K HDR panning frames on the card
      against the same calls on a CPU engine, exactly;
@@ -131,9 +150,12 @@ ranks of 7c and the CLI's processes of 9a start at 0). Then one JSON line of
 the kernels
 (with each one's bound: the least time the card could take for its work;
 `ms` the graph-timed time on random flow, `smooth_ms` on smooth flow for
-K1, K2, raw_blend and the band, and their `host_us`; K1's and K2's
+K1, K2, raw_blend and the band, and their `host_us`; K1's to K4's
 `cli_launches` in 9a's two CLI processes and `bench_launches` in 10a's
-runs; the band's `launches` over
+runs; K3's and K4's ms, plain_ms, host_us and bound a call over one 4K
+HDR flow at radius 16 (`r5` at radius 5), `launches_per_source_frame`,
+`batched_launches` (7b) and `mesh_launches` (7c's ranks); the band's
+`launches` over
 7c's modes 2, 5 and 6, and `launches_by_mode` (mode 3: its raw_blend
 variant's); for the probes `ms`
 summed over the variants, graph-timed, P1/P2's bound beside the bound
@@ -149,6 +171,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
+import importlib.util
 import io
 import json
 import os
@@ -249,6 +273,7 @@ def import_port() -> types.SimpleNamespace:
     """Everything the run uses, imported from hopperrender_tpu_torch only."""
     from hopperrender_tpu_torch import _build, bench, config, entry
     from hopperrender_tpu_torch.config import Settings
+    from hopperrender_tpu_torch.engine import flow_engine
     from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
     from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel, warp_viz
     from hopperrender_tpu_torch.ops import flow as flow_ops
@@ -265,8 +290,13 @@ def import_port() -> types.SimpleNamespace:
     from hopperrender_tpu_torch.server.pipeline import PipelinedServer
     from hopperrender_tpu_torch.server.status_http import StatusServer
     from hopperrender_tpu_torch.vio import nv12, video
+    # K3 and K4; None in a tree from before them (--kernel-times copied there).
+    cv_name = "hopperrender_tpu_torch.ops.cost_volume_kernel"
+    cost_volume_kernel = (importlib.import_module(cv_name) if importlib.util.find_spec(cv_name)
+                          else None)
     return types.SimpleNamespace(
         _build=_build, blur_kernel=blur_kernel, warp_kernel=warp_kernel, warp_viz=warp_viz,
+        cost_volume_kernel=cost_volume_kernel, flow_engine=flow_engine,
         warp_ops=warp_ops, CadenceController=CadenceController, FrameServer=FrameServer,
         Settings=Settings, config=config, nv12=nv12, entry=entry, flow_ops=flow_ops,
         launch=launch, batched_step=batched_step, probe_path=probe_path,
@@ -279,19 +309,22 @@ def import_port() -> types.SimpleNamespace:
 
 @contextlib.contextmanager
 def plain_versions(port):
-    """Points the K1 and K2 wrappers' module attributes (K2's mesh-sharded
-    variant too) at their plain versions while the block runs; their callers
-    (ops/flow.blur_flow, ops/warp_viz.warp_outputs, parallel/mesh.py) look
-    them up at call time."""
-    wk = port.warp_kernel
-    kernels = port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band
+    """Points the K1, K2, K3 and K4 wrappers' module attributes (K2's
+    mesh-sharded variant too) at their plain versions while the block runs;
+    their callers (ops/flow.py, ops/warp_viz.warp_outputs, parallel/mesh.py)
+    look them up at call time."""
+    wk, cv = port.warp_kernel, port.cost_volume_kernel
+    kernels = (port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band, cv.delta_sums,
+               cv.commit_winners)
     port.blur_kernel.blur_flow = port.blur_kernel.blur_flow_reference
     wk.warp_frames = wk.warp_frames_reference  # raw_blend too
     wk.warp_frames_band = wk.warp_frames_band_reference
+    cv.delta_sums, cv.commit_winners = cv.delta_sums_reference, cv.commit_winners_reference
     try:
         yield
     finally:
-        port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band = kernels
+        (port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band, cv.delta_sums,
+         cv.commit_winners) = kernels
 
 
 def device_profile(prof, wall_s: float) -> tuple[float, int, dict[str, float]]:
@@ -311,6 +344,8 @@ def device_profile(prof, wall_s: float) -> tuple[float, int, dict[str, float]]:
         name = e.name
         kind = ("K1 blur_flow" if "blur_flow_kernel" in name else
                 "K2 warp" if "warp_plane_kernel" in name else
+                "K3 delta_sums" if "delta_sums_kernel" in name or "fill_sums_kernel" in name else
+                "K4 commit_winners" if "commit_winners_kernel" in name else
                 "memcpy DtoH" if "DtoH" in name else
                 "memcpy HtoD" if "HtoD" in name else
                 "gather (index)" if "index" in name.lower() else "other")
@@ -763,13 +798,36 @@ def bound(name: str, bytes_moved: int, n_elements: int) -> tuple[float, str]:
                     OPS_RATE.get(name, OPS_PER_S))
 
 
-def reset_launches(k1, k2, k2_band) -> None:
-    k1.launches = k2.launches = k2.raw_launches = k2_band.launches = 0
+def launch_counters(port) -> dict:
+    """Each kernel's name in the `kernels` line -> (its wrapper, the wrapper's
+    counter attribute)."""
+    wk, cv = port.warp_kernel, port.cost_volume_kernel
+    return {"blur_flow": (port.blur_kernel.blur_flow, "launches"),
+            "warp_frames": (wk.warp_frames, "launches"),
+            "warp_frames_raw_blend": (wk.warp_frames, "raw_launches"),
+            "warp_frames_band": (wk.warp_frames_band, "launches"),
+            "delta_sums": (cv.delta_sums, "launches"),
+            "commit_winners": (cv.commit_winners, "launches")}
 
 
-def read_launches(k1, k2, k2_band) -> dict[str, int]:
-    return {"blur_flow": k1.launches, "warp_frames": k2.launches,
-            "warp_frames_raw_blend": k2.raw_launches, "warp_frames_band": k2_band.launches}
+def reset_launches(port) -> None:
+    for fn, attr in launch_counters(port).values():
+        setattr(fn, attr, 0)
+
+
+def read_launches(port) -> dict[str, int]:
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters(port).items()}
+
+
+FLOW_KERNELS = ("delta_sums", "commit_winners", "blur_flow")   # every path that computes flow
+
+
+def require_launched(launches: dict, names, what: str) -> None:
+    """Raise unless every kernel of `names` launched (its count is above 0)."""
+    missing = [name for name in names if not launches.get(name)]
+    if missing:
+        raise AssertionError(f"{what}: kernels of the path never launched: {missing} "
+                             f"({launches})")
 
 
 def cadence_count(port, n_frames: int) -> int:
@@ -812,14 +870,295 @@ def band_bound(src, flow, ts, num_shards: int, shard: int) -> tuple[float, str]:
     return bound("warp_frames_band", moved, n_t * rows_out * w)
 
 
+# K3's and K4's least work, in integer operations (a load counts as one). K3,
+# per candidate (a layer below the radius, of a cell of the grid): its offset
+# and the offset's int16 wrap (2), the mirror and clamp (5), the U and V
+# columns (4), three loads, three differences and their absolutes (9), the
+# delta's shift and two adds (3), |offset| and its add (2), and its add to
+# the window's sum (1): 26, and 3 more in HDR (the samples' shifts); from
+# FIRST_NEIGHBOR_ITERATION on 13 more (four differences, four absolutes,
+# three adds, the shift and the add). Per cell, once: frame 2's three loads
+# and their shifts, the other axis's mirror and UV index, the offsets' two
+# loads and the neighbours' four: 16. K4, per cell: a compare for each layer
+# scanned, then the winner's square, the add, the wrap, a load and a store.
+K3_CANDIDATE_OPS, K3_HDR_OPS, K3_NEIGHBOR_OPS, K3_CELL_OPS = 26, 3, 13, 16
+K4_CELL_OPS = 5
+K3_TILE = (8, 32)   # K3's block: 8 rows of 32 cells (csrc/cost_volume.cu)
+
+
+def radius_layers(port, radius: int) -> int:
+    """K3's num_layers at this radius: the engine's radius bucket."""
+    return next(b for b in port.flow_engine.RADIUS_BUCKETS if radius <= b)
+
+
+def cost_volume_frames(rng, h: int, w: int, is_hdr: bool, dev) -> list[torch.Tensor]:
+    """Two random frames (f1y, f1uv, f2y, f2uv): P010 (10-bit samples) or NV12."""
+    if is_hdr:
+        return [torch.tensor(rng.integers(0, 1024, shape, dtype=np.uint16) << 6, device=dev)
+                for shape in ((h, w), (h // 2, w)) * 2]
+    return [torch.tensor(rng.integers(0, 256, shape, dtype=np.uint8), device=dev)
+            for shape in ((h, w), (h // 2, w)) * 2]
+
+
+# Phase 3b's geometries: name -> (height, width, is_hdr); both on the 270 x
+# 480 flow grid (rs 3 and rs 2).
+CV_GEOMETRIES = {"4K HDR": (H, W, True), "1080p SDR": (1080, 1920, False)}
+CV_RADII = (5, 8, 12, 16)
+
+
+def cost_volume_inputs(port, dev, geometry: str):
+    """Phase 3b's inputs at one geometry, from a seed: (res_scalar, frames,
+    offsets by kind: random in +-64 and near +-32767)."""
+    h, w, is_hdr = CV_GEOMETRIES[geometry]
+    rs, low_h, low_w = port.config.calc_flow_dims(h, w, port.config.MAX_CALC_RES)
+    rng = np.random.default_rng(11 + list(CV_GEOMETRIES).index(geometry))
+    frames = cost_volume_frames(rng, h, w, is_hdr, dev)
+    near = np.array([-32768, -32767, -32760, -32700, 32700, 32760, 32766, 32767])
+    offsets = {"random +-64": rng.integers(-64, 65, (2, low_h, low_w)),
+               "near +-32767": rng.choice(near, (2, low_h, low_w))}
+    return rs, frames, {k: torch.tensor(v.astype(np.int16), device=dev)
+                        for k, v in offsets.items()}
+
+
+def cost_volume_parity(port, dev, geometry: str, radius: int) -> tuple[int, int, int]:
+    """K3 and K4 against their plain versions, exactly, at one geometry and
+    radius: K3 at the engine's bucket of layers, every (iteration, window) of
+    the schedule, both steps, both kinds of offsets, scalars 8/6 and 10/10
+    (the uint32 sums wrap); K4 on K3's sums, returning new offsets and in
+    place. Returns (K3 calls, K4 calls, the largest |err|)."""
+    cv = port.cost_volume_kernel
+    _, _, is_hdr = CV_GEOMETRIES[geometry]
+    rs, frames, offsets = cost_volume_inputs(port, dev, geometry)
+    err, n_k3, n_k4 = 0, 0, 0
+    for iteration, window in port.flow_ops.window_schedule(*offsets["random +-64"].shape[1:]):
+        for step in (0, 1):
+            kw = dict(window_size=window, res_scalar=rs, iteration=iteration, step=step,
+                      is_hdr=is_hdr, num_layers=radius_layers(port, radius))
+            cw = dict(window_size=window, step=step)
+            for off_name, off in offsets.items():
+                for scalars in ((8, 6), (10, 10)):
+                    what = (f"{geometry} r{radius} it{iteration} w{window} step {step} "
+                            f"{off_name} scalars {scalars}")
+                    got = cv.delta_sums(*frames, off, radius, *scalars, **kw)
+                    want = cv.delta_sums_reference(*frames, off, radius, *scalars, **kw)
+                    err = max(err, require_equal(got, want, f"K3 {what}"))
+                    new = cv.commit_winners(off, got, radius, **cw)
+                    err = max(err, require_equal(
+                        new, cv.commit_winners_reference(off, want, radius, **cw), f"K4 {what}"))
+                    inplace = off.clone()
+                    cv.commit_winners(inplace, got, radius, **cw, out=inplace)
+                    err = max(err, require_equal(inplace, new, f"K4 in place {what}"))
+                    n_k3, n_k4 = n_k3 + 1, n_k4 + 2
+    return n_k3, n_k4, err
+
+
+def cost_volume_shards(port, dev, geometry: str, radius: int) -> tuple[int, int]:
+    """K3 on the layer shards of sp = 2 and 4 (num_layers 16 / sp, each
+    shard's layer_offset) at one geometry and radius, random offsets, every
+    (iteration, window) and step: each shard against its plain version, the
+    shards stacked against the full K3. Returns (shard calls, max |err|)."""
+    cv = port.cost_volume_kernel
+    _, _, is_hdr = CV_GEOMETRIES[geometry]
+    rs, frames, offsets = cost_volume_inputs(port, dev, geometry)
+    off = offsets["random +-64"]
+    err, n = 0, 0
+    for iteration, window in port.flow_ops.window_schedule(*off.shape[1:]):
+        for step in (0, 1):
+            kw = dict(window_size=window, res_scalar=rs, iteration=iteration, step=step,
+                      is_hdr=is_hdr)
+            full = cv.delta_sums(*frames, off, radius, 8, 6, **kw)
+            for sp in (2, 4):
+                layers = port.config.MAX_SEARCH_RADIUS // sp
+                parts = []
+                for shard in range(sp):
+                    sh = dict(kw, num_layers=layers, layer_offset=shard * layers)
+                    parts.append(cv.delta_sums(*frames, off, radius, 8, 6, **sh))
+                    err = max(err, require_equal(
+                        parts[-1], cv.delta_sums_reference(*frames, off, radius, 8, 6, **sh),
+                        f"K3 {geometry} r{radius} it{iteration} step {step} sp {sp} "
+                        f"shard {shard}"))
+                    n += 1
+                err = max(err, require_equal(torch.cat(parts), full,
+                                             f"K3 {geometry} r{radius} sp {sp} stacked"))
+    return n, err
+
+
+def pyramid_parity(port, dev, radius: int) -> tuple[int, int]:
+    """pyramid_flow on two 4K HDR panning frames at this radius (the
+    engine's layers) against the same call on the plain versions: offsets,
+    blurred flow and total_delta_raw, exactly. Returns (total_delta_raw,
+    max |err|)."""
+    flow_ops = port.flow_ops
+    pair = [torch.tensor(np.ascontiguousarray(a), device=dev)
+            for f in panning_frames(port, H, W, 2, is_hdr=True) for a in f]
+    kw = dict(low_h=LOW[1], low_w=LOW[2], res_scalar=3, is_hdr=True,
+              num_layers=radius_layers(port, radius))
+    got = flow_ops.pyramid_flow(*pair, radius, 8, 6, **kw)
+    with plain_versions(port):
+        want = flow_ops.pyramid_flow(*pair, radius, 8, 6, **kw)
+    err = max(require_equal(g, w_, f"pyramid_flow r{radius} {what}")
+              for g, w_, what in zip(got, want, ("offsets", "blurred flow", "total_delta_raw")))
+    if not int(got[0].abs().max()):
+        raise AssertionError(f"pyramid_flow r{radius}: no motion found on a pan")
+    return int(got[2]), err
+
+
+def cost_volume_phase(port, dev) -> int:
+    """Phase 3b: cost_volume_parity at both geometries and every radius of
+    CV_RADII, cost_volume_shards at both geometries and radius 12 and 16, and
+    pyramid_parity at radius 16 and 5. Returns the largest |err| (0)."""
+    err, n_k3, n_k4, n_shards = 0, 0, 0, 0
+    for geometry in CV_GEOMETRIES:
+        for radius in CV_RADII:
+            k3, k4, e = cost_volume_parity(port, dev, geometry, radius)
+            n_k3, n_k4, err = n_k3 + k3, n_k4 + k4, max(err, e)
+        for radius in (12, 16):
+            n, e = cost_volume_shards(port, dev, geometry, radius)
+            n_shards, err = n_shards + n, max(err, e)
+    torch.cuda.synchronize()
+    deltas = {}
+    for radius in (16, 5):
+        deltas[radius], e = pyramid_parity(port, dev, radius)
+        err = max(err, e)
+    log(f"phase 3b K3 delta_sums / K4 commit_winners: {n_k3} K3 and {n_k4} K4 calls (4K HDR "
+        f"rs 3 and 1080p SDR rs 2 on the {LOW[1]}x{LOW[2]} grid; radius 5/8/12/16 at the "
+        f"engine's layers; every (iteration, window) of the schedule, both steps; offsets "
+        f"random +-64 and near +-32767; scalars 8/6 and 10/10; K4 new and in place) and "
+        f"{n_shards} K3 layer shards (sp 2 and 4, radius 12 and 16, stacked equal to the full "
+        f"K3) equal to the plain versions; pyramid_flow on 4K HDR panning frames at radius 16 "
+        f"and 5 equal to the plain run (offsets, blurred flow, total_delta_raw {deltas}); "
+        f"max |err| {err}")
+    return err
+
+
+def cost_volume_work(port, frames, offsets, radius: int, *, window: int, iteration: int,
+                     step: int, res_scalar: int, is_hdr: bool, num_layers: int):
+    """(HBM bytes, L2 bytes, operations) of one K3 call on these inputs: the
+    distinct 32-byte sectors of each plane its candidates read (frame 1 for
+    the layers below the radius of cells inside the frame, frame 2 once a
+    cell), the offsets once and the sums written once; the L2 bytes are the
+    distinct sectors each of its 8 x 32-cell blocks reads (blocks share no
+    L1), summed; the operations of K3_*_OPS. From the plain version's own
+    sample indices (cost_volume_kernel.candidate_reads)."""
+    cv = port.cost_volume_kernel
+    f1y, f1uv = frames[:2]
+    low_h, low_w = offsets.shape[1:]
+    active = max(0, min(num_layers, radius))
+    c = cv.candidate_reads(f1y, f1uv, offsets, radius, res_scalar=res_scalar, step=step,
+                           num_layers=active)
+    item = f1y.element_size()
+    tile = ((torch.arange(low_h, device=offsets.device)[:, None] // K3_TILE[0])
+            * -(-low_w // K3_TILE[1])
+            + torch.arange(low_w, device=offsets.device)[None, :] // K3_TILE[1])
+    in_frame = c.in_frame[0]
+    keys, tile_keys = [], []
+    for plane, idx, mask in ((0, c.y, in_frame), (1, c.u, in_frame), (1, c.v, in_frame),
+                             (2, c.y2, None), (3, c.u2, None), (3, c.v2, None)):
+        idx = idx.expand(-1, low_h, low_w) if idx.dim() == 3 else idx[None]
+        sel = (torch.ones_like(in_frame) if mask is None else mask).expand_as(idx)
+        sector = (idx[sel] * item) >> 5
+        key = (plane << 30) + sector
+        keys.append(key)
+        tile_keys.append((tile.expand_as(idx)[sel] << 32) + key)
+    hbm = 32 * int(torch.cat(keys).unique().numel()) + nbytes(offsets)
+    hbm += 4 * num_layers * -(-low_h // window) * -(-low_w // window)
+    l2 = 32 * int(torch.cat(tile_keys).unique().numel())
+    per_candidate = K3_CANDIDATE_OPS + K3_HDR_OPS * is_hdr + K3_NEIGHBOR_OPS * (
+        iteration >= port.config.FIRST_NEIGHBOR_ITERATION)
+    cells = low_h * low_w
+    return hbm, l2, active * cells * per_candidate + cells * K3_CELL_OPS
+
+
+def cost_volume_numbers(port, dev, l2_rate: float) -> dict:
+    """K3 and K4 on the 16 steps of one 4K HDR flow (panning frames, the
+    offsets each step of the kernels' own pyramid saw) at radius 16 and 5:
+    graph-timed device ms a call (the 16 calls of a flow captured in one CUDA
+    graph, the mean), the plain versions' ms a call (CUDA events), host us a
+    wrapper call, and the bound a call (the mean of each call's largest of
+    its HBM bytes over the memory rate, its L2 bytes over l2_rate and its
+    operations over the int32 rate)."""
+    cv = port.cost_volume_kernel
+    pan = panning_frames(port, H, W, 2, is_hdr=True)
+    frames = [torch.tensor(np.ascontiguousarray(a), device=dev) for f in pan for a in f]
+    low_h, low_w = LOW[1:]
+    out = {}
+    for radius in (16, 5):
+        layers = radius_layers(port, radius)
+        steps, offsets = [], torch.zeros(LOW, dtype=torch.int16, device=dev)
+        for iteration, window in port.flow_ops.window_schedule(low_h, low_w):
+            for step in (0, 1):
+                kw = dict(window_size=window, res_scalar=3, iteration=iteration, step=step,
+                          is_hdr=True, num_layers=layers)
+                before = offsets.clone()
+                sums = cv.delta_sums(*frames, before, radius, 8, 6, **kw)
+                cv.commit_winners(offsets, sums, radius, window_size=window, step=step,
+                                  out=offsets)
+                steps.append((before, kw, sums, offsets.clone()))
+        n = len(steps)
+        k4_bufs = [before.clone() for before, *_ in steps]
+
+        def k3_flow(fn=cv.delta_sums):
+            for before, kw, _, _ in steps:
+                fn(*frames, before, radius, 8, 6, **kw)
+
+        def k4_flow(fn=cv.commit_winners):
+            for (_, kw, sums, _), buf in zip(steps, k4_bufs):
+                fn(buf, sums, radius, window_size=kw["window_size"], step=kw["step"], out=buf)
+
+        k3_ms = graph_ms(k3_flow, 5) / n
+        k4_ms = graph_ms(k4_flow, 5) / n
+        for before, kw, sums, _ in steps:   # the atomics' order does not change the sums
+            if not torch.equal(cv.delta_sums(*frames, before, radius, 8, 6, **kw), sums):
+                raise AssertionError(f"K3 r{radius}: a call differs from its first")
+        plain3 = (time_ms(lambda: k3_flow(cv.delta_sums_reference), 1)
+                  + time_ms(lambda: k3_flow(cv.delta_sums_reference), 1)) / (2 * n)
+        plain4 = (time_ms(lambda: k4_flow(cv.commit_winners_reference), 1)
+                  + time_ms(lambda: k4_flow(cv.commit_winners_reference), 1)) / (2 * n)
+        before, kw, sums, _ = steps[0]
+        host3 = host_us(lambda: cv.delta_sums(*frames, before, radius, 8, 6, **kw), 200)
+        host4 = host_us(lambda: cv.commit_winners(k4_bufs[0], sums, radius,
+                                                  window_size=kw["window_size"], step=0,
+                                                  out=k4_bufs[0]), 200)
+        bound3, bound4, by3, by4 = 0.0, 0.0, {}, {}
+        for before, kw, sums, _ in steps:
+            hbm, l2, ops = cost_volume_work(
+                port, frames, before, radius, window=kw["window_size"],
+                iteration=kw["iteration"], step=kw["step"], res_scalar=3, is_hdr=True,
+                num_layers=layers)
+            ms_, b = probe_bound(hbm, l2, ops, l2_rate)
+            bound3 += ms_ / n
+            by3[b] = by3.get(b, 0) + 1
+            scan = min(radius, layers)
+            moved4 = 2 * 2 * low_h * low_w + 4 * scan * sums[0].numel()
+            ms_, b = roofline(moved4, low_h * low_w * (scan + K4_CELL_OPS), INT32_OPS_PER_S)
+            bound4 += ms_ / n
+            by4[b] = by4.get(b, 0) + 1
+        out[radius] = {"delta_sums": {"ms": k3_ms, "plain_ms": plain3, "host_us": host3,
+                                      "bound_ms": bound3, "bound_by": max(by3, key=by3.get)},
+                       "commit_winners": {"ms": k4_ms, "plain_ms": plain4, "host_us": host4,
+                                          "bound_ms": bound4, "bound_by": max(by4, key=by4.get)},
+                       "calls_per_flow": n}
+    return out
+
+
+def format_cost_volume(numbers: dict) -> str:
+    return "; ".join(
+        f"r{r}: " + ", ".join(f"{k} {v['ms']:.5f} ms a call ({v['ms'] * d['calls_per_flow']:.4f} "
+                              f"a flow), bound {v['bound_ms']:.5f} ({v['bound_by']}), host "
+                              f"{v['host_us']:.1f} us/call, plain {v['plain_ms']:.4f} ms"
+                              for k, v in d.items() if k != "calls_per_flow")
+        for r, d in numbers.items())
+
+
+
 def parallel_path(port, dev, card: str) -> dict:
     """Phase 7: K2's mesh-sharded variant against its plain version and the
     full K2 (7a), batched_step on two 4K HDR streams against the
     single-stream path (7b), and make_multichip_step on ranks of one card
     against 7b's results (7c). Returns the band kernel's entry of the
-    `kernels` line."""
+    `kernels` line, and K3's and K4's launches in 7b and over 7c's ranks."""
     wk, entry, launch = port.warp_kernel, port.entry, port.launch
-    k1, k2, k2_band = port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band
+    k2, k2_band = wk.warp_frames, wk.warp_frames_band
 
     # -- 7a. the kernel: every shard against its plain version, the shards
     # stacked against the full K2, at 4K HDR P010 with flow +-64 (n = 2, 4,
@@ -913,12 +1252,11 @@ def parallel_path(port, dev, card: str) -> dict:
             outs.append(out)
         return outs
 
-    reset_launches(k1, k2, k2_band)
+    reset_launches(port)
     batched = run_batched()
     torch.cuda.synchronize()
-    batched_launches = read_launches(k1, k2, k2_band)
-    if min(batched_launches["blur_flow"], batched_launches["warp_frames"]) == 0:
-        raise AssertionError(f"batched_step: a kernel never launched: {batched_launches}")
+    batched_launches = read_launches(port)
+    require_launched(batched_launches, FLOW_KERNELS + ("warp_frames",), "7b batched_step")
     # The single-stream path, with all three t of t3 (7c's t_batch).
     single = []   # single[b][i] = (y (3, H, W), uv, blurred, delta_raw)
     for b in range(2):
@@ -973,6 +1311,7 @@ def parallel_path(port, dev, card: str) -> dict:
                      delta_scalar=scal[1], neighbor_scalar=scal[2], black=black, white=white)
                 for mode in mesh_modes]
         mesh_launches, mesh_raw_launches, mode_launches, mesh_lines = 0, 0, {}, []
+        flow_launches = {"delta_sums": 0, "commit_winners": 0}
         for dp, sp in meshes:
             for job in jobs:
                 job["out_path"] = os.path.join(tmp, f"mesh{dp}x{sp}.mode{job['mode']}."
@@ -989,12 +1328,16 @@ def parallel_path(port, dev, card: str) -> dict:
                         # and its raw_blend variant (mode 3); mode 4 none.
                         band_n, raw_n = int(z["band_launches"]), int(z["band_raw_launches"])
                         need = {3: raw_n}.get(mode, band_n)
+                        # K3 and K4: the flow, in every mode.
+                        flow_n = {k: int(z[f"{k}_launches"]) for k in flow_launches}
                         if (mode == 4 and band_n + raw_n) or (mode != 4 and need == 0) \
-                                or z["foreign_modules"].size:
+                                or min(flow_n.values()) == 0 or z["foreign_modules"].size:
                             raise AssertionError(
                                 f"mesh {dp}x{sp} rank {rank} mode {mode}: band launches "
-                                f"{band_n}, raw_blend {raw_n}, jax modules "
+                                f"{band_n}, raw_blend {raw_n}, flow {flow_n}, jax modules "
                                 f"{list(z['foreign_modules'])}")
+                        for k, n in flow_n.items():
+                            flow_launches[k] += n
                         mesh_launches += band_n
                         mesh_raw_launches += raw_n
                         mode_launches[mode] = mode_launches.get(mode, 0) + band_n + raw_n
@@ -1026,7 +1369,8 @@ def parallel_path(port, dev, card: str) -> dict:
         f"steps on meshes {meshes}: every rank's outputs, flow and delta equal to the "
         f"single-device results (7b; warp_outputs in modes 3-6) byte for byte; K2 band "
         f"launched {mesh_launches} times over the ranks (modes 2, 5, 6), its raw_blend variant "
-        f"{mesh_raw_launches} times (mode 3); launches by mode {mode_launches}; "
+        f"{mesh_raw_launches} times (mode 3); launches by mode {mode_launches}; K3 and K4 "
+        f"launched by every rank in every mode, {flow_launches} in all; "
         + "; ".join(mesh_lines))
     log(f"phase 7 numbers [{card}]: K2 band (n 2, shard 0, mode 2, T = 3, {W}x{H} HDR) "
         f"graph-timed {band['ms']:.5f} ms (random +-64 flow), {band['smooth_ms']:.5f} ms "
@@ -1040,7 +1384,9 @@ def parallel_path(port, dev, card: str) -> dict:
             "max_abs_err": band_err, "ms": band["ms"],
             "smooth_ms": band["smooth_ms"], "host_us": band["host_us"],
             "plain_ms": band["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None}, {
+                "batched": {k: batched_launches[k] for k in flow_launches},
+                "mesh": flow_launches}
 
 
 def u32_err(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
@@ -1372,18 +1718,21 @@ def probe_phase(port, dev, card: str) -> list[dict]:
 
 # -- 9. the serving surface ------------------------------------------------------
 
-# `python -m hopperrender_tpu_torch ARGS`, with the launch counters of K1 and
-# K2 set to 0 before it and printed to stderr (one line, "launches {...}")
+# `python -m hopperrender_tpu_torch ARGS`, with the launch counters of K1-K4
+# set to 0 before it and printed to stderr (one line, "launches {...}")
 # after it, however it ends.
 CLI_WITH_COUNTERS = """
 import json, runpy, sys
-from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel
+from hopperrender_tpu_torch.ops import blur_kernel, cost_volume_kernel, warp_kernel
 k1, k2 = blur_kernel.blur_flow, warp_kernel.warp_frames
-k1.launches = k2.launches = k2.raw_launches = 0
+k3, k4 = cost_volume_kernel.delta_sums, cost_volume_kernel.commit_winners
+k1.launches = k2.launches = k2.raw_launches = k3.launches = k4.launches = 0
 try:
     runpy.run_module("hopperrender_tpu_torch", run_name="__main__", alter_sys=True)
 finally:
-    print("launches " + json.dumps({"blur_flow": k1.launches, "warp_frames": k2.launches}),
+    print("launches " + json.dumps({"blur_flow": k1.launches, "warp_frames": k2.launches,
+                                    "delta_sums": k3.launches,
+                                    "commit_winners": k4.launches}),
           file=sys.stderr, flush=True)
 """
 CLI_H, CLI_W, CLI_FRAMES = 1080, 1920, 12   # 9a: the CLI's SDR stream
@@ -1415,9 +1764,7 @@ def cli_phase(port, dev, tmp: str) -> dict:
     interpolate` and `serve --status-port 0 --stats` (two processes at once),
     mode 2, 24 -> 60, the scaler off; both outputs byte-equal to each other and
     to the stream through two FrameServers in this process, on the kernels and
-    on the plain versions; each run's K1 and K2 launch counters."""
-    k1, k2, k2_band = port.blur_kernel.blur_flow, port.warp_kernel.warp_frames, \
-        port.warp_kernel.warp_frames_band
+    on the plain versions; each run's K1-K4 launch counters."""
     if not port.native.is_native():
         raise AssertionError("the native frame ring did not build or load (NumPy fallback)")
     h, w, n = CLI_H, CLI_W, CLI_FRAMES
@@ -1458,19 +1805,18 @@ def cli_phase(port, dev, tmp: str) -> dict:
     st = port.Settings(target_fps=60.0, use_display_fps=False, frame_output=2,
                        auto_quality=False)
     new_server = lambda: port.FrameServer(w, h, source_fps=24.0, device=dev, settings=st)
-    reset_launches(k1, k2, k2_band)
+    reset_launches(port)
     serve_to_y4m(port, new_server(), frames, os.path.join(tmp, "kernels.y4m"))
     torch.cuda.synchronize()
-    launches = read_launches(k1, k2, k2_band)
+    launches = read_launches(port)
     with plain_versions(port):
         serve_to_y4m(port, new_server(), frames, os.path.join(tmp, "plain.y4m"))
-    if read_launches(k1, k2, k2_band) != launches:
+    if read_launches(port) != launches:
         raise AssertionError("the plain-version stream launched a kernel")
     counts = {"this process": launches, **{f"the CLI's {k}": v["launches"]
                                            for k, v in results.items()}}
     for run, count in counts.items():
-        if min(count["blur_flow"], count["warp_frames"]) == 0:
-            raise AssertionError(f"9a, {run}: K1 or K2 never launched: {count}")
+        require_launched(count, FLOW_KERNELS + ("warp_frames",), f"9a, {run}")
     outputs = {}
     for name in ("interpolate", "serve", "kernels", "plain"):
         with open(os.path.join(tmp, f"{name}.y4m"), "rb") as f:
@@ -1489,19 +1835,16 @@ def cli_phase(port, dev, tmp: str) -> dict:
 
 def digest_phase(port, dev) -> dict:
     """9b: the four pinned-digest streams of tests/fixtures/digests.json on
-    the card, through K1 and K2."""
-    k1, k2, k2_band = port.blur_kernel.blur_flow, port.warp_kernel.warp_frames, \
-        port.warp_kernel.warp_frames_band
+    the card, through K1-K4."""
     with open(os.path.join(ROOT, "tests", "fixtures", "digests.json")) as f:
         pinned = json.load(f)
-    reset_launches(k1, k2, k2_band)
+    reset_launches(port)
     for name in port.digests.STREAMS:
         got = port.digests.stream_digest(name, dev)
         if got != pinned[name]:
             raise AssertionError(f"digest {name}: {got} != pinned {pinned[name]}")
-    launches = read_launches(k1, k2, k2_band)
-    if min(launches["blur_flow"], launches["warp_frames"]) == 0:
-        raise AssertionError(f"9b: K1 or K2 never launched: {launches}")
+    launches = read_launches(port)
+    require_launched(launches, FLOW_KERNELS + ("warp_frames",), "9b")
     return launches
 
 
@@ -1525,8 +1868,6 @@ def scaler_phase(port, dev) -> dict:
     thread raised, or /healthz answered other than 200. What the scaler does
     on this card is reported, not judged."""
     config = port.config
-    k1, k2, k2_band = port.blur_kernel.blur_flow, port.warp_kernel.warp_frames, \
-        port.warp_kernel.warp_frames_band
     frames = panning_frames(port, H, W, SERVE_FRAMES, is_hdr=True)
     st = port.Settings(target_fps=60.0, use_display_fps=False, frame_output=2,
                        black_level=16, white_level=235)
@@ -1561,7 +1902,7 @@ def scaler_phase(port, dev) -> dict:
         return outs
 
     srv.push_frame = record_push
-    reset_launches(k1, k2, k2_band)
+    reset_launches(port)
     pipe = port.PipelinedServer(srv)
     status = port.StatusServer(srv, pipeline=pipe)
     base = f"http://{status.host}:{status.port}"
@@ -1602,7 +1943,7 @@ def scaler_phase(port, dev) -> dict:
         poller.join(timeout=30)
         status.close()
     torch.cuda.synchronize()
-    launches = read_launches(k1, k2, k2_band)
+    launches = read_launches(port)
     if pipe._error is not None or not pipe.healthy():
         raise AssertionError(f"the engine thread failed: {pipe._error!r}")
     if not polls or any(code != 200 for code, *_ in polls):
@@ -1610,9 +1951,8 @@ def scaler_phase(port, dev) -> dict:
                              f"({len(polls)} polls)")
     if len(per_frame) != SERVE_FRAMES or sum(f[1] for f in per_frame) != len(outs):
         raise AssertionError("the pipeline lost or added frames")
-    if launches["blur_flow"] == 0 or (launches["warp_frames"] == 0
-                                      and any(o.interpolated for o in outs)):
-        raise AssertionError(f"9c: a kernel of the path never launched: {launches}")
+    require_launched(launches, FLOW_KERNELS + (("warp_frames",) if any(
+        o.interpolated for o in outs) else ()), "9c")
 
     # The replay: the same calls on a fresh scaler give the same radii and flags.
     fresh = port.AutoQualityScaler(enabled=True)
@@ -1685,9 +2025,15 @@ def serving_phase(port, dev, card: str) -> dict:
     log(f"phase 9b pinned digests: {', '.join(port.digests.STREAMS)} equal to "
         f"tests/fixtures/digests.json on the card; launches {launches}")
     sc = scaler_phase(port, dev)
+    slow = port.config.ActiveState.TOO_SLOW.name
+    tripped = any(to == slow for _, _, to in sc["edges"])
+    recovered = any(frm == slow for _, frm, _ in sc["edges"])
     log(f"phase 9c scaler live [{card}] {W}x{H} HDR 24->60 mode 2, PipelinedServer + "
         f"StatusServer, {SERVE_FRAMES} frames: radius per source frame {sc['radii']}; "
-        f"ACTIVE/TOO_SLOW edges (frame, from, to) {sc['edges'] or 'none'}; {sc['outputs']} "
+        f"ACTIVE/TOO_SLOW edges (frame, from, to) {sc['edges'] or 'none'}: TooSlow "
+        f"{'tripped' if tripped else 'never tripped'}"
+        + (f", {'recovered' if recovered else 'never recovered'}" if tripped else "")
+        + f"; {sc['outputs']} "
         f"outputs ({sc['interpolated']} interpolated, {sc['copies']} TOO_SLOW copies checked); "
         f"median flow {sc['flow_ms']:.3f} ms/source frame (CUDA events), median push_frame "
         f"{sc['push_ms']:.3f} ms on the engine thread (host clock, frames 3-); output "
@@ -1702,8 +2048,14 @@ def serving_phase(port, dev, card: str) -> dict:
 
 # Phase 10: the bench's runs in this process (10a), and the run as a user
 # starts it (10c).
-BENCH_RUNS = {"4k-hdr": ("--config", "4k-hdr", "--json-only"),
-              "4k-hdr_to120fps": ("--config", "4k-hdr", "--target-fps", "120", "--radius", "16")}
+# Each run: its label -> (its metric's prefix, its arguments). The runs at
+# --radius 16 and 5 go in turns: 16, 5, 5, 16.
+R16, R5 = ("--config", "4k-hdr", "--radius", "16"), ("--config", "4k-hdr", "--radius", "5")
+BENCH_RUNS = {"4k-hdr": ("4k-hdr", ("--config", "4k-hdr", "--json-only")),
+              "4k-hdr_to120fps": ("4k-hdr_to120fps", ("--config", "4k-hdr", "--target-fps",
+                                                      "120", "--radius", "16")),
+              "4k-hdr r16 (1)": ("4k-hdr", R16), "4k-hdr r5 (1)": ("4k-hdr", R5),
+              "4k-hdr r5 (2)": ("4k-hdr", R5), "4k-hdr r16 (2)": ("4k-hdr", R16)}
 BENCH_USER_RUN = ("--config", "1080p-sdr", "--radius", "16", "--json-only")
 
 
@@ -1762,26 +2114,22 @@ def bench_units_on_the_card(port, dev) -> int:
 
 def bench_phase(port, dev, card: str, flow16_ms: float | None) -> dict:
     """Phase 10: the bench on the card. 10a: bench.main in this process for
-    each of BENCH_RUNS, K1's and K2's counters set to 0 before each and read
-    after, both of which must have moved; 10b: the units on the card against
+    each of BENCH_RUNS, the counters set to 0 before each and read after, and
+    K1-K4 must each have launched; 10b: the units on the card against
     a CPU engine; 10c: `python -m hopperrender_tpu_torch.bench` as a user runs
     it, on the default device. Prints each run's times at each radius beside
     phase 6's median flow; sets no rule on any time. Returns the launches."""
     start = time.perf_counter()
-    k1, k2, k2_band = port.blur_kernel.blur_flow, port.warp_kernel.warp_frames, \
-        port.warp_kernel.warp_frames_band
     launches, lines_by_run = {}, {}
-    for name, argv in BENCH_RUNS.items():
-        reset_launches(k1, k2, k2_band)
+    for name, (prefix, argv) in BENCH_RUNS.items():
+        reset_launches(port)
         rc, lines = bench_in_process(port, argv)
         torch.cuda.synchronize()
-        launches[name] = read_launches(k1, k2, k2_band)
+        launches[name] = read_launches(port)
         if rc != 0:
             raise AssertionError(f"bench {name}: exit code {rc}: {lines[-1:]}")
-        bench_result(port, lines, f"{name}_flow_plus_warp_per_source_frame", f"bench {name}")
-        if min(launches[name]["blur_flow"], launches[name]["warp_frames"]) == 0:
-            raise AssertionError(f"bench {name}: a kernel of the path never launched: "
-                                 f"{launches[name]}")
+        bench_result(port, lines, f"{prefix}_flow_plus_warp_per_source_frame", f"bench {name}")
+        require_launched(launches[name], FLOW_KERNELS + ("warp_frames",), f"bench {name}")
         lines_by_run[name] = lines
     n_units = bench_units_on_the_card(port, dev)
     out = subprocess.run([sys.executable, "-m", "hopperrender_tpu_torch.bench",
@@ -1802,7 +2150,7 @@ def bench_phase(port, dev, card: str, flow16_ms: float | None) -> dict:
                 + f" -> {json.dumps(last)}")
 
     for name, lines in lines_by_run.items():
-        log(f"phase 10a bench [{card}] {' '.join(BENCH_RUNS[name])}: {fmt(lines)}; "
+        log(f"phase 10a bench [{card}] {' '.join(BENCH_RUNS[name][1])}: {fmt(lines)}; "
             f"launches {launches[name]}")
     log(f"phase 10b bench units: {n_units} units (flow_unit r16, warp_unit and warp_batch_unit "
         f"modes 0/1/2) on 4K HDR panning frames equal on the card and the CPU")
@@ -1852,9 +2200,6 @@ def main(argv: list[str]) -> int:
     port = import_port()
     _build, blur_kernel, warp_kernel = port._build, port.blur_kernel, port.warp_kernel
     config, nv12 = port.config, port.nv12
-    # The wrappers, whose `launches` counters show which kernels the path ran.
-    k1, k2 = blur_kernel.blur_flow, warp_kernel.warp_frames
-    k2_band = warp_kernel.warp_frames_band
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1874,12 +2219,15 @@ def main(argv: list[str]) -> int:
     log(f"phase 2 build: nvcc {lib.build_seconds:.2f} s, {len(ptxas) // 2} kernel "
         f"instantiations, library {os.path.relpath(lib.path, ROOT)}")
     if args.parallel_only:
-        return finish(port, [parallel_path(port, dev, card)], card, kind)
+        band_entry, flow_launches = parallel_path(port, dev, card)
+        return finish(port, [band_entry] + [
+            {"name": k, "batched_launches": flow_launches["batched"][k], "mesh_launches": n}
+            for k, n in flow_launches["mesh"].items()], card, kind)
     if args.bench_only:
         launches = bench_phase(port, dev, card, None)
         return finish(port, [{"name": name, "bench_launches": {run: n[name] for run, n in
                                                                 launches.items()}}
-                             for name in ("blur_flow", "warp_frames")], card, kind)
+                             for name in FLOW_KERNELS + ("warp_frames",)], card, kind)
     if args.kernel_times:
         inp = k2_inputs(port, dev)
         numbers = kernel_numbers(port, inp)
@@ -1888,6 +2236,11 @@ def main(argv: list[str]) -> int:
         numbers["probes"] = probe_numbers(port, dev)
         numbers["wrapper_split_us"] = wrapper_split(port, dev)
         numbers["launch_anatomy_ms"] = floor_numbers(port, dev)
+        if port.cost_volume_kernel is not None:
+            l2 = l2_read_rate(port, dev)
+            numbers["cost_volume"] = cost_volume_numbers(port, dev, l2["bytes_per_s"])
+            log(f"K3/K4 times [{card}] of {ROOT} (4K HDR, one flow's calls in a CUDA graph, "
+                f"the mean a call): {format_cost_volume(numbers['cost_volume'])}")
         log(f"kernel times [{card}] of {ROOT}: {format_numbers(numbers)}")
         log(f"probe times [{card}] of {ROOT} (graph-timed device ms of one call of each variant, "
             f"summed; host us per call, the mean over the variants): "
@@ -1918,6 +2271,9 @@ def main(argv: list[str]) -> int:
     torch.cuda.synchronize()
     log(f"phase 3 K1 blur_flow {LOW} int16: equal to the plain version (random +-500, "
         f"all -3; and (2, 33, 65), which its 16 x 32 tiles do not divide); max |err| {k1_err}")
+
+    # -- 3b. K3 and K4 against their plain versions ------------------------------
+    cost_volume_err = cost_volume_phase(port, dev)
 
     # -- 4. K2 against its plain version ----------------------------------------
     k2_err, n_checked = 0, 0
@@ -1988,14 +2344,14 @@ def main(argv: list[str]) -> int:
         return port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev,
                                 settings=port.Settings(**settings))
 
-    def serve(srv, frames):
-        """Frames through srv at search radius 16: the outputs, and for each
+    def serve(srv, frames, radius=config.MAX_SEARCH_RADIUS):
+        """Frames through srv at this search radius: the outputs, and for each
         source frame that ran flow, push_frame's wall seconds (host clock) and
         the engine's flow time; warp and copy times per output."""
         outs, wall_s, flow_s, warp_s, copy_s = [], [], [], [], []
         for y, uv in frames:
             if srv.engine is not None:
-                srv.engine.search_radius = config.MAX_SEARCH_RADIUS
+                srv.engine.search_radius = radius
             start = time.perf_counter()
             got = srv.push_frame(y, uv)
             wall = time.perf_counter() - start
@@ -2009,11 +2365,11 @@ def main(argv: list[str]) -> int:
         return outs, wall_s, flow_s, warp_s, copy_s
 
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_launches(k1, k2, k2_band)
+    reset_launches(port)
     srv = new_server()
     outs, wall_s, flow_s, warp_s, copy_s = serve(srv, frames[:10])
     torch.cuda.synchronize()
-    launches = read_launches(k1, k2, k2_band)
+    launches = read_launches(port)
     peak_bytes = torch.cuda.max_memory_allocated(dev)
 
     expected = cadence_count(port, 10)
@@ -2022,8 +2378,7 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"served {len(outs)} outputs, the cadence gives {expected}")
     if n_interp == 0:
         raise AssertionError("no interpolated output")
-    if min(launches["blur_flow"], launches["warp_frames"]) == 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    require_launched(launches, FLOW_KERNELS + ("warp_frames",), "phase 5")
     for o in outs:
         if o.y.shape != (H, W) or o.uv.shape != (H // 2, W) or o.y.dtype != np.uint16:
             raise AssertionError(f"output shape/dtype {o.y.shape} {o.uv.shape} {o.y.dtype}")
@@ -2032,7 +2387,7 @@ def main(argv: list[str]) -> int:
 
     with plain_versions(port):
         plain_outs = serve(new_server(), frames[:10])[0]
-    if read_launches(k1, k2, k2_band) != launches:
+    if read_launches(port) != launches:
         raise AssertionError("the plain-version stream launched a kernel")
     require_same_stream(outs, plain_outs, "mode 2")
 
@@ -2049,8 +2404,8 @@ def main(argv: list[str]) -> int:
 
     # -- 5b / 5c. served visualisation modes --------------------------------------
     # The kernels each mode's path runs (mode 4 needs the flow only).
-    path_kernels = {3: ("blur_flow", "warp_frames_raw_blend"), 4: ("blur_flow",),
-                    5: ("blur_flow", "warp_frames"), 6: ("blur_flow", "warp_frames")}
+    path_kernels = {3: FLOW_KERNELS + ("warp_frames_raw_blend",), 4: FLOW_KERNELS,
+                    5: FLOW_KERNELS + ("warp_frames",), 6: FLOW_KERNELS + ("warp_frames",)}
     viz_warp_ms, viz_launches = {}, {}
     for mode, n_frames in ((3, 10), (4, 6), (5, 6), (6, 6)):
         viz_settings = port.Settings(**{**settings, "frame_output": mode})
@@ -2058,22 +2413,19 @@ def main(argv: list[str]) -> int:
         def viz_server(st=viz_settings):
             return port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev, settings=st)
 
-        reset_launches(k1, k2, k2_band)
+        reset_launches(port)
         vouts, _, _, vwarp_s, _ = serve(viz_server(), frames[:n_frames])
         torch.cuda.synchronize()
-        got = read_launches(k1, k2, k2_band)
+        got = read_launches(port)
         viz_launches[mode] = got
-        missing = [k for k in path_kernels[mode] if got[k] == 0]
-        if missing:
-            raise AssertionError(f"mode {mode}: kernels of the path never launched: {missing} "
-                                 f"({got})")
+        require_launched(got, path_kernels[mode], f"mode {mode}")
         expected = cadence_count(port, n_frames)
         if len(vouts) != expected or not any(o.interpolated for o in vouts):
             raise AssertionError(f"mode {mode}: {len(vouts)} outputs (cadence {expected}), "
                                  f"{sum(o.interpolated for o in vouts)} interpolated")
         with plain_versions(port):
             plain_vouts = serve(viz_server(), frames[:n_frames])[0]
-        if read_launches(k1, k2, k2_band) != got:
+        if read_launches(port) != got:
             raise AssertionError(f"mode {mode}: the plain-version stream launched a kernel")
         require_same_stream(vouts, plain_vouts, f"mode {mode}")
         viz_warp_ms[mode] = 1e3 * statistics.median(vwarp_s)
@@ -2110,9 +2462,31 @@ def main(argv: list[str]) -> int:
         f"T = 3 unless marked, random +-64 flow unless marked): {format_numbers(numbers)}")
     log(f"phase 6 numbers [{card}]: warp ms/output (median, CUDA events, one warp per "
         f"output) " + ", ".join(f"mode {m} {t:.3f}" for m, t in viz_warp_ms.items()))
+    # The flow at radius 16 and 5 in turns: phase 5's ten frames on one new
+    # server, even frames at 16, odd frames at 5.
+    alt, turns = new_server(), {16: [], 5: []}
+    for i, frame in enumerate(frames[:10]):
+        radius = (16, 5)[i % 2]
+        turns[radius] += serve(alt, [frame], radius=radius)[2]
+    l2 = l2_read_rate(port, dev)
+    cost_volume = cost_volume_numbers(port, dev, l2["bytes_per_s"])
+    flows = len(flow_s)
+    log(f"phase 6 flow [{card}]: {ms(flow_s):.3f} ms/source frame at radius 16 (phase 5, "
+        f"median of {flows}, CUDA events); in turns on one server: radius 16 "
+        f"{ms(turns[16]):.3f}, radius 5 {ms(turns[5]):.3f} (medians of {len(turns[16])} and "
+        f"{len(turns[5])}; each: {', '.join(f'{1e3 * t:.3f}' for t in turns[16])} / "
+        f"{', '.join(f'{1e3 * t:.3f}' for t in turns[5])}); a source frame launched K3 "
+        f"{launches['delta_sums'] / flows:.1f} and K4 {launches['commit_winners'] / flows:.1f} "
+        f"times (phase 5)")
+    log(f"phase 6 K3/K4 [{card}] (4K HDR panning frames, one flow's "
+        f"{cost_volume[16]['calls_per_flow']} calls captured in a CUDA graph, the mean a "
+        f"call; bound: the largest of HBM bytes "
+        f"over {HBM_BYTES_PER_S / 1e12:.2f} TB/s, L2 bytes over this run's L2 read rate "
+        f"{format_l2(l2)}, int32 operations over {INT32_OPS_PER_S / 1e12:.2f} TOP/s): "
+        + format_cost_volume(cost_volume))
 
     # -- 7. the parallel path -----------------------------------------------------
-    band_entry = parallel_path(port, dev, card)
+    band_entry, parallel_flow_launches = parallel_path(port, dev, card)
 
     # -- 8. the probes ------------------------------------------------------------
     probe_entries = probe_phase(port, dev, card)
@@ -2160,6 +2534,25 @@ def main(argv: list[str]) -> int:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None
         k["host_us"] = v["host_us"]
+    # K3 and K4: ms, plain_ms, host_us and the bound are a call's, the mean over
+    # one 4K HDR flow's 16 calls at radius 16 (r5: at radius 5). library_ms is
+    # null: no single PyTorch call computes either function (a gathered,
+    # mirrored, windowed sum of absolute differences; a first-minimum argmin
+    # over uint32 committed into int16 offsets).
+    for name in ("delta_sums", "commit_winners"):
+        v = cost_volume[16][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "hopperrender_tpu_torch/csrc/cost_volume.cu",
+            "replaces": "no pallas_call: hopperrender_tpu/ops/flow.py:63 / :178-201 (reference "
+                        "calcDeltaSums / determineLowestLayer + adjustOffsetArray)",
+            "launches": launches[name], "launches_per_source_frame": launches[name] / flows,
+            "max_abs_err": cost_volume_err, "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound_ms"], "bound_by": v["bound_by"], "library_ms": None,
+            "host_us": v["host_us"], "r5": cost_volume[5][name],
+            "cli_launches": {c: r["launches"][name] for c, r in cli["results"].items()},
+            "bench_launches": {run: n[name] for run, n in bench_launches.items()},
+            "batched_launches": parallel_flow_launches["batched"][name],
+            "mesh_launches": parallel_flow_launches["mesh"][name]})
     return finish(port, kernels + [band_entry] + probe_entries, card, kind)
 
 

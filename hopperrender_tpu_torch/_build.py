@@ -48,6 +48,14 @@ SIGNATURES = {
     #  raw_blend, is_hdr, black, white, stream)
     "hrt_warp_frames": (_P, _P, _P, _P, _P, _P, _I, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # K3 (f1y, f1uv, f2y, f2uv, offsets, sums, dim_y, dim_x, uv_h, uv_w, low_h, low_w,
+    #  n_win_y, n_win_x, radius, delta_scalar, neighbor_scalar, window_size, res_scalar,
+    #  neighbors, step, layer_offset, num_layers, is_hdr, stream)
+    "hrt_delta_sums": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _P),
+    # K4 (in, out, sums, low_h, low_w, n_win_y, n_win_x, num_layers, radius, window_size,
+    #  step, stream)
+    "hrt_commit_winners": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (stream): an empty kernel, the floor under a launch-bound kernel's time
     "hrt_empty_launch": (_P,),
     # (kind, threads, src, out, stream): that floor taken apart

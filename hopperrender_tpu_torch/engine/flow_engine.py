@@ -13,8 +13,9 @@ calls:
   * Flow and warp times come from CUDA events on a GPU (host clock on the CPU)
     and feed 240-frame avg/peak windows (ref: opticalFlowCalcSDR.cpp:118-138).
 
-The flow blur is kernel K1 and every warp of modes 0/1/2 is kernel K2 (one
-launch for all T outputs of a source interval). The visualisation modes are
+Each pyramid step of the flow is kernels K3 (cost volume) and K4 (argmin and
+commit), the flow blur is kernel K1 and every warp of modes 0/1/2 is kernel
+K2 (one launch for all T outputs of a source interval). The visualisation modes are
 composed from them (ops/warp_viz.py): mode 3 colours K2's raw_blend variant,
 modes 5/6 rearrange K2's mode-2 output, mode 4 needs the flow only. The JAX engine's strip and
 band machinery (contexts, tier plans, apron tiers, chain bounds) exists
@@ -39,17 +40,17 @@ RADIUS_BUCKETS = (5, 8, 12, flow_ops.MAX_R)
 
 def estimate_device_bytes(frame_height: int, frame_width: int, *, is_hdr: bool,
                           max_calc_res: int = config.MAX_CALC_RES) -> int:
-    """Device-memory need of one engine: the 3-frame ring, the flow double
-    buffer, the cost volume's int64 working set (about eight live
-    (16, low_h, low_w) int64 temporaries per pyramid step) and one interval's
-    warp outputs (T <= 5) with the plain versions' int32 temporaries. An
-    estimate for the pre-check only; chip_smoke.py reports the measured peak
-    (torch.cuda.max_memory_allocated)."""
+    """Device-memory need of one engine on the card: the 3-frame ring, the
+    flow double buffer and the pyramid's offsets, K3's window sums (two live
+    (16, n_win_y, n_win_x) uint32 buffers at the smallest window, 2) and one
+    interval's warp outputs (T <= 5) with the plain versions' int32
+    temporaries. An estimate for the pre-check only; chip_smoke.py reports
+    the measured peak (torch.cuda.max_memory_allocated)."""
     e = 2 if is_hdr else 1
     _, low_h, low_w = config.calc_flow_dims(frame_height, frame_width, max_calc_res)
     frame = frame_height * frame_width * 3 // 2
-    cost_volume = 8 * flow_ops.MAX_R * low_h * low_w * 8
-    return 3 * frame * e + 2 * 2 * low_h * low_w * 2 + cost_volume + 5 * frame * e + 8 * frame * 4
+    cost_volume = 2 * flow_ops.MAX_R * -(-low_h // 2) * -(-low_w // 2) * 4
+    return 3 * frame * e + 3 * 2 * low_h * low_w * 2 + cost_volume + 5 * frame * e + 8 * frame * 4
 
 
 class CalcTimeWindow:

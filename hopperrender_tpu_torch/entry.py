@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from hopperrender_tpu_torch import config
-from hopperrender_tpu_torch.ops import warp_kernel
+from hopperrender_tpu_torch.ops import cost_volume_kernel, warp_kernel
 from hopperrender_tpu_torch.parallel import launch
 from hopperrender_tpu_torch.parallel.batched import batched_step
 from hopperrender_tpu_torch.parallel.mesh import make_multichip_step
@@ -93,13 +93,14 @@ def run_stream_steps(mesh, jobs: list[dict]) -> list[str]:
     step warping with the previous step's flow). It writes y (B_local, F-2,
     [T,] H, W), uv, blurred (B_local, F-2, 2, low_h, low_w), delta (B_local,
     F-2), each step's ms, the job's own launches of K2's band
-    (warp_frames_band.launches: modes 0/1/2/5/6) and of its raw_blend
-    variant (.raw_launches: mode 3), the rank's place and backend, and
-    foreign_modules(); returns the paths."""
+    (warp_frames_band.launches: modes 0/1/2/5/6), of its raw_blend variant
+    (.raw_launches: mode 3) and of K3 and K4 (the flow), the rank's place and
+    backend, and foreign_modules(); returns the paths."""
     paths = []
     band = warp_kernel.warp_frames_band
+    k3, k4 = cost_volume_kernel.delta_sums, cost_volume_kernel.commit_winners
     for job in jobs:
-        launches_before = band.launches, band.raw_launches
+        launches_before = band.launches, band.raw_launches, k3.launches, k4.launches
         with np.load(job["in_path"]) as z:
             y, uv, flow, ts = z["y"], z["uv"], z["flow"], z["ts"]
         n_streams, n_frames, h, w = y.shape
@@ -130,6 +131,8 @@ def run_stream_steps(mesh, jobs: list[dict]) -> list[str]:
         np.savez(path, y=y_o, uv=uv_o, blurred=blurred, delta=delta,
                  step_ms=np.asarray(step_ms), band_launches=band.launches - launches_before[0],
                  band_raw_launches=band.raw_launches - launches_before[1],
+                 delta_sums_launches=k3.launches - launches_before[2],
+                 commit_winners_launches=k4.launches - launches_before[3],
                  dp_index=mesh.dp_index, sp_index=mesh.sp_index, backend=mesh.backend,
                  foreign_modules=np.asarray(foreign_modules(), dtype=str))
         paths.append(path)
@@ -158,7 +161,8 @@ def dryrun_multichip(n_devices: int, *, device: str | torch.device = "cuda",
     """One step of the mesh on n_devices ranks at two small SDR geometries:
     32x64 at res_scalar 1, and 64x128 at res_scalar 2 with three blending
     scalars. Checks the shapes __graft_entry__.dryrun_multichip checks;
-    returns them by geometry."""
+    returns them by geometry, each beside "launches": every rank's launches
+    of K3 (delta_sums) and K4 (commit_winners), in rank order."""
     dp, sp = factor_mesh(n_devices)
     geometries = {"rs1": (32, 64, 1, (0.4,)), "rs2_t3": (64, 128, 2, (0.25, 0.5, 0.75))}
     shapes = {}
@@ -181,5 +185,10 @@ def dryrun_multichip(n_devices: int, *, device: str | torch.device = "cuda",
             got = {k: out[k].shape for k in want}
             if got != want:
                 raise AssertionError(f"dryrun {name}: shapes {got}, expected {want}")
-            shapes[name] = got
+            launches = {"delta_sums": [], "commit_winners": []}
+            for rank_paths in paths:
+                with np.load(rank_paths[j]) as z:
+                    for kernel, per_rank in launches.items():
+                        per_rank.append(int(z[f"{kernel}_launches"]))
+            shapes[name] = {**got, "launches": launches}
     return shapes

@@ -7,9 +7,10 @@ single-GPU; the scale-out maps its axes onto a 2-D mesh of ranks:
     streams; nothing crosses between rows.
   * "sp": one stream's work, split across the ranks of a dp row:
       - flow splits the search-layer axis of the cost volume: each rank
-        computes MAX_R / sp candidate layers, an all-gather of the compact
-        window sums (kilobytes) gives every rank the whole volume, and every
-        rank runs the same argmin and adjust, so the offsets stay replicated;
+        computes MAX_R / sp candidate layers (K3), an all-gather of the
+        compact uint32 window sums (kilobytes) gives every rank the whole
+        volume, and every rank runs the same argmin and commit (K4), so the
+        offsets stay replicated;
       - the warp splits output rows: the sources stay whole on every rank,
         each rank computes its row band of each plane, and an all-gather
         over the dp row's ranks joins the bands. Every output mode 0-6 is
@@ -41,6 +42,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from hopperrender_tpu_torch.ops import cost_volume_kernel
 from hopperrender_tpu_torch.ops import flow as flow_ops
 from hopperrender_tpu_torch.ops import warp as warp_ops
 from hopperrender_tpu_torch.ops import warp_kernel, warp_viz
@@ -84,9 +86,10 @@ def pyramid_flow_sharded(f1y, f1uv, f2y, f2uv, radius: int, delta_scalar: int,
                          is_hdr: bool, mesh: Mesh):
     """The pyramid loop with the search layers split over sp
     (ref: opticalFlowCalcSDR.cpp:44-123): each sp rank computes
-    MAX_R / sp layers, the window sums are gathered, and every rank commits
-    the same winners. Returns (offsets, blurred, total_delta_raw), equal on
-    every rank of the dp row and to ops/flow.pyramid_flow."""
+    MAX_R / sp layers with K3, the uint32 window sums are gathered (as
+    bytes), and every rank commits the same winners with K4 (which compares
+    unsigned). Returns (offsets, blurred, total_delta_raw), equal on every
+    rank of the dp row and to ops/flow.pyramid_flow."""
     if MAX_R % mesh.sp:
         raise ValueError(f"the {MAX_R} search layers do not split over sp = {mesh.sp}")
     if not 0 < radius <= MAX_R:
@@ -97,15 +100,15 @@ def pyramid_flow_sharded(f1y, f1uv, f2y, f2uv, radius: int, delta_scalar: int,
     total_delta_raw = torch.zeros((), dtype=torch.int64, device=f1y.device)
     for iteration, window in flow_ops.window_schedule(low_h, low_w):
         for step in (0, 1):
-            sums_local = flow_ops.delta_window_sums(
+            sums_local = cost_volume_kernel.delta_sums(
                 f1y, f1uv, f2y, f2uv, offsets, radius, delta_scalar, neighbor_scalar,
                 window_size=window, res_scalar=res_scalar, iteration=iteration, step=step,
                 is_hdr=is_hdr, num_layers=layers_local, layer_offset=layer_offset)
             sums = mesh.all_gather_sp(sums_local, dim=0)
             if iteration == 0 and step == 0:
-                total_delta_raw = sums[radius // 2 - 1, 0, 0]
-            offsets = flow_ops.adjust_offsets(offsets, flow_ops.lowest_layer(sums), radius,
-                                              window_size=window, step=step)
+                total_delta_raw = flow_ops.raw_frame_delta(sums, radius)
+            cost_volume_kernel.commit_winners(offsets, sums, radius, window_size=window,
+                                              step=step, out=offsets)
     return offsets, flow_ops.blur_flow(offsets), total_delta_raw
 
 

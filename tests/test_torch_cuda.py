@@ -1,20 +1,26 @@
-"""Kernels K1 (flow blur) and K2 (batched warp, its raw_blend variant and its
-mesh-sharded row-band variant) against their plain PyTorch versions on a
-CUDA card, exactly, across bit depths, res scalars, modes and ragged shapes;
-the HSV colour on the card against the CPU; the mesh's dryrun and its mode-3
-route on the card; the probe kernels P1-P4 against their plain versions; the
-four pinned-digest streams and the threaded pipeline served on the card.
-Every test skips without a card.
+"""Kernels K1 (flow blur), K2 (batched warp, its raw_blend variant and its
+mesh-sharded row-band variant), K3 (the cost volume's window sums) and K4
+(the argmin and its commit) against their plain PyTorch versions on a CUDA
+card, exactly, across bit depths, res scalars, modes and ragged shapes (K3
+and K4 over chip_smoke.py's phase 3b matrix); the pyramid on the card
+against the CPU and replayed in a CUDA graph; the HSV colour on the card
+against the CPU; the mesh's dryrun and its mode-3 route on the card; the
+probe kernels P1-P4 against their plain versions; the four pinned-digest
+streams and the threaded pipeline served on the card. Every test skips
+without a card.
 
 On the card (whose machine may lack jax, which tests/conftest.py imports):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel, warp_viz
+from hopperrender_tpu_torch.ops import blur_kernel, cost_volume_kernel, warp_kernel, warp_viz
 from hopperrender_tpu_torch.ops import warp as warp_ops
 from hopperrender_tpu_torch.probes import chain_probe, chain_probe2, gather_probe, mosaic_probe
 from hopperrender_tpu_torch.server import digests
@@ -36,6 +42,23 @@ def _frame(rng, h, w, is_hdr, dev):
     dt = np.uint16 if is_hdr else np.uint8
     return (torch.tensor(rng.integers(0, hi, (h, w), dtype=dt), device=dev),
             torch.tensor(rng.integers(0, hi, (h // 2, w), dtype=dt), device=dev))
+
+
+def _launches():
+    """The counters of K1, K2 (modes 0/1/2), K3 and K4."""
+    cv = cost_volume_kernel
+    return (blur_kernel.blur_flow.launches, warp_kernel.warp_frames.launches,
+            cv.delta_sums.launches, cv.commit_winners.launches)
+
+
+def _chip_smoke():
+    """chip_smoke.py from the repository root (its phase 3b holds the K3/K4
+    parity matrix) and the port's modules as it imports them."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke, chip_smoke.import_port()
 
 
 def _same(a, b):
@@ -221,6 +244,107 @@ def test_warp_band_kernel_matches_plain_and_full(dev, h, w, rs, is_hdr, n):
         assert torch.equal(got_uv, warp_ops.to_int32(full_uv)), f"mode {mode}"
 
 
+@pytest.mark.parametrize("radius", [5, 8, 12, 16])
+@pytest.mark.parametrize("geometry", ["4K HDR", "1080p SDR"])
+def test_cost_volume_kernels_match_plain(dev, geometry, radius):
+    """K3 and K4 against their plain versions over chip_smoke.py's phase 3b
+    matrix at one geometry and radius (every (iteration, window) of the 4K
+    schedule, both steps, offsets random in +-64 and near +-32767, scalars
+    8/6 and 10/10, K4 new and in place), and K3's layer shards (sp 2 and 4)
+    at radius 12 and 16."""
+    cs, port = _chip_smoke()
+    before = _launches()
+    n_k3, n_k4, err = cs.cost_volume_parity(port, dev, geometry, radius)
+    assert err == 0 and (n_k3, n_k4) == (8 * 2 * 2 * 2, 8 * 2 * 2 * 2 * 2)
+    after = _launches()
+    assert after[2] >= before[2] + n_k3 and after[3] >= before[3] + n_k4
+    if radius in (12, 16):
+        n, err = cs.cost_volume_shards(port, dev, geometry, radius)
+        assert err == 0 and n == 8 * 2 * (2 + 4)
+
+
+@pytest.mark.parametrize("radius", [16, 5])
+def test_pyramid_flow_on_the_card_matches_the_cpu(dev, radius):
+    """pyramid_flow on 4K HDR panning frames at the engine's layers: on the
+    card (16 steps of K3 and K4, then K1) equal to the CPU's plain run."""
+    from hopperrender_tpu_torch.ops import flow as flow_ops
+    from hopperrender_tpu_torch.vio import nv12
+
+    rng = np.random.default_rng(8)
+    frames = [a for i in range(2) for a in nv12.synthetic_frame(
+        rng, 2160, 3840, is_hdr=True, motion_x=3 * i, coherent=True)]
+    kw = dict(low_h=270, low_w=480, res_scalar=3, is_hdr=True,
+              num_layers=next(b for b in (5, 8, 12, 16) if radius <= b))
+    before = _launches()
+    got = flow_ops.pyramid_flow(*(torch.tensor(a, device=dev) for a in frames), radius, 8, 6,
+                                **kw)
+    after = _launches()
+    assert (after[0] - before[0], after[2] - before[2], after[3] - before[3]) == (1, 16, 16)
+    want = flow_ops.pyramid_flow(*map(torch.tensor, frames), radius, 8, 6, **kw)
+    for g, w, what in zip(got, want, ("offsets", "blurred", "total_delta_raw")):
+        assert torch.equal(g.cpu(), w), what
+    assert want[0].abs().max() > 0
+
+
+def test_pyramid_replays_in_a_cuda_graph(dev):
+    """pyramid_flow at 1080p SDR (16 steps of K3 and K4, then K1) captured in
+    one CUDA graph: the replay equals the eager call, and after other frames
+    are copied into the captured inputs, the replay equals the eager call on
+    those."""
+    from hopperrender_tpu_torch.ops import flow as flow_ops
+    from hopperrender_tpu_torch.vio import nv12
+
+    rng = np.random.default_rng(9)
+    pairs = [[torch.tensor(a, device=dev) for i in range(2) for a in nv12.synthetic_frame(
+        rng, 1080, 1920, motion_x=(2 + 3 * k) * i, coherent=True)] for k in range(2)]
+    kw = dict(low_h=270, low_w=480, res_scalar=2, is_hdr=False, num_layers=16)
+    inputs = [t.clone() for t in pairs[0]]
+    eager = [flow_ops.pyramid_flow(*pair, 16, 8, 6, **kw) for pair in pairs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flow_ops.pyramid_flow(*inputs, 16, 8, 6, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flow_ops.pyramid_flow(*inputs, 16, 8, 6, **kw)
+    for k, pair in enumerate(pairs):
+        for t, src in zip(inputs, pair):
+            t.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, e, what in zip(captured, eager[k], ("offsets", "blurred", "total_delta_raw")):
+            assert torch.equal(g, e), f"pair {k} {what}"
+    assert not torch.equal(eager[0][0], eager[1][0])
+
+
+def test_cost_volume_kernels_reject_bad_input(dev):
+    """What the kernels do not take raises before a launch: a window that is
+    not a power of two, more than 16 layers, planes of the other bit depth,
+    tensors on two devices, sums of another window grid."""
+    cv = cost_volume_kernel
+    rng = np.random.default_rng(4)
+    y, uv = _frame(rng, 32, 64, False, dev)
+    off = torch.zeros((2, 32, 64), dtype=torch.int16, device=dev)
+    kw = dict(res_scalar=0, iteration=0, step=0, is_hdr=False)
+    before = _launches()
+    with pytest.raises(ValueError, match="power of two"):
+        cv.delta_sums(y, uv, y, uv, off, 8, 8, 6, window_size=6, **kw)
+    with pytest.raises(ValueError, match="num_layers"):
+        cv.delta_sums(y, uv, y, uv, off, 8, 8, 6, window_size=16, num_layers=17, **kw)
+    with pytest.raises(ValueError, match="planes must be"):
+        cv.delta_sums(y, uv, y, uv, off, 8, 8, 6, window_size=16, **dict(kw, is_hdr=True))
+    with pytest.raises(ValueError, match="one device"):
+        cv.delta_sums(y.cpu(), uv, y, uv, off, 8, 8, 6, window_size=16, **kw)
+    assert _launches() == before
+    sums = cv.delta_sums(y, uv, y, uv, off, 8, 8, 6, window_size=16, **kw)
+    with pytest.raises(ValueError, match="sums"):
+        cv.commit_winners(off, sums[:, :1], 8, window_size=16, step=0)
+    with pytest.raises(ValueError, match="power of two"):   # sums of window 12's grid
+        cv.commit_winners(off, sums.new_zeros((16, 3, 6)), 8, window_size=12, step=0)
+    assert _launches()[2:] == (before[2] + 1, before[3])
+
+
 def test_dryrun_multichip_on_the_card(tmp_path):
     """Two ranks of the mesh on the card (gloo on one card, NCCL on two),
     both dryrun geometries."""
@@ -229,16 +353,18 @@ def test_dryrun_multichip_on_the_card(tmp_path):
     from hopperrender_tpu_torch import entry
     shapes = entry.dryrun_multichip(2, device="cuda", workdir=str(tmp_path))
     assert shapes["rs2_t3"]["y"] == (1, 1, 3, 64, 128)
+    for name, got in shapes.items():   # every rank ran its flow through K3 and K4
+        for kernel, per_rank in got["launches"].items():
+            assert len(per_rank) == 2 and min(per_rank) > 0, (name, kernel, per_rank)
 
 
 def test_entry_step_on_the_card(dev):
-    """entry()'s 1080p SDR single-stream step runs through K1 and K2."""
+    """entry()'s 1080p SDR single-stream step runs through K1-K4."""
     from hopperrender_tpu_torch import entry
     fn, args = entry.entry(device=dev)
-    before = blur_kernel.blur_flow.launches, warp_kernel.warp_frames.launches
+    before = _launches()
     y, uv, flow, delta = fn(*args)
-    assert blur_kernel.blur_flow.launches > before[0]
-    assert warp_kernel.warp_frames.launches > before[1]
+    assert all(a > b for a, b in zip(_launches(), before)), (before, _launches())
     assert tuple(y.shape) == (1, 1080, 1920) and tuple(uv.shape) == (1, 540, 1920)
     assert tuple(flow.shape) == (1, 2, 270, 480) and tuple(delta.shape) == (1,)
 
@@ -585,10 +711,9 @@ def test_pinned_digest_on_the_card(dev, name):
     import os
     with open(os.path.join(os.path.dirname(__file__), "fixtures", "digests.json")) as f:
         pinned = json.load(f)[name]
-    before = blur_kernel.blur_flow.launches, warp_kernel.warp_frames.launches
+    before = _launches()
     assert digests.stream_digest(name, dev) == pinned
-    assert blur_kernel.blur_flow.launches > before[0]
-    assert warp_kernel.warp_frames.launches > before[1]
+    assert all(a > b for a, b in zip(_launches(), before)), (before, _launches())
 
 
 def test_pipelined_server_on_the_card(dev):
@@ -608,7 +733,7 @@ def test_pipelined_server_on_the_card(dev):
 
     srv = FrameServer(w, h, device=dev, settings=settings)
     pipe = PipelinedServer(srv, input_slots=2, output_slots=4)
-    before = blur_kernel.blur_flow.launches, warp_kernel.warp_frames.launches
+    before = _launches()
 
     def feed():   # on its own thread: the rings are smaller than the stream
         for y, uv in frames:
@@ -621,8 +746,7 @@ def test_pipelined_server_on_the_card(dev):
     feeder.join(timeout=60)
     pipe.join()
     assert not feeder.is_alive()
-    assert blur_kernel.blur_flow.launches > before[0]
-    assert warp_kernel.warp_frames.launches > before[1]
+    assert all(a > b for a, b in zip(_launches(), before)), (before, _launches())
     cpu = FrameServer(w, h, device="cpu", settings=settings)
     want = [o for y, uv in frames for o in cpu.push_frame(y, uv)]
     assert len(outs) == len(want) and any(o.interpolated for o in outs)
@@ -637,7 +761,7 @@ def test_pipelined_server_on_the_card(dev):
 def test_bench_units_on_the_card_match_the_cpu(dev, h, w, is_hdr):
     """The bench's units (hopperrender_tpu_torch/bench.py) on panning frames at
     radius 16: flow_unit, and warp_unit and warp_batch_unit in modes 0/1/2 with
-    the CPU's flow of the pair, equal on the card and the CPU; K1 and K2
+    the CPU's flow of the pair, equal on the card and the CPU; K1-K4
     launched on the card."""
     from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
     from hopperrender_tpu_torch.vio import nv12
@@ -646,7 +770,7 @@ def test_bench_units_on_the_card_match_the_cpu(dev, h, w, is_hdr):
     frames = [a for i in range(2) for a in nv12.synthetic_frame(
         rng, h, w, is_hdr=is_hdr, motion_x=3 * i, coherent=True)]
     units, flow = [], None
-    before = blur_kernel.blur_flow.launches, warp_kernel.warp_frames.launches
+    before = _launches()
     for where in (torch.device("cpu"), dev):
         eng = OpticalFlowEngine(h, w, is_hdr=is_hdr, device=where, black_level=16,
                                 white_level=235)
@@ -663,5 +787,6 @@ def test_bench_units_on_the_card_match_the_cpu(dev, h, w, is_hdr):
                                                        mode=mode))
         units.append(got)
     assert units[1] == units[0]
-    assert blur_kernel.blur_flow.launches > before[0]
-    assert warp_kernel.warp_frames.launches == before[1] + 6
+    after = _launches()
+    assert after[0] > before[0] and after[1] == before[1] + 6
+    assert after[2] > before[2] and after[3] > before[3]

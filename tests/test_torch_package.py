@@ -47,6 +47,7 @@ def test_port_never_imports_jax():
     mods = _port_modules()
     assert "hopperrender_tpu_torch.server.control" in mods
     assert "hopperrender_tpu_torch.probes.__main__" in mods
+    assert "hopperrender_tpu_torch.ops.cost_volume_kernel" in mods
     assert {"hopperrender_tpu_torch.__main__", "hopperrender_tpu_torch.cli",
             "hopperrender_tpu_torch.native", "hopperrender_tpu_torch.bench"} <= set(mods)
     code = ("import importlib, sys\n"

@@ -6,7 +6,8 @@
                                             # adds meshes of a rank per card (NCCL)
     python3 chip_smoke.py --bench-only      # phases 1, 2 and 10: the bench
     python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only:
-                                            # K1, K2, the band, K3, K4, P1-P4 and the L2 read
+                                            # K1, K2, the band, K3, K4, the pyramid step
+                                            # (flow_step), P1-P4 and the L2 read
                                             # rate, P1/P2 on the probe path on 1 and
                                             # 132 blocks, the split of a wrapper call's
                                             # host time into stages and the floor of a
@@ -25,8 +26,11 @@ sm_90a), then runs these phases, one line each:
      (iteration, window) of the schedule, both steps, offsets random +-64
      and near +-32767, scalars 8/6 and 10/10 (the uint32 sums wrap), K4
      new and in place; K3's layer shards for sp = 2 and 4 at radius 12 and
-     16, stacked against the full K3; pyramid_flow on 4K HDR panning frames
-     at radius 16 and 5 against the plain run;
+     16, stacked against the full K3; flow_step (K3 then K4, one call a
+     pyramid step) against flow_step_reference over every step of a pan's
+     pyramid at both geometries and radius 5/12/16 (offsets, raw delta,
+     K3's sums), and run twice for the same bits; pyramid_flow on 4K HDR
+     panning frames at radius 16 and 5 against the plain run;
   4. K2 (batched warp) against its plain version at 4K HDR P010, on three
      flow grids: random +-64, smooth (K1 over random +-500) and mirror-edge
      (+-64 toward both edges in x and y), t = (0.4, 0.8) and (0.2, 0.6,
@@ -39,18 +43,20 @@ sm_90a), then runs these phases, one line each:
   5. the served slice: FrameServer at 3840x2160 HDR, 24 -> 60, mode 2, levels
      16/235, search radius 16, ten panning frames through the kernels; the
      output count against the cadence controller's, the kernels' launch
-     counters (K1-K4 must each have launched), every output against the
+     counters (K1 and flow_step must each have launched, 16 flow_step calls
+     a flow and no standalone K3 or K4), every output against the
      same stream run with the plain versions, and all five golden fixtures
      replayed byte for byte;
      5b. served mode 3 (HSV flow) the same way: ten frames through K1 and
      K2's raw_blend variant;
-     5c. served modes 4, 5 and 6, six frames each (mode 4 runs K1, K3 and
-     K4 only, modes 5/6 K2 too);
+     5c. served modes 4, 5 and 6, six frames each (mode 4 runs K1 and
+     flow_step only, modes 5/6 K2 too);
   6. the numbers: served wall time per source frame (host clock around
      push_frame), flow time per source frame, warp time per output, copy
      time, peak memory, and a torch.profiler pass over three more served
      frames: device busy time, idle share and launches per source frame, and
-     device time by kind; the warp time per output of modes 3-6 (CUDA
+     device time by kind (it fails if K3's fill ran); the warp time per
+     output of modes 3-6 (CUDA
      events) from 5b/5c; and the kernels' device times, graph-timed (n
      calls captured in one CUDA graph, the replay timed with CUDA events, so
      no host time is in them) on random and on smooth flow: K1, K2 (mode 2
@@ -59,11 +65,15 @@ sm_90a), then runs these phases, one line each:
      versions (CUDA events), and the floor of an empty launch; beside them,
      what holds K2: mode 0 T = 3 and mode 2 T = 1, zero and pan flow, and a
      copy of K2's bytes (the card's reachable rate); the flow a source
-     frame at radius 16 and 5 (in turns on one server), K3's and K4's
-     launches a source frame, and K3 and K4 on one 4K HDR flow's 16 steps
-     at radius 16 and 5, graph-timed, with their plain versions, host us a
-     call and bound (the largest of HBM bytes, L2 bytes over this run's L2
-     read rate and int32 operations);
+     frame at radius 16 and 5 (in turns on one server), the flow_step,
+     standalone K3 and K4 calls a source frame, and K3 (with its fill, and
+     alone as flow_step launches it), K4 and flow_step on one 4K HDR flow's
+     16 steps at radius 16 and 5, graph-timed, with their plain versions,
+     host us a call and bound (the largest of HBM bytes, L2 bytes over this
+     run's L2 read rate and int32 operations), and K3's and K4's timing
+     variants (gathers at the cell's own pixel, one store a thread in place
+     of the reduction, an empty launch of each grid, K4's serial scan, K4
+     without its scan, K4 without its offsets' loads);
   7. the parallel path:
      7a. K2's mesh-sharded variant (warp_frames_band) against its plain
      version for every shard, and the shards stacked against the full K2:
@@ -76,15 +86,16 @@ sm_90a), then runs these phases, one line each:
      7b. batched_step on two 4K HDR streams (panning 3 px/frame, radius 16,
      three steps): outputs, flow and delta against the single-stream path
      (pyramid_flow + K2), and against the same run on the plain versions;
-     K1-K4 must each have launched;
+     K1, flow_step and K2 must each have launched;
      7c. make_multichip_step through launch.run_ranks at 4K HDR, rs 3, modes
      2-6, t_batch 3, on meshes (1, 2) and (2, 1) of ranks sharing this card
      over gloo (and (1, 4), (2, 2) over NCCL where four cards are visible):
      each rank writes its outputs to an .npz, held byte for byte to 7b's
      single-device results (modes 3-6: warp_viz.warp_outputs on the full
      frame); every rank must have launched the band kernel in modes 2, 5
-     and 6, its raw_blend variant in mode 3, and neither in mode 4, K3 and
-     K4 in every mode, and no
+     and 6, its raw_blend variant in mode 3, and neither in mode 4, the
+     standalone K3 and K4 (the mesh gathers the layer shards between them)
+     in every mode, and no
      rank may load a module of jax or of the JAX package. Its numbers: each
      rank's second step in each mode (CUDA events in the ranks);
   8. the probes P1-P4 (hopperrender_tpu_torch/probes/):
@@ -115,9 +126,10 @@ sm_90a), then runs these phases, one line each:
      --status-port 0 --stats`, two processes at once, on 12 panning 1080p
      SDR frames, mode 2, 24 -> 60, the scaler off: both Y4M outputs byte-equal
      to each other and to the stream through FrameServers in this process on
-     the kernels and on the plain versions; each CLI process's K1-K4
-     counters (set to 0 before, printed at exit; each must have moved) and
-     the native ring loaded;
+     the kernels and on the plain versions; each CLI process's K1, K2,
+     flow_step, K3 and K4 counters (set to 0 before, printed at exit; K1, K2
+     and flow_step must have moved, 16 flow_step calls a flow, no
+     standalone K3 or K4) and the native ring loaded;
      9b. the four pinned-digest streams of tests/fixtures/digests.json;
      9c. PipelinedServer with the StatusServer, 4K HDR P010 24 -> 60, mode
      2, levels 16/235, the quality scaler on, 40 panning frames, /metrics
@@ -135,7 +147,8 @@ sm_90a), then runs these phases, one line each:
      --radius 16`, and `--config 4k-hdr --radius 16` and `--radius 5` in
      turns (16, 5, 5, 16): the last line's metric, a radius bucket, a
      positive value and vs_baseline = 41.667 / value, not partial, not
-     bench_failed, and K1-K4 launched in each run;
+     bench_failed, and K1, flow_step (16 a flow) and K2 launched in each
+     run;
      10b. the bench units (flow_unit at radius 16, warp_unit and
      warp_batch_unit in modes 0/1/2) on 4K HDR panning frames on the card
      against the same calls on a CPU engine, exactly;
@@ -150,11 +163,14 @@ ranks of 7c and the CLI's processes of 9a start at 0). Then one JSON line of
 the kernels
 (with each one's bound: the least time the card could take for its work;
 `ms` the graph-timed time on random flow, `smooth_ms` on smooth flow for
-K1, K2, raw_blend and the band, and their `host_us`; K1's to K4's
-`cli_launches` in 9a's two CLI processes and `bench_launches` in 10a's
-runs; K3's and K4's ms, plain_ms, host_us and bound a call over one 4K
-HDR flow at radius 16 (`r5` at radius 5), `launches_per_source_frame`,
-`batched_launches` (7b) and `mesh_launches` (7c's ranks); the band's
+K1, K2, raw_blend and the band, and their `host_us`; K1's, K2's,
+flow_step's, K3's and K4's `cli_launches` in 9a's two CLI processes and
+`bench_launches` in 10a's runs; flow_step's, K3's and K4's ms, plain_ms,
+host_us and bound a call over one 4K HDR flow at radius 16 (`r5` at radius
+5), `launches_per_source_frame`, `batched_launches` (7b) and
+`mesh_launches` (7c's ranks), flow_step's `launches` those of the served
+slice (phase 5), K3's and K4's those of the mesh (7c), their path, with
+`main_path_launches` (0) beside them, and K3's timing `variants`; the band's
 `launches` over
 7c's modes 2, 5 and 6, and `launches_by_mode` (mode 3: its raw_blend
 variant's); for the probes `ms`
@@ -310,21 +326,22 @@ def import_port() -> types.SimpleNamespace:
 @contextlib.contextmanager
 def plain_versions(port):
     """Points the K1, K2, K3 and K4 wrappers' module attributes (K2's
-    mesh-sharded variant too) at their plain versions while the block runs;
-    their callers (ops/flow.py, ops/warp_viz.warp_outputs, parallel/mesh.py)
-    look them up at call time."""
+    mesh-sharded variant and the pyramid step too) at their plain versions
+    while the block runs; their callers (ops/flow.py, ops/warp_viz.warp_outputs,
+    parallel/mesh.py) look them up at call time."""
     wk, cv = port.warp_kernel, port.cost_volume_kernel
     kernels = (port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band, cv.delta_sums,
-               cv.commit_winners)
+               cv.commit_winners, cv.flow_step)
     port.blur_kernel.blur_flow = port.blur_kernel.blur_flow_reference
     wk.warp_frames = wk.warp_frames_reference  # raw_blend too
     wk.warp_frames_band = wk.warp_frames_band_reference
     cv.delta_sums, cv.commit_winners = cv.delta_sums_reference, cv.commit_winners_reference
+    cv.flow_step = cv.flow_step_reference
     try:
         yield
     finally:
         (port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band, cv.delta_sums,
-         cv.commit_winners) = kernels
+         cv.commit_winners, cv.flow_step) = kernels
 
 
 def device_profile(prof, wall_s: float) -> tuple[float, int, dict[str, float]]:
@@ -344,7 +361,8 @@ def device_profile(prof, wall_s: float) -> tuple[float, int, dict[str, float]]:
         name = e.name
         kind = ("K1 blur_flow" if "blur_flow_kernel" in name else
                 "K2 warp" if "warp_plane_kernel" in name else
-                "K3 delta_sums" if "delta_sums_kernel" in name or "fill_sums_kernel" in name else
+                "K3 delta_sums" if "delta_sums_kernel" in name else
+                "K3's fill" if "fill_sums_kernel" in name else
                 "K4 commit_winners" if "commit_winners_kernel" in name else
                 "memcpy DtoH" if "DtoH" in name else
                 "memcpy HtoD" if "HtoD" in name else
@@ -806,6 +824,7 @@ def launch_counters(port) -> dict:
             "warp_frames": (wk.warp_frames, "launches"),
             "warp_frames_raw_blend": (wk.warp_frames, "raw_launches"),
             "warp_frames_band": (wk.warp_frames_band, "launches"),
+            "flow_step": (cv.flow_step, "launches"),
             "delta_sums": (cv.delta_sums, "launches"),
             "commit_winners": (cv.commit_winners, "launches")}
 
@@ -819,7 +838,12 @@ def read_launches(port) -> dict[str, int]:
     return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters(port).items()}
 
 
-FLOW_KERNELS = ("delta_sums", "commit_winners", "blur_flow")   # every path that computes flow
+# The flow's kernels: the main path's (pyramid_flow: a flow_step call a
+# pyramid step, K3 then K4, then K1) and the mesh's (K3 on each layer shard,
+# the all-gather, K4 on the gathered sums, then K1).
+FLOW_KERNELS = ("flow_step", "blur_flow")
+MESH_FLOW_KERNELS = ("delta_sums", "commit_winners")
+STEPS_PER_FLOW = 16          # a 270 x 480 grid's schedule: 8 windows, two steps each
 
 
 def require_launched(launches: dict, names, what: str) -> None:
@@ -828,6 +852,16 @@ def require_launched(launches: dict, names, what: str) -> None:
     if missing:
         raise AssertionError(f"{what}: kernels of the path never launched: {missing} "
                              f"({launches})")
+
+
+def require_pyramid_path(launches: dict, what: str) -> None:
+    """Raise unless every flow of the run went through flow_step, a call a
+    pyramid step (STEPS_PER_FLOW for each K1 launch, one a flow), and no
+    standalone K3 or K4 launched."""
+    if launches["flow_step"] != STEPS_PER_FLOW * launches["blur_flow"] or any(
+            launches[k] for k in MESH_FLOW_KERNELS):
+        raise AssertionError(f"{what}: not {STEPS_PER_FLOW} flow_step calls a flow and no "
+                             f"standalone K3/K4: {launches}")
 
 
 def cadence_count(port, n_frames: int) -> int:
@@ -1003,11 +1037,60 @@ def pyramid_parity(port, dev, radius: int) -> tuple[int, int]:
     return int(got[2]), err
 
 
+FLOW_STEP_RADII = (5, 12, 16)
+
+
+def flow_step_parity(port, dev, geometry: str, radius: int) -> tuple[int, int]:
+    """flow_step against flow_step_reference, exactly, over every step of a
+    pan's pyramid at one geometry and radius (the engine's layers): after
+    each step the offsets (and after step 0 the raw delta) against
+    flow_step_reference run from the offsets that step saw, and K3's sums
+    (state.step_sums) against delta_sums_reference; then the same pyramid on
+    a second state gives every step's sums and offsets bit for bit again
+    (the atomics' order does not show). Returns (steps, max |err|)."""
+    cv = port.cost_volume_kernel
+    h, w, is_hdr = CV_GEOMETRIES[geometry]
+    rs, low_h, low_w = port.config.calc_flow_dims(h, w, port.config.MAX_CALC_RES)
+    frames = [torch.tensor(np.ascontiguousarray(a), device=dev)
+              for f in panning_frames(port, h, w, 2, is_hdr=is_hdr) for a in f]
+    kw = dict(low_h=low_h, low_w=low_w, res_scalar=rs, is_hdr=is_hdr,
+              num_layers=radius_layers(port, radius),
+              schedule=port.flow_ops.window_schedule(low_h, low_w))
+    runs, err = [], 0
+    for run in range(2):
+        state, plain = (cv.PyramidState(*frames, radius, 8, 6, **kw) for _ in range(2))
+        got = []
+        for k, (iteration, window, step) in enumerate(state.steps):
+            before = state.offsets.clone()
+            cv.flow_step(state, k)
+            got.append((state.step_sums(k).clone(), state.offsets.clone()))
+            if run:
+                continue
+            what = f"flow_step {geometry} r{radius} step {k} (it{iteration} w{window} s{step})"
+            plain.offsets.copy_(before)
+            cv.flow_step_reference(plain, k)
+            err = max(err, require_equal(state.offsets, plain.offsets, what + " offsets"))
+            if k == 0:
+                err = max(err, require_equal(state.delta, plain.delta, what + " raw delta"))
+            want = cv.delta_sums_reference(*frames, before, radius, 8, 6, window_size=window,
+                                           res_scalar=rs, iteration=iteration, step=step,
+                                           is_hdr=is_hdr, num_layers=kw["num_layers"])
+            err = max(err, require_equal(got[-1][0], want[:radius], what + " K3 sums"))
+        runs.append(got)
+    for k, (a, b) in enumerate(zip(*runs)):
+        for x, y, what in zip(a, b, ("sums", "offsets")):
+            require_equal(x, y, f"flow_step {geometry} r{radius} step {k} {what}, run twice")
+    if not int(runs[0][-1][1].abs().max()):
+        raise AssertionError(f"flow_step {geometry} r{radius}: no motion found on a pan")
+    return len(runs[0]), err
+
+
 def cost_volume_phase(port, dev) -> int:
     """Phase 3b: cost_volume_parity at both geometries and every radius of
-    CV_RADII, cost_volume_shards at both geometries and radius 12 and 16, and
+    CV_RADII, cost_volume_shards at both geometries and radius 12 and 16,
+    flow_step_parity at both geometries and FLOW_STEP_RADII, and
     pyramid_parity at radius 16 and 5. Returns the largest |err| (0)."""
-    err, n_k3, n_k4, n_shards = 0, 0, 0, 0
+    err, n_k3, n_k4, n_shards, n_steps = 0, 0, 0, 0, 0
     for geometry in CV_GEOMETRIES:
         for radius in CV_RADII:
             k3, k4, e = cost_volume_parity(port, dev, geometry, radius)
@@ -1015,6 +1098,9 @@ def cost_volume_phase(port, dev) -> int:
         for radius in (12, 16):
             n, e = cost_volume_shards(port, dev, geometry, radius)
             n_shards, err = n_shards + n, max(err, e)
+        for radius in FLOW_STEP_RADII:
+            n, e = flow_step_parity(port, dev, geometry, radius)
+            n_steps, err = n_steps + n, max(err, e)
     torch.cuda.synchronize()
     deltas = {}
     for radius in (16, 5):
@@ -1025,9 +1111,11 @@ def cost_volume_phase(port, dev) -> int:
         f"engine's layers; every (iteration, window) of the schedule, both steps; offsets "
         f"random +-64 and near +-32767; scalars 8/6 and 10/10; K4 new and in place) and "
         f"{n_shards} K3 layer shards (sp 2 and 4, radius 12 and 16, stacked equal to the full "
-        f"K3) equal to the plain versions; pyramid_flow on 4K HDR panning frames at radius 16 "
-        f"and 5 equal to the plain run (offsets, blurred flow, total_delta_raw {deltas}); "
-        f"max |err| {err}")
+        f"K3) equal to the plain versions; {n_steps} flow_step calls (every step of a pan's "
+        f"pyramid at both geometries, radius {'/'.join(map(str, FLOW_STEP_RADII))}) equal to "
+        f"flow_step_reference (offsets, raw delta, K3's sums) and to themselves run twice; "
+        f"pyramid_flow on 4K HDR panning frames at radius 16 and 5 equal to the plain run "
+        f"(offsets, blurred flow, total_delta_raw {deltas}); max |err| {err}")
     return err
 
 
@@ -1107,6 +1195,9 @@ def cost_volume_numbers(port, dev, l2_rate: float) -> dict:
 
         k3_ms = graph_ms(k3_flow, 5) / n
         k4_ms = graph_ms(k4_flow, 5) / n
+        variants = cost_volume_variants(port, frames, steps, radius, layers)
+        step = flow_step_numbers(port, frames, radius, layers) if hasattr(
+            cv, "flow_step") else None
         for before, kw, sums, _ in steps:   # the atomics' order does not change the sums
             if not torch.equal(cv.delta_sums(*frames, before, radius, 8, 6, **kw), sums):
                 raise AssertionError(f"K3 r{radius}: a call differs from its first")
@@ -1137,7 +1228,81 @@ def cost_volume_numbers(port, dev, l2_rate: float) -> dict:
                                       "bound_ms": bound3, "bound_by": max(by3, key=by3.get)},
                        "commit_winners": {"ms": k4_ms, "plain_ms": plain4, "host_us": host4,
                                           "bound_ms": bound4, "bound_by": max(by4, key=by4.get)},
-                       "calls_per_flow": n}
+                       "calls_per_flow": n, "variants": variants}
+        if step is not None:
+            out[radius]["flow_step"] = dict(step, bound_ms=bound3 + bound4,
+                                            bound_by=max(by3, key=by3.get))
+    return out
+
+
+def flow_step_numbers(port, frames, radius: int, layers: int) -> dict:
+    """flow_step on one 4K HDR flow's steps (its own pyramid, reset before
+    each flow, the reset's one fill included): graph-timed device ms a step
+    (five flows captured in one CUDA graph, the mean), the plain version's
+    ms a step (CUDA events), and host us a wrapper call."""
+    cv = port.cost_volume_kernel
+    low_h, low_w = LOW[1:]
+    state = cv.PyramidState(*frames, radius, 8, 6, low_h=low_h, low_w=low_w, res_scalar=3,
+                            is_hdr=True, num_layers=layers,
+                            schedule=port.flow_ops.window_schedule(low_h, low_w))
+    n = len(state.steps)
+
+    def flow(fn=cv.flow_step):
+        state.reset()
+        for k in range(n):
+            fn(state, k)
+
+    ms = graph_ms(flow, 5) / n
+    plain_ms = (time_ms(lambda: flow(cv.flow_step_reference), 1)
+                + time_ms(lambda: flow(cv.flow_step_reference), 1)) / (2 * n)
+    return {"ms": ms, "plain_ms": plain_ms,
+            "host_us": host_us(lambda: cv.flow_step(state, 0), 200)}
+
+
+# Timing variants (csrc/cost_volume.cu, hrt_delta_sums_probe and
+# hrt_commit_winners_probe): name -> (entry point, variant).
+CV_VARIANTS = {"K3 alone (no fill)": ("hrt_delta_sums_probe", 0),
+               "K3 gathers at the cell's own pixel": ("hrt_delta_sums_probe", 1),
+               "K3 one store a thread, no reduction": ("hrt_delta_sums_probe", 2),
+               "K3's grid, empty": ("hrt_delta_sums_probe", 3),
+               "K4 unrolled scan": ("hrt_commit_winners_probe", 0),
+               "K4 serial scan": ("hrt_commit_winners_probe", 1),
+               "K4's grid, empty": ("hrt_commit_winners_probe", 2),
+               "K4 no scan": ("hrt_commit_winners_probe", 3),
+               "K4 no offsets read": ("hrt_commit_winners_probe", 4)}
+
+
+def cost_volume_variants(port, frames, steps, radius: int, layers: int) -> dict:
+    """Graph-timed device ms a call of each of CV_VARIANTS over one flow's
+    steps (K3's on each step's offsets, into a scratch sums buffer that is
+    never read; K4's on each step's sums), the mean a call. {} where the
+    library has no such entry point (a tree from before them)."""
+    lib = port._build.load().lib
+    if not all(hasattr(lib, entry) for entry, _ in CV_VARIANTS.values()):
+        return {}
+    f1y, f1uv = frames[:2]
+    low_h, low_w = steps[0][0].shape[1:]
+    dev_index = f1y.get_device()
+    scratch = torch.empty(layers * low_h * low_w, dtype=torch.int32, device=f1y.device)
+    probe_out = torch.empty(low_h * low_w, dtype=torch.int32, device=f1y.device)
+    bufs = [before.clone() for before, *_ in steps]
+    out = {}
+    for name, (entry, variant) in CV_VARIANTS.items():
+        def flow(entry=entry, variant=variant):
+            for (before, kw, sums, _), buf in zip(steps, bufs):
+                w = kw["window_size"]
+                if entry == "hrt_delta_sums_probe":
+                    port._build.launch(
+                        entry, dev_index, variant, *(t.data_ptr() for t in frames),
+                        before.data_ptr(), scratch.data_ptr(), probe_out.data_ptr(),
+                        *f1y.shape, *f1uv.shape, low_h, low_w, radius, 8, 6, w, 3,
+                        int(kw["iteration"] >= port.config.FIRST_NEIGHBOR_ITERATION),
+                        kw["step"], layers)
+                else:
+                    port._build.launch(entry, dev_index, variant, buf.data_ptr(),
+                                       buf.data_ptr(), sums.data_ptr(), low_h, low_w,
+                                       sums.shape[0], radius, w, kw["step"])
+        out[name] = graph_ms(flow, 5) / len(steps)
     return out
 
 
@@ -1146,7 +1311,9 @@ def format_cost_volume(numbers: dict) -> str:
         f"r{r}: " + ", ".join(f"{k} {v['ms']:.5f} ms a call ({v['ms'] * d['calls_per_flow']:.4f} "
                               f"a flow), bound {v['bound_ms']:.5f} ({v['bound_by']}), host "
                               f"{v['host_us']:.1f} us/call, plain {v['plain_ms']:.4f} ms"
-                              for k, v in d.items() if k != "calls_per_flow")
+                              for k, v in d.items() if k not in ("calls_per_flow", "variants"))
+        for r, d in numbers.items()) + "; variants (graph-timed ms a call): " + "; ".join(
+        f"r{r}: " + ", ".join(f"{k} {v:.5f}" for k, v in d.get("variants", {}).items())
         for r, d in numbers.items())
 
 
@@ -1311,7 +1478,7 @@ def parallel_path(port, dev, card: str) -> dict:
                      delta_scalar=scal[1], neighbor_scalar=scal[2], black=black, white=white)
                 for mode in mesh_modes]
         mesh_launches, mesh_raw_launches, mode_launches, mesh_lines = 0, 0, {}, []
-        flow_launches = {"delta_sums": 0, "commit_winners": 0}
+        flow_launches = {k: 0 for k in MESH_FLOW_KERNELS}
         for dp, sp in meshes:
             for job in jobs:
                 job["out_path"] = os.path.join(tmp, f"mesh{dp}x{sp}.mode{job['mode']}."
@@ -1385,7 +1552,7 @@ def parallel_path(port, dev, card: str) -> dict:
             "smooth_ms": band["smooth_ms"], "host_us": band["host_us"],
             "plain_ms": band["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}, {
-                "batched": {k: batched_launches[k] for k in flow_launches},
+                "batched": {k: batched_launches[k] for k in ("flow_step", *flow_launches)},
                 "mesh": flow_launches}
 
 
@@ -1725,13 +1892,14 @@ CLI_WITH_COUNTERS = """
 import json, runpy, sys
 from hopperrender_tpu_torch.ops import blur_kernel, cost_volume_kernel, warp_kernel
 k1, k2 = blur_kernel.blur_flow, warp_kernel.warp_frames
-k3, k4 = cost_volume_kernel.delta_sums, cost_volume_kernel.commit_winners
-k1.launches = k2.launches = k2.raw_launches = k3.launches = k4.launches = 0
+cv = cost_volume_kernel
+step, k3, k4 = cv.flow_step, cv.delta_sums, cv.commit_winners
+k1.launches = k2.launches = k2.raw_launches = step.launches = k3.launches = k4.launches = 0
 try:
     runpy.run_module("hopperrender_tpu_torch", run_name="__main__", alter_sys=True)
 finally:
     print("launches " + json.dumps({"blur_flow": k1.launches, "warp_frames": k2.launches,
-                                    "delta_sums": k3.launches,
+                                    "flow_step": step.launches, "delta_sums": k3.launches,
                                     "commit_winners": k4.launches}),
           file=sys.stderr, flush=True)
 """
@@ -1817,6 +1985,7 @@ def cli_phase(port, dev, tmp: str) -> dict:
                                            for k, v in results.items()}}
     for run, count in counts.items():
         require_launched(count, FLOW_KERNELS + ("warp_frames",), f"9a, {run}")
+        require_pyramid_path(count, f"9a, {run}")
     outputs = {}
     for name in ("interpolate", "serve", "kernels", "plain"):
         with open(os.path.join(tmp, f"{name}.y4m"), "rb") as f:
@@ -2130,6 +2299,7 @@ def bench_phase(port, dev, card: str, flow16_ms: float | None) -> dict:
             raise AssertionError(f"bench {name}: exit code {rc}: {lines[-1:]}")
         bench_result(port, lines, f"{prefix}_flow_plus_warp_per_source_frame", f"bench {name}")
         require_launched(launches[name], FLOW_KERNELS + ("warp_frames",), f"bench {name}")
+        require_pyramid_path(launches[name], f"bench {name}")
         lines_by_run[name] = lines
     n_units = bench_units_on_the_card(port, dev)
     out = subprocess.run([sys.executable, "-m", "hopperrender_tpu_torch.bench",
@@ -2221,8 +2391,8 @@ def main(argv: list[str]) -> int:
     if args.parallel_only:
         band_entry, flow_launches = parallel_path(port, dev, card)
         return finish(port, [band_entry] + [
-            {"name": k, "batched_launches": flow_launches["batched"][k], "mesh_launches": n}
-            for k, n in flow_launches["mesh"].items()], card, kind)
+            {"name": k, "batched_launches": n, "mesh_launches": flow_launches["mesh"].get(k, 0)}
+            for k, n in flow_launches["batched"].items()], card, kind)
     if args.bench_only:
         launches = bench_phase(port, dev, card, None)
         return finish(port, [{"name": name, "bench_launches": {run: n[name] for run, n in
@@ -2379,6 +2549,7 @@ def main(argv: list[str]) -> int:
     if n_interp == 0:
         raise AssertionError("no interpolated output")
     require_launched(launches, FLOW_KERNELS + ("warp_frames",), "phase 5")
+    require_pyramid_path(launches, "phase 5")
     for o in outs:
         if o.y.shape != (H, W) or o.uv.shape != (H // 2, W) or o.y.dtype != np.uint16:
             raise AssertionError(f"output shape/dtype {o.y.shape} {o.uv.shape} {o.y.dtype}")
@@ -2445,6 +2616,8 @@ def main(argv: list[str]) -> int:
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - start
     busy_s, n_events, kinds = device_profile(prof, prof_wall)
+    if "K3's fill" in kinds:
+        raise AssertionError(f"the served path launched K3's fill: {kinds}")
     per_frame = lambda v: v / N_PROFILED
     by_kind = ", ".join(f"{k} {per_frame(v):.3f}"
                         for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
@@ -2475,9 +2648,10 @@ def main(argv: list[str]) -> int:
         f"median of {flows}, CUDA events); in turns on one server: radius 16 "
         f"{ms(turns[16]):.3f}, radius 5 {ms(turns[5]):.3f} (medians of {len(turns[16])} and "
         f"{len(turns[5])}; each: {', '.join(f'{1e3 * t:.3f}' for t in turns[16])} / "
-        f"{', '.join(f'{1e3 * t:.3f}' for t in turns[5])}); a source frame launched K3 "
-        f"{launches['delta_sums'] / flows:.1f} and K4 {launches['commit_winners'] / flows:.1f} "
-        f"times (phase 5)")
+        f"{', '.join(f'{1e3 * t:.3f}' for t in turns[5])}); a source frame made "
+        f"{launches['flow_step'] / flows:.1f} flow_step calls (K3 then K4) and "
+        f"{launches['delta_sums'] / flows:.1f} standalone K3 and "
+        f"{launches['commit_winners'] / flows:.1f} standalone K4 calls (phase 5)")
     log(f"phase 6 K3/K4 [{card}] (4K HDR panning frames, one flow's "
         f"{cost_volume[16]['calls_per_flow']} calls captured in a CUDA graph, the mean a "
         f"call; bound: the largest of HBM bytes "
@@ -2534,25 +2708,37 @@ def main(argv: list[str]) -> int:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None
         k["host_us"] = v["host_us"]
-    # K3 and K4: ms, plain_ms, host_us and the bound are a call's, the mean over
-    # one 4K HDR flow's 16 calls at radius 16 (r5: at radius 5). library_ms is
-    # null: no single PyTorch call computes either function (a gathered,
-    # mirrored, windowed sum of absolute differences; a first-minimum argmin
-    # over uint32 committed into int16 offsets).
-    for name in ("delta_sums", "commit_winners"):
+    # flow_step (K3 then K4, the main path's one call a pyramid step), K3 and K4
+    # (the mesh's standalone calls): ms, plain_ms, host_us and the bound are a
+    # call's, the mean over one 4K HDR flow's 16 calls at radius 16 (r5: at
+    # radius 5); flow_step's ms includes the reset of its state (one fill a
+    # flow), its bound is K3's and K4's. delta_sums' ms includes its fill
+    # launch; "variants" holds K3 alone (as flow_step launches it) and the
+    # timing variants. `launches`: flow_step's on the main path (phase 5),
+    # K3's and K4's on their path, the mesh (7c), where phase 5 launched
+    # none. library_ms is null: no single PyTorch call computes either
+    # function (a gathered, mirrored, windowed sum of absolute differences; a
+    # first-minimum argmin over uint32 committed into int16 offsets).
+    for name in ("flow_step", "delta_sums", "commit_winners"):
         v = cost_volume[16][name]
+        on_mesh = name in MESH_FLOW_KERNELS
         kernels.append({
             "name": name, "route": "cuda", "source": "hopperrender_tpu_torch/csrc/cost_volume.cu",
             "replaces": "no pallas_call: hopperrender_tpu/ops/flow.py:63 / :178-201 (reference "
                         "calcDeltaSums / determineLowestLayer + adjustOffsetArray)",
-            "launches": launches[name], "launches_per_source_frame": launches[name] / flows,
+            "launches": parallel_flow_launches["mesh"][name] if on_mesh else launches[name],
+            "launches_path": "7c make_multichip_step" if on_mesh else "phase 5 served slice",
+            "main_path_launches": launches[name],
+            "launches_per_source_frame": launches[name] / flows,
             "max_abs_err": cost_volume_err, "ms": v["ms"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"], "library_ms": None,
             "host_us": v["host_us"], "r5": cost_volume[5][name],
+            "variants": {r: cost_volume[r]["variants"] for r in (16, 5)} if name == "delta_sums"
+            else None,
             "cli_launches": {c: r["launches"][name] for c, r in cli["results"].items()},
             "bench_launches": {run: n[name] for run, n in bench_launches.items()},
             "batched_launches": parallel_flow_launches["batched"][name],
-            "mesh_launches": parallel_flow_launches["mesh"][name]})
+            "mesh_launches": parallel_flow_launches["mesh"].get(name, 0)})
     return finish(port, kernels + [band_entry] + probe_entries, card, kind)
 
 

@@ -56,6 +56,19 @@ SIGNATURES = {
     # K4 (in, out, sums, low_h, low_w, n_win_y, n_win_x, num_layers, radius, window_size,
     #  step, stream)
     "hrt_commit_winners": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # One pyramid step, K3 then K4 (f1y, f1uv, f2y, f2uv, offsets, sums, next_sums, delta_out,
+    #  dim_y, dim_x, uv_h, uv_w, low_h, low_w, radius, delta_scalar, neighbor_scalar,
+    #  window_size, next_window, res_scalar, neighbors, step, num_layers, is_hdr, stream)
+    "hrt_flow_step": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _P),
+    # K3 alone in a timing variant (variant, f1y, f1uv, f2y, f2uv, offsets, sums, probe_out,
+    #  dim_y, dim_x, uv_h, uv_w, low_h, low_w, radius, delta_scalar, neighbor_scalar,
+    #  window_size, res_scalar, neighbors, step, num_layers, stream)
+    "hrt_delta_sums_probe": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _P),
+    # K4 in a timing variant (variant, in, out, sums, low_h, low_w, num_layers, radius,
+    #  window_size, step, stream)
+    "hrt_commit_winners_probe": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (stream): an empty kernel, the floor under a launch-bound kernel's time
     "hrt_empty_launch": (_P,),
     # (kind, threads, src, out, stream): that floor taken apart

@@ -6,16 +6,22 @@ Neither replaces a pallas_call: the JAX package runs both in XLA
 adjust_offsets). They are the reference's calcDeltaSums and
 determineLowestLayer + adjustOffsetArray (ref: opticalFlowCalcSDR.cpp:67-116).
 
+  * `flow_step` (K3 then K4): one step of the pyramid on a `PyramidState`,
+    which one flow builds once (its checks, its offsets, its two sums
+    buffers used in turn and the raw frame delta). One wrapper call a step,
+    the path of ops/flow.pyramid_flow. Plain version `flow_step_reference`.
   * `delta_sums` (K3): the compact window sums of one step, (num_layers,
     n_win_y, n_win_x) uint32 held in an int32 tensor; global layers >= radius
-    are 0xFFFFFFFF. Plain version `delta_sums_reference`.
+    are 0xFFFFFFFF. Plain version `delta_sums_reference`. The mesh's layer
+    shards (parallel/mesh.py) call it, and all-gather between K3 and K4.
   * `commit_winners` (K4): each window's first minimum over layers
     [0, min(radius, num_layers)), compared as uint32, committed to the
     offsets' plane step & 1. Plain version `commit_winners_reference`.
 
-Each launches its CUDA kernel for CUDA tensors and takes its plain version
-only for CPU tensors; any other device raises. Counters: `delta_sums.launches`
-and `commit_winners.launches`.
+Each launches its CUDA kernels for CUDA tensors and takes its plain version
+only for CPU tensors; any other device raises. Counters: `flow_step.launches`,
+`delta_sums.launches` and `commit_winners.launches` (each wrapper's own
+calls).
 
 Integer semantics follow the reference exactly: int16 offsets wrap (sums in
 int32 narrowed with .to(int16)); uint32 window sums wrap (the plain version
@@ -36,6 +42,7 @@ from hopperrender_tpu_torch.ops.warp import to_int32
 MAX_R = config.MAX_SEARCH_RADIUS
 UINT32_MASK = 0xFFFFFFFF
 MAX_SHIFT = 31   # the kernel's uint32 shifts; config keeps the scalars in [0, 10]
+MAX_INDEX = 2 ** 31   # the kernels index planes with 32-bit ints
 
 
 def _signed_square(rel: torch.Tensor) -> torch.Tensor:
@@ -159,10 +166,9 @@ def delta_sums(
     window_size: int, res_scalar: int, iteration: int, step: int, is_hdr: bool,
     num_layers: int = MAX_R, layer_offset: int = 0,
 ) -> torch.Tensor:
-    """K3 wrapper: equal to delta_sums_reference. Launches the CUDA kernel on
+    """K3 wrapper: equal to delta_sums_reference. Launches the CUDA kernels on
     CUDA tensors (on the current stream, no synchronisation): the sums
-    buffer is filled, then summed with atomics; a CPU tensor takes the plain
-    version."""
+    buffer is filled, then summed; a CPU tensor takes the plain version."""
     if offsets.dtype != torch.int16 or offsets.dim() != 3 or offsets.shape[0] != 2:
         raise ValueError(f"delta_sums takes (2, low_h, low_w) int16 offsets, got "
                          f"{tuple(offsets.shape)} {offsets.dtype}")
@@ -176,21 +182,11 @@ def delta_sums(
         return delta_sums_reference(*planes, offsets, radius, delta_scalar, neighbor_scalar,
                                     **kw)
     _check_cuda("delta_sums", *planes, offsets)
-    dtype = torch.uint16 if is_hdr else torch.uint8
-    if any(p.dtype != dtype for p in planes):
-        raise ValueError(f"delta_sums: planes must be {dtype} (is_hdr={is_hdr})")
-    dim_y, dim_x = f1y.shape
-    uv_h, uv_w = f1uv.shape
-    if f2y.shape != f1y.shape or f2uv.shape != f1uv.shape:
-        raise ValueError("delta_sums: the two frames' planes differ in shape")
-    if not 1 <= num_layers <= MAX_R or radius < 1 or layer_offset < 0:
-        raise ValueError(f"delta_sums: num_layers {num_layers} outside [1, {MAX_R}], radius "
-                         f"{radius} or layer_offset {layer_offset} below range")
-    if window_size < 1 or window_size & (window_size - 1):
-        raise ValueError(f"delta_sums: window_size {window_size} is not a power of two")
-    if not (0 <= delta_scalar <= MAX_SHIFT and 0 <= neighbor_scalar <= MAX_SHIFT):
-        raise ValueError(f"delta_sums: scalars {delta_scalar}, {neighbor_scalar} outside "
-                         f"[0, {MAX_SHIFT}]")
+    dim_y, dim_x, uv_h, uv_w = _plane_dims("delta_sums", planes, is_hdr, (offsets,))
+    if layer_offset < 0:
+        raise ValueError(f"delta_sums: layer_offset {layer_offset} below range")
+    _check_scalars("delta_sums", radius, delta_scalar, neighbor_scalar, num_layers,
+                   (window_size,))
     n_win_y, n_win_x = -(-low_h // window_size), -(-low_w // window_size)
     sums = offsets.new_empty((num_layers, n_win_y, n_win_x), dtype=torch.int32)
     neighbors = iteration >= config.FIRST_NEIGHBOR_ITERATION
@@ -278,6 +274,150 @@ def commit_winners(offsets: torch.Tensor, sums: torch.Tensor, radius: int, *,
 
 
 commit_winners.launches = 0
+
+
+class PyramidState:
+    """One flow's pyramid on one device: the frames and scalars, the steps
+    ((iteration, window, step) of each schedule entry, both steps each), the
+    offsets (2, low_h, low_w) int16 and the raw frame delta (0-dim int64,
+    uint32 value, written at iteration 0 step 0), both zeroed. Built once a
+    flow: on CUDA tensors it checks what the kernels take (as delta_sums
+    does), allocates one workspace (the delta, the offsets and two sums
+    buffers used in turn, each for the finest window), zeroes the delta, the
+    offsets and the first step's sums with one fill, and prepares every
+    step's launch arguments, so that flow_step does no check. Belongs to one
+    flow on one stream: never share it between two streams."""
+
+    def __init__(self, f1y, f1uv, f2y, f2uv, radius: int, delta_scalar: int,
+                 neighbor_scalar: int, *, low_h: int, low_w: int, res_scalar: int,
+                 is_hdr: bool, num_layers: int, schedule):
+        self.frames = (f1y, f1uv, f2y, f2uv)
+        self.radius, self.delta_scalar, self.neighbor_scalar = (radius, delta_scalar,
+                                                                neighbor_scalar)
+        self.res_scalar, self.is_hdr, self.num_layers = res_scalar, is_hdr, num_layers
+        self.steps = [(it, window, step) for it, window in schedule for step in (0, 1)]
+        self.device = f1y.device
+        if all(t.device.type == "cpu" for t in self.frames):
+            self.offsets = torch.zeros((2, low_h, low_w), dtype=torch.int16)
+            self.delta = torch.zeros((), dtype=torch.int64)
+            return
+        _check_cuda("flow_step", *self.frames)
+        dims = _plane_dims("flow_step", self.frames, is_hdr)
+        if not 0 < radius <= num_layers:
+            raise ValueError(f"flow_step: radius {radius} outside (0, num_layers={num_layers}]")
+        _check_scalars("flow_step", radius, delta_scalar, neighbor_scalar, num_layers,
+                       [w for _, w, _ in self.steps])
+        if 2 * low_h * low_w >= MAX_INDEX:
+            raise ValueError(f"flow_step: a ({low_h}, {low_w}) flow grid exceeds 2**31 offsets")
+        n_win = [-(-low_h // w) * -(-low_w // w) for _, w, _ in self.steps]
+        buf = -(-num_layers * max(n_win, default=0) // 4) * 4       # words, 16-byte multiples
+        off_bytes = -(-4 * low_h * low_w // 16) * 16
+        first = 4 * radius * n_win[0] if n_win else 0
+        ws = torch.empty(16 + off_bytes + 8 * buf, dtype=torch.uint8, device=self.device)
+        self.delta = ws[:8].view(torch.int64)[0]
+        self.offsets = ws[16:16 + 4 * low_h * low_w].view(torch.int16).view(2, low_h, low_w)
+        self.sums = (ws[16 + off_bytes:16 + off_bytes + 4 * buf].view(torch.int32),
+                     ws[16 + off_bytes + 4 * buf:].view(torch.int32))
+        self._zeroed = ws[:16 + off_bytes + first]
+        self.reset()
+        self.device_index = self.device.index
+        ptrs = [t.data_ptr() for t in self.frames]
+        self.args = []
+        for k, (iteration, window, step) in enumerate(self.steps):
+            nxt = self.steps[k + 1][1] if k + 1 < len(self.steps) else 0
+            self.args.append((
+                *ptrs, self.offsets.data_ptr(), self.sums[k % 2].data_ptr(),
+                self.sums[(k + 1) % 2].data_ptr(),
+                self.delta.data_ptr() if (iteration, step) == (0, 0) else None, *dims,
+                low_h, low_w, radius, delta_scalar, neighbor_scalar, window, nxt, res_scalar,
+                int(iteration >= config.FIRST_NEIGHBOR_ITERATION), step, num_layers,
+                int(is_hdr)))
+
+    def reset(self) -> None:
+        """Zero the offsets, the delta and (on the card) the first step's
+        sums, with one fill: the state starts its flow again."""
+        if self.device.type == "cpu":
+            self.offsets.zero_()
+            self.delta.zero_()
+        else:
+            self._zeroed.zero_()
+
+    def step_sums(self, k: int) -> torch.Tensor:
+        """K3's sums of step k on the card, (radius, n_win_y, n_win_x) int32
+        holding uint32: valid after flow_step(self, k) until step k + 1 runs."""
+        _, window, _ = self.steps[k]
+        low_h, low_w = self.offsets.shape[1:]
+        n_win_y, n_win_x = -(-low_h // window), -(-low_w // window)
+        return self.sums[k % 2][:self.radius * n_win_y * n_win_x].view(self.radius, n_win_y,
+                                                                        n_win_x)
+
+
+def flow_step_reference(state: PyramidState, k: int) -> None:
+    """Plain PyTorch version of flow_step: delta_sums_reference, the raw frame
+    delta at iteration 0 step 0 (window (0, 0) of layer radius // 2 - 1,
+    ref: opticalFlowCalcSDR.cpp:91), then commit_winners_reference into
+    state.offsets in place. Any device."""
+    iteration, window, step = state.steps[k]
+    sums = delta_sums_reference(
+        *state.frames, state.offsets, state.radius, state.delta_scalar, state.neighbor_scalar,
+        window_size=window, res_scalar=state.res_scalar, iteration=iteration, step=step,
+        is_hdr=state.is_hdr, num_layers=state.num_layers)
+    if (iteration, step) == (0, 0):
+        state.delta.copy_(sums[state.radius // 2 - 1, 0, 0].to(torch.int64) & UINT32_MASK)
+    commit_winners_reference(state.offsets, sums, state.radius, window_size=window, step=step,
+                             out=state.offsets)
+
+
+def flow_step(state: PyramidState, k: int) -> None:
+    """Step k of state's pyramid, equal to flow_step_reference: on the card
+    one launch of K3 (the step's sums, no fill) and one of K4 (the commit
+    into state.offsets in place, the next step's sums cleared, the raw
+    delta at iteration 0 step 0), in stream order; CPU tensors take the
+    plain version. The checks were done when the state was built."""
+    if state.device.type == "cpu":
+        flow_step_reference(state, k)
+        return
+    _build.launch("hrt_flow_step", state.device_index, *state.args[k])
+    flow_step.launches += 1
+
+
+flow_step.launches = 0
+
+
+def _plane_dims(name: str, planes, is_hdr: bool, others=()) -> tuple[int, int, int, int]:
+    """(dim_y, dim_x, uv_h, uv_w) of CUDA planes that the kernels take: the
+    bit depth's dtype, both frames of one shape, a UV row of an even width
+    at least the Y row's (U and V load as one pair), UV planes aligned to a
+    pair, and planes (and `others`) below 2**31 elements."""
+    dtype = torch.uint16 if is_hdr else torch.uint8
+    if any(p.dtype != dtype for p in planes):
+        raise ValueError(f"{name}: planes must be {dtype} (is_hdr={is_hdr})")
+    f1y, f1uv, f2y, f2uv = planes
+    if f2y.shape != f1y.shape or f2uv.shape != f1uv.shape:
+        raise ValueError(f"{name}: the two frames' planes differ in shape")
+    (dim_y, dim_x), (uv_h, uv_w) = f1y.shape, f1uv.shape
+    if uv_w % 2 or uv_w < dim_x:
+        raise ValueError(f"{name}: a UV row of width {uv_w} is odd or narrower than the Y "
+                         f"row ({dim_x}): U and V load as one pair")
+    pair = 2 * f1uv.element_size()
+    if f1uv.data_ptr() % pair or f2uv.data_ptr() % pair:
+        raise ValueError(f"{name}: a UV plane is not aligned to a {pair}-byte (U, V) pair")
+    if max(p.numel() for p in (*planes, *others)) >= MAX_INDEX:
+        raise ValueError(f"{name}: a plane exceeds 2**31 elements")
+    return dim_y, dim_x, uv_h, uv_w
+
+
+def _check_scalars(name: str, radius: int, delta_scalar: int, neighbor_scalar: int,
+                   num_layers: int, windows) -> None:
+    if not 1 <= num_layers <= MAX_R or radius < 1:
+        raise ValueError(f"{name}: num_layers {num_layers} outside [1, {MAX_R}] or radius "
+                         f"{radius} below 1")
+    bad = [w for w in windows if w < 1 or w & (w - 1)]
+    if bad:
+        raise ValueError(f"{name}: window_size {bad[0]} is not a power of two")
+    if not (0 <= delta_scalar <= MAX_SHIFT and 0 <= neighbor_scalar <= MAX_SHIFT):
+        raise ValueError(f"{name}: scalars {delta_scalar}, {neighbor_scalar} outside "
+                         f"[0, {MAX_SHIFT}]")
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -3,9 +3,9 @@
 PyTorch port of hopperrender_tpu/ops/flow.py (the reference formulation of
 calcDeltaSums / determineLowestLayer / adjustOffsetArray / the pyramid loop,
 ref: opticalFlowCalcSDR.cpp:44-123). The cost volume of a step is kernel K3
-and the argmin with its commit kernel K4 (ops/cost_volume_kernel.py); the
-blur is kernel K1 (ops/blur_kernel.py). On the CPU each takes its plain
-PyTorch version.
+and the argmin with its commit kernel K4, one flow_step call a step
+(ops/cost_volume_kernel.py); the blur is kernel K1 (ops/blur_kernel.py). On
+the CPU each takes its plain PyTorch version.
 
 Integer semantics follow the reference exactly:
   * int16 offsets wrap: sums are formed in int32 and narrowed with .to(int16);
@@ -93,30 +93,25 @@ def pyramid_flow(
     low_h*low_w*{10,6}, ref: opticalFlowCalcSDR.cpp:91-94).
 
     num_layers bounds the cost volume (radius <= num_layers); the outputs do
-    not depend on it. Each step is K3 then K4, which commits into this
-    function's own offsets buffer in place.
+    not depend on it. Each step is one flow_step call (K3 then K4) on this
+    call's own PyramidState: its checks run once a flow, and the offsets,
+    the sums buffers and the delta belong to this call alone.
     """
     if not 0 < radius <= num_layers:
         raise ValueError(f"radius {radius} outside (0, num_layers={num_layers}]")
-    offsets = torch.zeros((2, low_h, low_w), dtype=torch.int16, device=f1y.device)
-    total_delta_raw = None
-    for iteration, window in window_schedule(low_h, low_w, num_iterations):
-        for step in (0, 1):
-            sums = cost_volume_kernel.delta_sums(
-                f1y, f1uv, f2y, f2uv, offsets, radius, delta_scalar, neighbor_scalar,
-                window_size=window, res_scalar=res_scalar, iteration=iteration,
-                step=step, is_hdr=is_hdr, num_layers=num_layers)
-            if iteration == 0 and step == 0:
-                total_delta_raw = raw_frame_delta(sums, radius)
-            cost_volume_kernel.commit_winners(offsets, sums, radius, window_size=window,
-                                              step=step, out=offsets)
-    if total_delta_raw is None:   # no pyramid step ran (1x1 flow grid)
-        total_delta_raw = torch.zeros((), dtype=torch.int64, device=f1y.device)
-    return offsets, blur_flow(offsets), total_delta_raw
+    state = cost_volume_kernel.PyramidState(
+        f1y, f1uv, f2y, f2uv, radius, delta_scalar, neighbor_scalar, low_h=low_h, low_w=low_w,
+        res_scalar=res_scalar, is_hdr=is_hdr, num_layers=num_layers,
+        schedule=window_schedule(low_h, low_w, num_iterations))
+    for k in range(len(state.steps)):
+        cost_volume_kernel.flow_step(state, k)
+    return state.offsets, blur_flow(state.offsets), state.delta
 
 
 def raw_frame_delta(sums: torch.Tensor, radius: int) -> torch.Tensor:
     """The scene-change scalar of K3's first step: window (0, 0) of layer
     radius//2 - 1, a new 0-dim int64 tensor (uint32 value) on the sums'
-    device, so the sums buffer may be reused (ref: opticalFlowCalcSDR.cpp:91)."""
+    device, so the sums buffer may be reused (ref: opticalFlowCalcSDR.cpp:91).
+    The mesh's pyramid takes it from the gathered sums; pyramid_flow's K4
+    writes it."""
     return sums[radius // 2 - 1, 0, 0].to(torch.int64) & UINT32_MASK

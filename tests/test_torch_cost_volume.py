@@ -167,3 +167,97 @@ def test_wrappers_refuse_other_devices():
         cv.delta_sums(torch.zeros((32, 48), dtype=torch.uint8), uv, y, uv, offsets, 8, 8, 6,
                       **kw)
     assert (cv.delta_sums.launches, cv.commit_winners.launches) == before
+
+
+def _flow_state(frames, radius, ds, ns, *, low_h, low_w, rs, is_hdr, num_layers, schedule):
+    return cv.PyramidState(*map(_t, frames), radius, ds, ns, low_h=low_h, low_w=low_w,
+                           res_scalar=rs, is_hdr=is_hdr, num_layers=num_layers,
+                           schedule=schedule)
+
+
+@pytest.mark.parametrize("case", K3_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flow_step_plain_matches_jax(rng, case):
+    """flow_step_reference (K3's sums, the raw delta at iteration 0 step 0,
+    then K4's commit) against JAX's delta_window_sums -> lowest_layer ->
+    adjust_offsets on the same inputs. flow_step has no layer shards: the
+    shard cases run layers [0, max(num_layers, radius))."""
+    is_hdr, rs, radius, iteration, step, window, (ds, ns), kind, num_layers, _ = case
+    layers = max(num_layers, radius)
+    frames = make_frame(rng, H, W, is_hdr) + make_frame(rng, H, W, is_hdr)
+    low_h, low_w = H >> rs, W >> rs
+    offsets = _offsets(rng, kind, low_h, low_w)
+    sums = jax_flow.delta_window_sums(
+        *map(jnp.asarray, frames), jnp.asarray(offsets), jnp.int32(radius), jnp.int32(ds),
+        jnp.int32(ns), window_size=window, res_scalar=rs, iteration=iteration, step=step,
+        is_hdr=is_hdr, num_layers=layers)
+    want = np.asarray(jax_flow.adjust_offsets(
+        jnp.asarray(offsets), jax_flow.lowest_layer(sums), jnp.int32(radius),
+        window_size=window, step=step))
+    state = _flow_state(frames, radius, ds, ns, low_h=low_h, low_w=low_w, rs=rs,
+                        is_hdr=is_hdr, num_layers=layers, schedule=[(iteration, window)])
+    assert state.steps == [(iteration, window, 0), (iteration, window, 1)]
+    state.offsets.copy_(_t(offsets))
+    cv.flow_step_reference(state, step)
+    np.testing.assert_array_equal(state.offsets.numpy(), want)
+    raw = int(np.asarray(sums)[radius // 2 - 1, 0, 0]) if (iteration, step) == (0, 0) else 0
+    assert state.delta.dtype == torch.int64 and int(state.delta) == raw
+    if kind == "wrap":
+        assert (np.abs(want.astype(np.int32) - offsets.astype(np.int32)) > 64).any()
+
+
+# radius 1-3 put the raw delta's layer radius // 2 - 1 at -1 (the last layer,
+# as Python and JAX index) and 0; one layer makes -1 the radius's own layer.
+@pytest.mark.parametrize("radius,num_layers", [(1, 16), (1, 1), (2, 5), (3, 8), (7, 8)])
+def test_pyramid_flow_raw_delta_layers_match_jax(rng, radius, num_layers):
+    """pyramid_flow (a flow_step call a step) on the CPU equals JAX's
+    pyramid, the raw delta included, where the delta's layer wraps."""
+    h, w = 32, 48
+    frames = make_frame(rng, h, w) + make_frame(rng, h, w)
+    kw = dict(low_h=h, low_w=w, res_scalar=0, is_hdr=False, num_layers=num_layers)
+    off_j, blur_j, raw_j = jax_flow.pyramid_flow(
+        *map(jnp.asarray, frames), jnp.int32(radius), jnp.int32(8), jnp.int32(6), **kw)
+    off_t, blur_t, raw_t = torch_flow.pyramid_flow(*map(_t, frames), radius, 8, 6, **kw)
+    np.testing.assert_array_equal(off_t.numpy(), np.asarray(off_j))
+    np.testing.assert_array_equal(blur_t.numpy(), np.asarray(blur_j))
+    assert raw_t.dtype == torch.int64 and int(raw_t) == int(raw_j)
+    assert (int(raw_t) == U32) == (num_layers > 1 and radius == 1)
+
+
+def test_flow_step_on_the_cpu_launches_nothing(rng):
+    """flow_step on a CPU state takes flow_step_reference: no counter moves,
+    through the wrapper and through the whole pyramid; the state's steps are
+    the schedule's, both steps each."""
+    counters = (cv.flow_step, cv.delta_sums, cv.commit_winners)
+    before = [f.launches for f in counters]
+    frames = make_frame(rng, 32, 48) + make_frame(rng, 32, 48)
+    schedule = torch_flow.window_schedule(32, 48)
+    state = _flow_state(frames, 8, 8, 6, low_h=32, low_w=48, rs=0, is_hdr=False, num_layers=8,
+                        schedule=schedule)
+    assert state.steps == [(it, win, s) for it, win in schedule for s in (0, 1)]
+    plain = _flow_state(frames, 8, 8, 6, low_h=32, low_w=48, rs=0, is_hdr=False,
+                        num_layers=8, schedule=schedule)
+    for k in range(len(state.steps)):
+        cv.flow_step(state, k)
+        cv.flow_step_reference(plain, k)
+    assert torch.equal(state.offsets, plain.offsets) and int(state.delta) == int(plain.delta)
+    got = torch_flow.pyramid_flow(*map(_t, frames), 8, 8, 6, low_h=32, low_w=48, res_scalar=0,
+                                  is_hdr=False, num_layers=8)
+    assert torch.equal(got[0], state.offsets) and int(got[2]) == int(state.delta)
+    assert [f.launches for f in counters] == before
+    state.reset()
+    assert not state.offsets.any() and int(state.delta) == 0
+
+
+def test_flow_step_refuses_other_devices():
+    """A state of meta tensors (neither the CPU nor CUDA) raises when it is
+    built, before any launch, and so do frames on two devices."""
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    y, uv = meta((32, 48), torch.uint8), meta((16, 48), torch.uint8)
+    kw = dict(low_h=32, low_w=48, res_scalar=0, is_hdr=False, num_layers=8,
+              schedule=[(0, 16)])
+    before = cv.flow_step.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        cv.flow_step(cv.PyramidState(y, uv, y, uv, 8, 8, 6, **kw), 0)
+    with pytest.raises(ValueError, match="one device"):
+        cv.PyramidState(torch.zeros((32, 48), dtype=torch.uint8), uv, y, uv, 8, 8, 6, **kw)
+    assert cv.flow_step.launches == before

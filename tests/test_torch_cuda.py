@@ -45,10 +45,12 @@ def _frame(rng, h, w, is_hdr, dev):
 
 
 def _launches():
-    """The counters of K1, K2 (modes 0/1/2), K3 and K4."""
+    """The launches of K1, K2 (modes 0/1/2), K3 and K4: K3's and K4's through
+    their own wrappers and through flow_step, which launches both."""
     cv = cost_volume_kernel
     return (blur_kernel.blur_flow.launches, warp_kernel.warp_frames.launches,
-            cv.delta_sums.launches, cv.commit_winners.launches)
+            cv.delta_sums.launches + cv.flow_step.launches,
+            cv.commit_winners.launches + cv.flow_step.launches)
 
 
 def _chip_smoke():
@@ -316,6 +318,77 @@ def test_pyramid_replays_in_a_cuda_graph(dev):
         for g, e, what in zip(captured, eager[k], ("offsets", "blurred", "total_delta_raw")):
             assert torch.equal(g, e), f"pair {k} {what}"
     assert not torch.equal(eager[0][0], eager[1][0])
+
+
+@pytest.mark.parametrize("radius", [5, 12, 16])
+@pytest.mark.parametrize("geometry", ["4K HDR", "1080p SDR"])
+def test_flow_step_matches_plain(dev, geometry, radius):
+    """flow_step against flow_step_reference, exactly, over every step of a
+    pan's pyramid (chip_smoke.py's phase 3b): the offsets, the raw delta and
+    K3's sums of each step, and the pyramid run twice gives the same bits."""
+    cs, port = _chip_smoke()
+    before = cost_volume_kernel.flow_step.launches
+    n, err = cs.flow_step_parity(port, dev, geometry, radius)
+    assert err == 0 and n == 16
+    assert cost_volume_kernel.flow_step.launches == before + 2 * n
+
+
+def test_delta_sums_twice_gives_the_same_bits(dev):
+    """K3 on the same inputs twice, at every window of a 4K HDR schedule
+    (atomics from 256 to 16, block-owned stores from 8 to 2): the same bits."""
+    cs, port = _chip_smoke()
+    rs, frames, offsets = cs.cost_volume_inputs(port, dev, "4K HDR")
+    off = offsets["random +-64"]
+    for iteration, window in port.flow_ops.window_schedule(*off.shape[1:]):
+        for step in (0, 1):
+            kw = dict(window_size=window, res_scalar=rs, iteration=iteration, step=step,
+                      is_hdr=True)
+            a = cost_volume_kernel.delta_sums(*frames, off, 16, 8, 6, **kw)
+            b = cost_volume_kernel.delta_sums(*frames, off, 16, 8, 6, **kw)
+            assert torch.equal(a, b), (window, step)
+
+
+def test_pyramid_makes_one_flow_step_call_a_step(dev):
+    """pyramid_flow on 4K HDR frames: 16 flow_step calls (K3 then K4 each)
+    and one K1, no standalone K3 or K4."""
+    from hopperrender_tpu_torch.ops import flow as flow_ops
+    cv = cost_volume_kernel
+    rng = np.random.default_rng(3)
+    frames = [t for _ in range(2) for t in _frame(rng, 2160, 3840, True, dev)]
+    counters = (cv.flow_step, cv.delta_sums, cv.commit_winners, blur_kernel.blur_flow)
+    before = [f.launches for f in counters]
+    flow_ops.pyramid_flow(*frames, 16, 8, 6, low_h=270, low_w=480, res_scalar=3, is_hdr=True)
+    assert [f.launches - b for f, b in zip(counters, before)] == [16, 0, 0, 1]
+
+
+def test_cost_volume_kernels_refuse_odd_or_misaligned_uv(dev):
+    """U and V load as one pair: a UV row of odd width, one narrower than the
+    Y row, and a UV plane off a pair's alignment raise before any launch,
+    in delta_sums and when a pyramid's state is built."""
+    cv = cost_volume_kernel
+    rng = np.random.default_rng(5)
+    y, _ = _frame(rng, 32, 63, True, dev)
+    odd = torch.zeros((16, 63), dtype=torch.uint16, device=dev)
+    y64, uv64 = _frame(rng, 32, 64, True, dev)
+    narrow = uv64[:, :62].contiguous()
+    shifted = torch.zeros(16 * 64 + 1, dtype=torch.uint16, device=dev)[1:].view(16, 64)
+    off = torch.zeros((2, 32, 63), dtype=torch.int16, device=dev)
+    off64 = torch.zeros((2, 32, 64), dtype=torch.int16, device=dev)
+    kw = dict(window_size=16, res_scalar=0, iteration=0, step=0, is_hdr=True)
+    state = dict(low_h=32, low_w=64, res_scalar=0, is_hdr=True, num_layers=16,
+                 schedule=[(0, 16)])
+    before = _launches()
+    with pytest.raises(ValueError, match="odd or narrower"):
+        cv.delta_sums(y, odd, y, odd, off, 16, 8, 6, **kw)
+    with pytest.raises(ValueError, match="odd or narrower"):
+        cv.delta_sums(y64, narrow, y64, narrow, off64, 16, 8, 6, **kw)
+    with pytest.raises(ValueError, match="aligned"):
+        cv.delta_sums(y64, shifted, y64, uv64, off64, 16, 8, 6, **kw)
+    with pytest.raises(ValueError, match="odd or narrower"):
+        cv.PyramidState(y, odd, y, odd, 16, 8, 6, **dict(state, low_w=63))
+    with pytest.raises(ValueError, match="aligned"):
+        cv.PyramidState(y64, uv64, y64, shifted, 16, 8, 6, **state)
+    assert _launches() == before
 
 
 def test_cost_volume_kernels_reject_bad_input(dev):

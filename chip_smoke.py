@@ -6,8 +6,8 @@
                                             # adds meshes of a rank per card (NCCL)
     python3 chip_smoke.py --bench-only      # phases 1, 2 and 10: the bench
     python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only:
-                                            # K1, K2, the band, K3, K4, the pyramid step
-                                            # (flow_step), P1-P4 and the L2 read
+                                            # K1, K2, the band, K5, K3, K4, the pyramid
+                                            # step (flow_step), P1-P4 and the L2 read
                                             # rate, P1/P2 on the probe path on 1 and
                                             # 132 blocks, the split of a wrapper call's
                                             # host time into stages and the floor of a
@@ -39,7 +39,12 @@ sm_90a), then runs these phases, one line each:
      version, same sources and flows, t = (0.2, 0.6, 1.0), exact;
      4c. the HSV flow colour (mode 3) on the card against the same function
      on the CPU, every (ox, oy) in +-512, SDR and HDR, res_impact 1 and 4,
-     channels 0/1/2, exact;
+     channels 0/1/2, exact; K5 (the HSV flow overlay) against its plain
+     version, exact: every (ox, oy) in +-512 as the colour's pair on Y and on
+     both UV channels, SDR and HDR, res_impact 4 (rs 0) and 1 (rs 3); 4K HDR
+     on K2's raw blend of the three flows at T = 1 and 3; rs 1-3 at 50 x 86
+     (ragged rows, rows off 16 bytes, row offsets, the int16 range) and 1080p
+     SDR at rs 2;
   5. the served slice: FrameServer at 3840x2160 HDR, 24 -> 60, mode 2, levels
      16/235, search radius 16, ten panning frames through the kernels; the
      output count against the cadence controller's, the kernels' launch
@@ -47,17 +52,28 @@ sm_90a), then runs these phases, one line each:
      a flow and no standalone K3 or K4), every output against the
      same stream run with the plain versions, and all five golden fixtures
      replayed byte for byte;
-     5b. served mode 3 (HSV flow) the same way: ten frames through K1 and
-     K2's raw_blend variant;
+     5b. served mode 3 (HSV flow) the same way: ten frames through K1, K2's
+     raw_blend variant and K5 (the plain-version stream launches no K5);
      5c. served modes 4, 5 and 6, six frames each (mode 4 runs K1 and
      flow_step only, modes 5/6 K2 too);
+     5d. served mode 3 at 4K HDR with the quality scaler on, 30 panning
+     frames: the radius, the cadence state and the engine compute (flow +
+     warps, what the scaler reads) of each source frame, and its
+     ACTIVE/TOO_SLOW edges; it fails if the stream ever enters TOO_SLOW or a
+     kernel of the path never launched. The same frames with the plain
+     overlay (mode 3's path before K5) are reported beside it;
   6. the numbers: served wall time per source frame (host clock around
      push_frame), flow time per source frame, warp time per output, copy
      time, peak memory, and a torch.profiler pass over three more served
      frames: device busy time, idle share and launches per source frame, and
      device time by kind (it fails if K3's fill ran); the warp time per
      output of modes 3-6 (CUDA
-     events) from 5b/5c; and the kernels' device times, graph-timed (n
+     events) from 5b/5c, and of mode 3 in 5d with K5 and with the plain
+     overlay; K5 at 4K HDR on K2's raw blend, T = 1 and 3, graph-timed on
+     random and smooth flow, with its host us a call, its plain version, an
+     empty launch of its two grids and its bound (the raw Y plane and the
+     flow read, both planes written; operations counted from its code); and
+     the kernels' device times, graph-timed (n
      calls captured in one CUDA graph, the replay timed with CUDA events, so
      no host time is in them) on random and on smooth flow: K1, K2 (mode 2
      T = 3) and its raw_blend variant, each wrapper's host us per call (the
@@ -80,9 +96,9 @@ sm_90a), then runs these phases, one line each:
      4K HDR P010, flow +-64, t (0.2, 0.6, 1.0), modes 0/1/2, levels 16/235,
      n = 2, 4, 8; smooth and mirror-edge flow at n = 2; and 1080p SDR at n =
      8, where UV's rows split unevenly; mode 3 at 4K HDR, n = 2: the band's
-     raw_blend variant against its plain version (each flow), coloured by the
-     banded HSV overlay, against the plain row route; the band graph-timed
-     on random and smooth flow, as phase 6;
+     raw_blend variant against its plain version (each flow), coloured by K5
+     with the band's row offsets against K5's plain version and the plain
+     row route; the band graph-timed on random and smooth flow, as phase 6;
      7b. batched_step on two 4K HDR streams (panning 3 px/frame, radius 16,
      three steps): outputs, flow and delta against the single-stream path
      (pyramid_flow + K2), and against the same run on the plain versions;
@@ -93,7 +109,8 @@ sm_90a), then runs these phases, one line each:
      each rank writes its outputs to an .npz, held byte for byte to 7b's
      single-device results (modes 3-6: warp_viz.warp_outputs on the full
      frame); every rank must have launched the band kernel in modes 2, 5
-     and 6, its raw_blend variant in mode 3, and neither in mode 4, the
+     and 6, its raw_blend variant and K5 in mode 3 (K5 in no other mode),
+     and neither band in mode 4, the
      standalone K3 and K4 (the mesh gathers the layer shards between them)
      in every mode, and no
      rank may load a module of jax or of the JAX package. Its numbers: each
@@ -170,7 +187,9 @@ host_us and bound a call over one 4K HDR flow at radius 16 (`r5` at radius
 5), `launches_per_source_frame`, `batched_launches` (7b) and
 `mesh_launches` (7c's ranks), flow_step's `launches` those of the served
 slice (phase 5), K3's and K4's those of the mesh (7c), their path, with
-`main_path_launches` (0) beside them, and K3's timing `variants`; the band's
+`main_path_launches` (0) beside them, and K3's timing `variants`; K5's
+`ms`, `plain_ms`, `host_us` and bound at T = 1 (the served path), `t3` at T
+= 3, `grid_ms`, its `launches` in 5b beside 5d's, 7a's and 7c's; the band's
 `launches` over
 7c's modes 2, 5 and 6, and `launches_by_mode` (mode 3: its raw_blend
 variant's); for the probes `ms`
@@ -310,9 +329,13 @@ def import_port() -> types.SimpleNamespace:
     cv_name = "hopperrender_tpu_torch.ops.cost_volume_kernel"
     cost_volume_kernel = (importlib.import_module(cv_name) if importlib.util.find_spec(cv_name)
                           else None)
+    # K5; None in a tree from before it.
+    hsv_name = "hopperrender_tpu_torch.ops.hsv_kernel"
+    hsv_kernel = (importlib.import_module(hsv_name) if importlib.util.find_spec(hsv_name)
+                  else None)
     return types.SimpleNamespace(
         _build=_build, blur_kernel=blur_kernel, warp_kernel=warp_kernel, warp_viz=warp_viz,
-        cost_volume_kernel=cost_volume_kernel, flow_engine=flow_engine,
+        cost_volume_kernel=cost_volume_kernel, hsv_kernel=hsv_kernel, flow_engine=flow_engine,
         warp_ops=warp_ops, CadenceController=CadenceController, FrameServer=FrameServer,
         Settings=Settings, config=config, nv12=nv12, entry=entry, flow_ops=flow_ops,
         launch=launch, batched_step=batched_step, probe_path=probe_path,
@@ -324,10 +347,24 @@ def import_port() -> types.SimpleNamespace:
 
 
 @contextlib.contextmanager
+def plain_overlay(port):
+    """Points K5's wrapper attribute (ops/hsv_kernel.hsv_flow_overlay) at its
+    plain version while the block runs: mode 3's path as it was before K5.
+    ops/warp_viz looks it up at call time."""
+    hk = port.hsv_kernel
+    kernel = hk.hsv_flow_overlay
+    hk.hsv_flow_overlay = hk.hsv_flow_overlay_reference
+    try:
+        yield
+    finally:
+        hk.hsv_flow_overlay = kernel
+
+
+@contextlib.contextmanager
 def plain_versions(port):
-    """Points the K1, K2, K3 and K4 wrappers' module attributes (K2's
+    """Points the K1, K2, K3, K4 and K5 wrappers' module attributes (K2's
     mesh-sharded variant and the pyramid step too) at their plain versions
-    while the block runs; their callers (ops/flow.py, ops/warp_viz.warp_outputs,
+    while the block runs; their callers (ops/flow.py, ops/warp_viz.py,
     parallel/mesh.py) look them up at call time."""
     wk, cv = port.warp_kernel, port.cost_volume_kernel
     kernels = (port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band, cv.delta_sums,
@@ -338,7 +375,8 @@ def plain_versions(port):
     cv.delta_sums, cv.commit_winners = cv.delta_sums_reference, cv.commit_winners_reference
     cv.flow_step = cv.flow_step_reference
     try:
-        yield
+        with plain_overlay(port):
+            yield
     finally:
         (port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band, cv.delta_sums,
          cv.commit_winners, cv.flow_step) = kernels
@@ -364,6 +402,7 @@ def device_profile(prof, wall_s: float) -> tuple[float, int, dict[str, float]]:
                 "K3 delta_sums" if "delta_sums_kernel" in name else
                 "K3's fill" if "fill_sums_kernel" in name else
                 "K4 commit_winners" if "commit_winners_kernel" in name else
+                "K5 hsv_overlay" if "hsv_overlay_kernel" in name else
                 "memcpy DtoH" if "DtoH" in name else
                 "memcpy HtoD" if "HtoD" in name else
                 "gather (index)" if "index" in name.lower() else "other")
@@ -826,7 +865,8 @@ def launch_counters(port) -> dict:
             "warp_frames_band": (wk.warp_frames_band, "launches"),
             "flow_step": (cv.flow_step, "launches"),
             "delta_sums": (cv.delta_sums, "launches"),
-            "commit_winners": (cv.commit_winners, "launches")}
+            "commit_winners": (cv.commit_winners, "launches"),
+            "hsv_flow_overlay": (port.hsv_kernel.hsv_flow_overlay, "launches")}
 
 
 def reset_launches(port) -> None:
@@ -902,6 +942,209 @@ def band_bound(src, flow, ts, num_shards: int, shard: int) -> tuple[float, str]:
         rows_read += 2 * (min(plane_h, row0 + r + plane_halo) - max(0, row0 - plane_halo))
     moved = (n_t * rows_out + rows_read) * w * itemsize + nbytes(flow, ts)
     return bound("warp_frames_band", moved, n_t * rows_out * w)
+
+
+# K5's work, in operations (float and integer alike, an FMA counts two),
+# counted from csrc/hsv_overlay.cu: the colour of one flow cell (the cell's
+# lookup and negation ~12, atan2f ~14 around atanf's reduction ~9, z and w,
+# its two polynomials 20, and its sum ~6; the angle ~8, the hue ~13, |ox| +
+# |oy| 4, r, g and b 27): 115, made once a run; then a Y run's luma and base
+# (10) or a UV run's U and V sums, shifts and levels (34); and each Y sample's
+# shift, add and levels with their division (9). A UV sample is a store.
+HSV_CELL_OPS, HSV_Y_RUN_OPS, HSV_UV_RUN_OPS, HSV_Y_SAMPLE_OPS = 115, 10, 34, 9
+HSV_BLOCK = (32, 8)   # K5's block: 8 rows of 32 runs (csrc/hsv_overlay.cu)
+
+
+def hsv_runs(dim_x: int, res_scalar: int, is_hdr: bool) -> tuple[int, int]:
+    """K5's runs a row (Y, UV): up to 16 bytes, at most a flow cell wide."""
+    max_shift = 3 if is_hdr else 4
+    return (-(-dim_x >> min(res_scalar, max_shift)),
+            -(-dim_x >> min(res_scalar + 1, max_shift)))
+
+
+def hsv_grids(raw_y, raw_uv, res_scalar: int, is_hdr: bool) -> list[tuple[int, int]]:
+    """K5's two grids (Y, UV) of HSV_BLOCK blocks for these planes."""
+    runs = hsv_runs(raw_y.shape[-1], res_scalar, is_hdr)
+    return [(-(-r // HSV_BLOCK[0]), -(-raw.shape[-2] // HSV_BLOCK[1]))
+            for r, raw in zip(runs, (raw_y, raw_uv))]
+
+
+def hsv_bound(raw_y, raw_uv, flow, res_scalar: int, is_hdr: bool) -> tuple[float, str]:
+    """Bound of one K5 call: it reads raw_y and the flow once and writes both
+    planes; the colour replaces the raw UV, so raw_uv is not read. Its
+    operations: a colour a run (what the kernel computes), each Y sample's
+    levels."""
+    runs_y, runs_uv = hsv_runs(raw_y.shape[-1], res_scalar, is_hdr)
+    moved = 2 * nbytes(raw_y) + nbytes(raw_uv, flow)
+    ops = (runs_y * raw_y.shape[-2] * (HSV_CELL_OPS + HSV_Y_RUN_OPS)
+           + runs_uv * raw_uv.shape[-2] * (HSV_CELL_OPS + HSV_UV_RUN_OPS)
+           + raw_y.numel() * HSV_Y_SAMPLE_OPS)
+    return roofline(moved, ops, OPS_PER_S)
+
+
+def random_planes(gen, n_t: int, h: int, w: int, is_hdr: bool, dev):
+    """(n_t, h, w) and (n_t, h/2, w) planes of random samples, made on the card."""
+    from hopperrender_tpu_torch.ops.warp import from_int32
+    hi, dtype = (65536, torch.uint16) if is_hdr else (256, torch.uint8)
+    return tuple(from_int32(torch.randint(0, hi, shape, generator=gen, device=dev,
+                                          dtype=torch.int32), dtype)
+                 for shape in ((n_t, h, w), (n_t, h // 2, w)))
+
+
+def hsv_levels(is_hdr: bool) -> tuple[float, float]:
+    s = 256.0 if is_hdr else 1.0
+    return 16.0 * s, 235.0 * s
+
+
+HSV_PAIRS = np.arange(-512, 513, dtype=np.int16)
+HSV_PAIR_STRIPS = {0: 1, 3: 8}   # res_scalar -> calls the +-512 square is cut into
+
+
+def hsv_pair_parity(port, dev, is_hdr: bool, res_scalar: int) -> tuple[int, int]:
+    """K5 against its plain version over every (ox, oy) in +-512 as the
+    colour's pair, at res_scalar 0 (res_impact 4) or 3 (res_impact 1), T = 1.
+    The flow's cell (r, c) holds (HSV_PAIRS[c >> 1], oy[r >> 1]), so Y (every
+    cell) and UV (even cells only, U and V each) colour every pair; oy is a
+    strip of HSV_PAIRS, the square cut into HSV_PAIR_STRIPS[res_scalar]
+    calls. Returns (max |err|, values compared); raises where they differ."""
+    hk = port.hsv_kernel
+    gen = torch.Generator(device=dev).manual_seed(13 + 2 * res_scalar + is_hdr)
+    black, white = hsv_levels(is_hdr)
+    kw = dict(res_scalar=res_scalar, is_hdr=is_hdr)
+    err, values = 0, 0
+    for k, oy in enumerate(np.array_split(HSV_PAIRS, HSV_PAIR_STRIPS[res_scalar])):
+        shape = (2 * len(oy), 2 * len(HSV_PAIRS))
+        fx = np.broadcast_to(np.repeat(HSV_PAIRS, 2)[None, :], shape)
+        fy = np.broadcast_to(np.repeat(oy, 2)[:, None], shape)
+        flow = torch.tensor(np.stack([fx, fy]), device=dev)
+        raw = random_planes(gen, 1, shape[0] << res_scalar, shape[1] << res_scalar, is_hdr, dev)
+        got = hk.hsv_flow_overlay(*raw, flow, black, white, **kw)
+        want = hk.hsv_flow_overlay_reference(*raw, flow, black, white, **kw)
+        what = f"K5 every pair {'HDR' if is_hdr else 'SDR'} rs {res_scalar} strip {k}"
+        err = max(err, require_equal(got[0], want[0], what + " Y"),
+                  require_equal(got[1], want[1], what + " UV"))
+        values += got[0].numel() + got[1].numel()
+    return err, values
+
+
+# K5's other cases: (h, w, res_scalar, is_hdr, T, row_offsets, flow magnitude).
+# Narrow runs (rs 1 and 2: the generic instance), ragged row tails and rows
+# that start off 16 bytes (w = 86), a band's row offsets, the int16 range
+# (the -32768 wrap, the colour's clip), and 1080p SDR at rs 2.
+HSV_CASES = [(50, 86, 1, False, 2, (0, 0), 64), (50, 86, 3, True, 3, (0, 0), 64),
+             (50, 86, 2, True, 1, (13, 7), 64), (50, 86, 3, False, 3, (24, 12), 32768),
+             (1080, 1920, 2, False, 3, (0, 0), 64)]
+
+
+def hsv_case_parity(port, dev, cases=HSV_CASES) -> tuple[int, int]:
+    """K5 against its plain version on `cases` (random raw planes, random
+    flow); returns (max |err|, calls)."""
+    hk = port.hsv_kernel
+    rng = np.random.default_rng(17)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    err = 0
+    for h, w, rs, is_hdr, n_t, offsets, mag in cases:
+        low = (2, -(-h >> rs), -(-w >> rs))
+        flow = torch.tensor(rng.integers(-mag, mag, low, endpoint=mag < 32768).astype(np.int16),
+                            device=dev)
+        raw = random_planes(gen, n_t, h, w, is_hdr, dev)
+        black, white = hsv_levels(is_hdr)
+        kw = dict(res_scalar=rs, is_hdr=is_hdr, row_offsets=offsets)
+        got = hk.hsv_flow_overlay(*raw, flow, black, white, **kw)
+        want = hk.hsv_flow_overlay_reference(*raw, flow, black, white, **kw)
+        what = f"K5 {h}x{w} rs {rs} {'HDR' if is_hdr else 'SDR'} T {n_t} rows {offsets}"
+        err = max(err, require_equal(got[0], want[0], what + " Y"),
+                  require_equal(got[1], want[1], what + " UV"))
+    return err, len(cases)
+
+
+def hsv_numbers(port, inp) -> dict:
+    """Phase 6's K5 numbers at 4K HDR on K2's raw blend, T = 1 (the served
+    path: one output a call) and T = 3: graph-timed device ms on random and
+    smooth flow, host us per wrapper call, the plain version's ms (CUDA
+    events), an empty launch of K5's two grids (graph-timed), and the bound."""
+    hk, wk, b = port.hsv_kernel, port.warp_kernel, port._build
+    black, white = inp.black, inp.white
+    index = inp.src[0].get_device()
+    out = {}
+    for label, ts in (("T1", inp.t1), ("T3", inp.t3)):
+        def raw(fl):
+            return wk.warp_frames(*inp.src, fl, ts, black, white, res_scalar=3, mode=2,
+                                  is_hdr=True, raw_blend=True)
+
+        def call(fl, fn=hk.hsv_flow_overlay):
+            planes = raw(fl)
+            return lambda: fn(*planes, fl, black, white, res_scalar=3, is_hdr=True)
+
+        random, smooth = inp.flows["random +-64"], inp.flows["smooth"]
+        planes = raw(random)
+        grids = hsv_grids(*planes, 3, True)
+
+        def empty_grids():
+            for gx, gy in grids:
+                b.launch("hrt_empty_grid", index, gx, gy, *HSV_BLOCK)
+
+        plain = call(random, hk.hsv_flow_overlay_reference)
+        bound_ms, bound_by = hsv_bound(*planes, random, 3, True)
+        out[label] = {"ms": graph_ms(call(random), 20), "smooth_ms": graph_ms(call(smooth), 20),
+                      "host_us": host_us(call(random), 20),
+                      "plain_ms": (time_ms(plain, 2) + time_ms(plain, 2)) / 2,
+                      "grid_ms": graph_ms(empty_grids, 20), "grids": grids,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def format_hsv(numbers: dict) -> str:
+    return "; ".join(
+        f"{label}: {v['ms']:.5f} ms, smooth {v['smooth_ms']:.5f}, host {v['host_us']:.1f} "
+        f"us/call, plain {v['plain_ms']:.4f} ms, empty launch of its grids {v['grids']} "
+        f"{v['grid_ms']:.5f} ms, bound {v['bound_ms']:.5f} ms ({v['bound_by']})"
+        for label, v in numbers.items())
+
+
+MODE3_SCALER_FRAMES = 30      # 5d: 4K HDR mode-3 source frames, the scaler on
+
+
+def mode3_scaler_stream(port, dev, frames) -> dict:
+    """5d: FrameServer at 4K HDR P010 24 -> 60 in mode 3, levels 16/235, the
+    quality scaler on (auto_quality, the Settings default). For each source
+    frame: the search radius its flow ran at, the cadence state, and the
+    engine compute the scaler reads (the flow's time and the warps' and
+    copies' times it is handed, CUDA events); each interpolated output's
+    warp time; the launches of the run. Reports; the caller sets the
+    rules."""
+    config = port.config
+    st = port.Settings(target_fps=60.0, use_display_fps=False, frame_output=3, black_level=16,
+                       white_level=235)
+    srv = port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev, settings=st)
+    if not srv.scaler.enabled:
+        raise AssertionError("the quality scaler is off")
+    warps = []
+    add_warp = srv.scaler.add_warp_duration
+
+    def record_warp(seconds):
+        warps.append(seconds)
+        add_warp(seconds)
+
+    srv.scaler.add_warp_duration = record_warp
+    reset_launches(port)
+    radii, states, compute_ms, warp_ms, outputs = [], [], [], [], 0
+    for y, uv in frames:
+        warps.clear()
+        outs = srv.push_frame(y, uv)
+        eng = srv.engine
+        flow_s = eng.ofc_time.current if eng.frame_count >= 3 else 0.0
+        radii.append(eng.search_radius)
+        states.append(config.ActiveState(srv.cadence.state).name)
+        compute_ms.append(1e3 * (flow_s + sum(warps)))
+        warp_ms += [1e3 * w for w, o in zip(warps, outs) if o.interpolated]
+        outputs += len(outs)
+    torch.cuda.synchronize()
+    edges = [(k, states[k - 1], states[k]) for k in range(1, len(states))
+             if states[k] != states[k - 1]]
+    return dict(radii=radii, states=states, edges=edges, compute_ms=compute_ms,
+                warp_ms=warp_ms, outputs=outputs, interpolated=len(warp_ms),
+                launches=read_launches(port))
 
 
 # K3's and K4's least work, in integer operations (a load counts as one). K3,
@@ -1364,9 +1607,12 @@ def parallel_path(port, dev, card: str) -> dict:
             require_equal(torch.cat(bands_y, 1)[:, :h], full_y, f"K2 bands {h}p n {n} Y")
             require_equal(torch.cat(bands_uv, 1)[:, :h // 2], full_uv, f"K2 bands {h}p n {n} UV")
     # Mode 3 at 4K HDR, n = 2: the band's raw_blend variant against its plain
-    # version (each flow), and coloured by the banded overlay against the
-    # plain row route (random flow).
+    # version (each flow), and coloured by the banded overlay (K5 with the
+    # band's row offsets) against K5's plain version and the plain row route
+    # (random flow).
     kw = dict(res_scalar=3, is_hdr=True)
+    hk = port.hsv_kernel
+    hsv_before = hk.hsv_flow_overlay.launches
     for shard in range(2):
         band = dict(num_shards=2, shard_index=shard)
         for flow_name, fl in flows.items():
@@ -1377,20 +1623,28 @@ def parallel_path(port, dev, card: str) -> dict:
             band_err = max(band_err, require_equal(ry, py, what + " Y"),
                            require_equal(ruv, puv, what + " UV"))
         ry, ruv = k2_band(*src, flow, t3, black, white, mode=2, raw_blend=True, **band, **kw)
+        rows = (shard * ry.shape[1], shard * ruv.shape[1])
         y, uv = port.warp_viz.hsv_flow_overlay(ry, ruv, flow, black, white, **kw,
-                                               row_offsets=(shard * ry.shape[1],
-                                                            shard * ruv.shape[1]))
+                                               row_offsets=rows)
+        py, puv = hk.hsv_flow_overlay_reference(ry, ruv, flow, black, white, **kw,
+                                                row_offsets=rows)
         wy, wuv = port.warp_ops.warp_frame_rows(*src, flow, t3, black, white, mode=3, **band,
                                                 **kw)
+        band_err = max(band_err, require_equal(y, py, f"K5 band 2160p n 2 shard {shard} Y"),
+                       require_equal(uv, puv, f"K5 band 2160p n 2 shard {shard} UV"))
         require_equal(y, wy, f"mode 3 band 2160p n 2 shard {shard} Y")
         require_equal(uv, wuv, f"mode 3 band 2160p n 2 shard {shard} UV")
+    band_hsv_launches = hk.hsv_flow_overlay.launches - hsv_before
+    if band_hsv_launches != 2:
+        raise AssertionError(f"7a: the mode-3 bands made {band_hsv_launches} K5 launches, not 2")
     torch.cuda.synchronize()
     band = band_numbers(port, src, flows, t3, black, white)
     log(f"phase 7a K2 band: {n_shards} shard calls (4K HDR P010 flow +-64 at n = 2, 4, 8; "
         f"smooth and mirror-edge flow at n = 2; 1080p SDR at n = 8), modes 0/1/2, t (0.2, "
         f"0.6, 1.0): each equal to its plain version, the shards stacked equal to the full K2; "
         f"mode 3 at 4K HDR n = 2: the raw_blend band equal to its plain version (each flow), "
-        f"and with the banded HSV overlay equal to the plain row route; max |err| {band_err}")
+        f"and coloured by K5 ({band_hsv_launches} launches) equal to K5's plain version and to "
+        f"the plain row route; max |err| {band_err}")
 
     # -- 7b. batched_step: two 4K HDR streams panning 3 px/frame, radius 16,
     # three steps, against the single-stream path (pyramid_flow + K2) and
@@ -1478,6 +1732,7 @@ def parallel_path(port, dev, card: str) -> dict:
                      delta_scalar=scal[1], neighbor_scalar=scal[2], black=black, white=white)
                 for mode in mesh_modes]
         mesh_launches, mesh_raw_launches, mode_launches, mesh_lines = 0, 0, {}, []
+        mesh_hsv_launches = 0
         flow_launches = {k: 0 for k in MESH_FLOW_KERNELS}
         for dp, sp in meshes:
             for job in jobs:
@@ -1492,21 +1747,24 @@ def parallel_path(port, dev, card: str) -> dict:
                 for mode, path in zip(mesh_modes, paths):
                     with np.load(path) as z:
                         # Each job's own launches: the band (modes 2, 5, 6)
-                        # and its raw_blend variant (mode 3); mode 4 none.
+                        # and its raw_blend variant and K5 (mode 3); mode 4 none.
                         band_n, raw_n = int(z["band_launches"]), int(z["band_raw_launches"])
-                        need = {3: raw_n}.get(mode, band_n)
+                        hsv_n = int(z["hsv_overlay_launches"])
+                        need = {3: min(raw_n, hsv_n)}.get(mode, band_n)
                         # K3 and K4: the flow, in every mode.
                         flow_n = {k: int(z[f"{k}_launches"]) for k in flow_launches}
                         if (mode == 4 and band_n + raw_n) or (mode != 4 and need == 0) \
+                                or (mode != 3 and hsv_n) \
                                 or min(flow_n.values()) == 0 or z["foreign_modules"].size:
                             raise AssertionError(
                                 f"mesh {dp}x{sp} rank {rank} mode {mode}: band launches "
-                                f"{band_n}, raw_blend {raw_n}, flow {flow_n}, jax modules "
-                                f"{list(z['foreign_modules'])}")
+                                f"{band_n}, raw_blend {raw_n}, K5 {hsv_n}, flow {flow_n}, jax "
+                                f"modules {list(z['foreign_modules'])}")
                         for k, n in flow_n.items():
                             flow_launches[k] += n
                         mesh_launches += band_n
                         mesh_raw_launches += raw_n
+                        mesh_hsv_launches += hsv_n
                         mode_launches[mode] = mode_launches.get(mode, 0) + band_n + raw_n
                         step_ms[mode].append(float(z["step_ms"][-1]))
                         backends.add(str(z["backend"]))
@@ -1536,7 +1794,8 @@ def parallel_path(port, dev, card: str) -> dict:
         f"steps on meshes {meshes}: every rank's outputs, flow and delta equal to the "
         f"single-device results (7b; warp_outputs in modes 3-6) byte for byte; K2 band "
         f"launched {mesh_launches} times over the ranks (modes 2, 5, 6), its raw_blend variant "
-        f"{mesh_raw_launches} times (mode 3); launches by mode {mode_launches}; K3 and K4 "
+        f"{mesh_raw_launches} times and K5 {mesh_hsv_launches} times (mode 3); launches by "
+        f"mode {mode_launches}; K3 and K4 "
         f"launched by every rank in every mode, {flow_launches} in all; "
         + "; ".join(mesh_lines))
     log(f"phase 7 numbers [{card}]: K2 band (n 2, shard 0, mode 2, T = 3, {W}x{H} HDR) "
@@ -1553,7 +1812,8 @@ def parallel_path(port, dev, card: str) -> dict:
             "plain_ms": band["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}, {
                 "batched": {k: batched_launches[k] for k in ("flow_step", *flow_launches)},
-                "mesh": flow_launches}
+                "mesh": flow_launches, "mesh_hsv": mesh_hsv_launches,
+                "band_hsv": band_hsv_launches}
 
 
 def u32_err(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
@@ -2404,6 +2664,9 @@ def main(argv: list[str]) -> int:
         numbers["warp_frames_band"] = band_numbers(port, inp.src, inp.flows, inp.t3, inp.black,
                                                    inp.white)
         numbers["probes"] = probe_numbers(port, dev)
+        if port.hsv_kernel is not None:
+            numbers["hsv_flow_overlay"] = hsv_numbers(port, inp)
+            log(f"K5 times [{card}] of {ROOT}: {format_hsv(numbers['hsv_flow_overlay'])}")
         numbers["wrapper_split_us"] = wrapper_split(port, dev)
         numbers["launch_anatomy_ms"] = floor_numbers(port, dev)
         if port.cost_volume_kernel is not None:
@@ -2498,8 +2761,34 @@ def main(argv: list[str]) -> int:
                 require_equal(gpu.cpu(), cpu, f"HSV colour hdr {is_hdr} res_impact {impact} "
                                               f"channel {channel}")
                 n_colour += cpu.numel()
+    # K5 against its plain version: every pair at res_impact 4 and 1, SDR and
+    # HDR; 4K HDR on K2's raw blend of each flow, T = 1 and 3; HSV_CASES.
+    hk = port.hsv_kernel
+    hsv_err, n_hsv = 0, 0
+    for is_hdr in (False, True):
+        for rs in HSV_PAIR_STRIPS:
+            err, values = hsv_pair_parity(port, dev, is_hdr, rs)
+            hsv_err, n_hsv = max(hsv_err, err), n_hsv + values
+    for flow_name, fl in flows.items():
+        for ts in (inp.t1, t3):
+            raw = warp_kernel.warp_frames(*src, fl, ts, black, white, **raw_kw)
+            got = hk.hsv_flow_overlay(*raw, fl, black, white, res_scalar=3, is_hdr=True)
+            want = hk.hsv_flow_overlay_reference(*raw, fl, black, white, res_scalar=3,
+                                                 is_hdr=True)
+            what = f"K5 4K HDR {flow_name} T {len(ts)}"
+            hsv_err = max(hsv_err, require_equal(got[0], want[0], what + " Y"),
+                          require_equal(got[1], want[1], what + " UV"))
+    del raw, got, want    # phase 5's peak memory counts the served stream's tensors only
+    case_err, n_cases = hsv_case_parity(port, dev)
+    hsv_err = max(hsv_err, case_err)
+    torch.cuda.synchronize()
     log(f"phase 4c HSV colour: {n_colour} values (every (ox, oy) in +-512, SDR and HDR, "
-        f"res_impact 1 and 4, channels 0/1/2) equal on the card and the CPU")
+        f"res_impact 1 and 4, channels 0/1/2) equal on the card and the CPU; K5 "
+        f"hsv_flow_overlay equal to its plain version: {n_hsv} values over every (ox, oy) in "
+        f"+-512 (SDR and HDR, res_impact 4 at rs 0 and 1 at rs 3, Y and both UV channels), "
+        f"{W}x{H} HDR on K2's raw blend of {', '.join(flows)} flow at T = 1 and 3, and "
+        f"{n_cases} more geometries (rs 1-3, ragged rows, row offsets, the int16 range, 1080p "
+        f"SDR); max |err| {hsv_err}")
 
     # -- 5. served slice ----------------------------------------------------------
     settings = dict(target_fps=60.0, use_display_fps=False, frame_output=2, black_level=16,
@@ -2575,7 +2864,8 @@ def main(argv: list[str]) -> int:
 
     # -- 5b / 5c. served visualisation modes --------------------------------------
     # The kernels each mode's path runs (mode 4 needs the flow only).
-    path_kernels = {3: FLOW_KERNELS + ("warp_frames_raw_blend",), 4: FLOW_KERNELS,
+    path_kernels = {3: FLOW_KERNELS + ("warp_frames_raw_blend", "hsv_flow_overlay"),
+                    4: FLOW_KERNELS,
                     5: FLOW_KERNELS + ("warp_frames",), 6: FLOW_KERNELS + ("warp_frames",)}
     viz_warp_ms, viz_launches = {}, {}
     for mode, n_frames in ((3, 10), (4, 6), (5, 6), (6, 6)):
@@ -2605,8 +2895,34 @@ def main(argv: list[str]) -> int:
             f"{sum(o.interpolated for o in vouts)} interpolated, launches {got}, all equal "
             f"to the plain-version stream")
 
+    # -- 5d. mode 3 with the quality scaler on ------------------------------------
+    # K5's stream must never enter TOO_SLOW; the same frames with the plain
+    # overlay (mode 3's path before K5) are reported beside it.
+    m3_frames = panning_frames(port, H, W, MODE3_SCALER_FRAMES, is_hdr=True)
+    m3 = mode3_scaler_stream(port, dev, m3_frames)
+    require_launched(m3["launches"], path_kernels[3], "5d")
+    if "TOO_SLOW" in m3["states"] or m3["interpolated"] == 0:
+        raise AssertionError(f"5d: mode 3 with K5 entered TOO_SLOW or interpolated nothing: "
+                             f"edges {m3['edges']}, radii {m3['radii']}")
+    with plain_overlay(port):
+        m3_plain = mode3_scaler_stream(port, dev, m3_frames)
+    if m3_plain["launches"]["hsv_flow_overlay"]:
+        raise AssertionError("5d: the plain-overlay stream launched K5")
+    del m3_frames
+    for label, run in (("K5", m3), ("plain overlay", m3_plain)):
+        trip = next((k for k, st in enumerate(run["states"]) if st == "TOO_SLOW"), None)
+        log(f"phase 5d served mode 3 {W}x{H} HDR 24->60, scaler on, {MODE3_SCALER_FRAMES} "
+            f"panning frames, {label}: {run['outputs']} outputs, {run['interpolated']} "
+            f"interpolated; TOO_SLOW {'never' if trip is None else f'from frame {trip}'}; "
+            f"edges {run['edges']}; radius per frame {run['radii']}; engine compute ms per "
+            f"source frame (flow + warps, CUDA events) "
+            f"{', '.join(f'{t:.3f}' for t in run['compute_ms'])}; median after warm-up "
+            f"{statistics.median(run['compute_ms'][3:]):.3f}; warp ms/output median "
+            f"{statistics.median(run['warp_ms']):.3f}")
+
     # -- 6. numbers ------------------------------------------------------------------
     numbers = kernel_numbers(port, inp)
+    hsv = hsv_numbers(port, inp)
 
     # The served stream goes on for N_PROFILED more frames under torch.profiler.
     from torch.profiler import ProfilerActivity, profile
@@ -2634,7 +2950,11 @@ def main(argv: list[str]) -> int:
     log(f"phase 6 kernels [{card}] (graph-timed device ms per call, {LOW} flow, {W}x{H} HDR "
         f"T = 3 unless marked, random +-64 flow unless marked): {format_numbers(numbers)}")
     log(f"phase 6 numbers [{card}]: warp ms/output (median, CUDA events, one warp per "
-        f"output) " + ", ".join(f"mode {m} {t:.3f}" for m, t in viz_warp_ms.items()))
+        f"output) " + ", ".join(f"mode {m} {t:.3f}" for m, t in viz_warp_ms.items())
+        + f"; mode 3 in 5d, scaler on: K5 {statistics.median(m3['warp_ms']):.3f}, the plain "
+        f"overlay {statistics.median(m3_plain['warp_ms']):.3f}")
+    log(f"phase 6 K5 [{card}] (hsv_flow_overlay on K2's raw blend, {W}x{H} HDR, random +-64 "
+        f"flow unless marked, graph-timed device ms per call): {format_hsv(hsv)}")
     # The flow at radius 16 and 5 in turns: phase 5's ten frames on one new
     # server, even frames at 16, odd frames at 5.
     alt, turns = new_server(), {16: [], 5: []}
@@ -2708,6 +3028,23 @@ def main(argv: list[str]) -> int:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None
         k["host_us"] = v["host_us"]
+    # K5: ms, plain_ms, host_us and the bound at T = 1, the served path's one
+    # output a call (t3: at T = 3); `launches` those of the served mode-3 path
+    # (5b), beside the 5d stream's, 7a's bands' and 7c's ranks'; grid_ms an
+    # empty launch of its two grids. library_ms is null: no single PyTorch
+    # call computes fdlibm's atan2 and this colour.
+    kernels.append({
+        "name": "hsv_flow_overlay", "route": "cuda",
+        "source": "hopperrender_tpu_torch/csrc/hsv_overlay.cu",
+        "replaces": "no pallas_call: hopperrender_tpu/ops/warp_viz.py:54 (XLA)",
+        "launches": viz_launches[3]["hsv_flow_overlay"], "launches_path": "5b served mode 3",
+        "max_abs_err": hsv_err, "ms": hsv["T1"]["ms"], "smooth_ms": hsv["T1"]["smooth_ms"],
+        "plain_ms": hsv["T1"]["plain_ms"], "bound_ms": hsv["T1"]["bound_ms"],
+        "bound_by": hsv["T1"]["bound_by"], "library_ms": None, "host_us": hsv["T1"]["host_us"],
+        "grid_ms": hsv["T1"]["grid_ms"], "t3": hsv["T3"],
+        "scaler_stream_launches": m3["launches"]["hsv_flow_overlay"],
+        "band_launches": parallel_flow_launches["band_hsv"],
+        "mesh_launches": parallel_flow_launches["mesh_hsv"]})
     # flow_step (K3 then K4, the main path's one call a pyramid step), K3 and K4
     # (the mesh's standalone calls): ms, plain_ms, host_us and the bound are a
     # call's, the mean over one 4K HDR flow's 16 calls at radius 16 (r5: at

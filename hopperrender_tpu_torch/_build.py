@@ -69,8 +69,13 @@ SIGNATURES = {
     # K4 in a timing variant (variant, in, out, sums, low_h, low_w, num_layers, radius,
     #  window_size, step, stream)
     "hrt_commit_winners_probe": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # K5 (raw_y, flow, out_y, out_uv, n_t, rows_y, rows_uv, dim_x, row0_y, row0_uv, low_h,
+    #  low_w, res_scalar, is_hdr, black, white, stream)
+    "hrt_hsv_overlay": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # (stream): an empty kernel, the floor under a launch-bound kernel's time
     "hrt_empty_launch": (_P,),
+    # (grid_x, grid_y, block_x, block_y, stream): an empty launch of a kernel's grid
+    "hrt_empty_grid": (_I, _I, _I, _I, _P),
     # (kind, threads, src, out, stream): that floor taken apart
     "hrt_floor_launch": (_I, _I, _P, _P, _P),
     # (passes, n16, src, out, blocks, stream): reads of an L2-resident buffer

@@ -1,5 +1,6 @@
 // Error text for the codes the kernels' C entry points return, an empty
-// launch: the floor under the device time of any launch-bound kernel, which
+// launch (of one block, or of a kernel's grid): the floor under the device
+// time of any launch-bound kernel, which
 // chip_smoke.py times beside the kernels, the launches that take that floor
 // apart for a one-block kernel such as P3's and P4's, and a stream of reads
 // from an L2-resident buffer: the card's L2 read rate, which bounds P1 and P2.
@@ -55,6 +56,17 @@ extern "C" const char* hrt_error_string(int code) {
 // One block of one warp that does nothing, on `stream`.
 extern "C" int hrt_empty_launch(void* stream) {
   empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A grid of grid_x x grid_y blocks of block_x x block_y threads that do
+// nothing, on `stream`: the floor under a kernel launched on that grid.
+extern "C" int hrt_empty_grid(int grid_x, int grid_y, int block_x, int block_y, void* stream) {
+  if (grid_x < 1 || grid_y < 1 || block_x < 1 || block_y < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  empty_kernel<<<dim3(grid_x, grid_y), dim3(block_x, block_y), 0,
+                 static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

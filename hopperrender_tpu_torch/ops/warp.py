@@ -300,6 +300,13 @@ def blend(v12: torch.Tensor, v21: torch.Tensor, fs12: torch.Tensor) -> torch.Ten
     return torch.trunc(_fma_f32(v12.to(F32), fs21, v21.to(F32) * fs12)).to(torch.int32)
 
 
+def plane_coords(h: int, w: int, device, row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plane coordinates (cx, cy) of the (h, w) rows [row0, row0 + h)."""
+    cx = torch.arange(w, dtype=torch.int32, device=device)[None, :].expand(h, w)
+    cy = torch.arange(row0, row0 + h, dtype=torch.int32, device=device)[:, None].expand(h, w)
+    return cx, cy
+
+
 def res_impact(res_scalar: int) -> int:
     """Mode 3's colour gain (ref: warpFrameKernelSDR.h:177)."""
     return 4 if res_scalar <= 2 else 1

@@ -7,7 +7,8 @@ hopperrender_tpu/ops/warp_strip.py::grey_flow_frame. Each function equals
 ops/warp.py::warp_frame_plane in its mode (ref: warpFrameKernelSDR.h:116-184):
 
   * mode 3 colours K2's raw mode-2 blend (warp_frames(raw_blend=True)) with
-    the flow of each pixel's cell, then applies the levels;
+    the flow of each pixel's cell, then applies the levels: kernel K5
+    (ops/hsv_kernel.py, csrc/hsv_overlay.cu) on the card;
   * mode 4 needs the flow only;
   * mode 5 is the source's left half beside K2's mode-2 right half;
   * mode 6 puts the 2x-downsampled source and mode-2 output side by side in a
@@ -18,20 +19,23 @@ ops/warp.py::warp_frame_plane in its mode (ref: warpFrameKernelSDR.h:116-184):
 
 The JAX package's versions repeat the flow over whole cells (they assume
 dim_x % (1 << res_scalar) == 0); these look the flow up per pixel as
-warp_frame_plane does, so every even geometry works. All are plain PyTorch:
-none of them is a TPU kernel in the JAX package. Warp outputs come batched,
-(T, H, W) and (T, H/2, W), with their (T,) blending scalars. Modes 3-5 also
-take row_offsets, for the row bands of the mesh (parallel/mesh.py); mode 6
-reads rows outside a band, so the mesh composes it after its row all-gather.
+warp_frame_plane does, so every even geometry works. None of them is a TPU
+kernel in the JAX package. Mode 3's overlay is K5, a hand-written kernel on
+the card (the JAX package fuses it into one XLA program; as a chain of
+PyTorch operations it cost some 27 ms a 4K output); modes 4-6 are plain
+PyTorch. Warp outputs come batched, (T, H, W) and (T, H/2, W), with their
+(T,) blending scalars. Modes 3-5 also take row_offsets, for the row bands of
+the mesh (parallel/mesh.py); mode 6 reads rows outside a band, so the mesh
+composes it after its row all-gather.
 """
 
 from __future__ import annotations
 
 import torch
 
+from hopperrender_tpu_torch.ops import hsv_kernel, warp_kernel
 from hopperrender_tpu_torch.ops import warp as warp_ops
-from hopperrender_tpu_torch.ops import warp_kernel
-from hopperrender_tpu_torch.ops.warp import F32, from_int32, to_int32
+from hopperrender_tpu_torch.ops.warp import F32, from_int32, plane_coords, to_int32
 
 
 def warp_outputs(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black_level, white_level, *,
@@ -39,8 +43,9 @@ def warp_outputs(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black_level, wh
     """The warp in any output mode 0-6, one output per blending scalar of the
     (T,) vector ts: (T, H, W), (T, H/2, W). Modes 0/1/2 are K2; the
     visualisation modes are composed as the JAX engine composes them
-    (hopperrender_tpu/engine/flow_engine.py::_run_warp). The K2 wrapper is
-    looked up at call time, so a caller may point it at its plain version."""
+    (hopperrender_tpu/engine/flow_engine.py::_run_warp). The K2 and K5
+    wrappers are looked up at call time, so a caller may point them at their
+    plain versions."""
     kw = dict(res_scalar=res_scalar, is_hdr=is_hdr)
     srcs = (src12_y, src12_uv, src21_y, src21_uv)
     if mode == 4:   # grey flow: no source sample
@@ -59,34 +64,19 @@ def warp_outputs(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black_level, wh
     return y, uv
 
 
-def _plane_coords(h: int, w: int, device, row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plane coordinates of the (h, w) rows [row0, row0 + h)."""
-    cx = torch.arange(w, dtype=torch.int32, device=device)[None, :].expand(h, w)
-    cy = torch.arange(row0, row0 + h, dtype=torch.int32, device=device)[:, None].expand(h, w)
-    return cx, cy
-
-
 def hsv_flow_overlay(raw_y: torch.Tensor, raw_uv: torch.Tensor, flow: torch.Tensor,
                      black_level, white_level, *, res_scalar: int, is_hdr: bool,
                      row_offsets: tuple[int, int] = (0, 0)):
     """Mode 3: the HSV flow colour over the raw (pre-levels) mode-2 blend,
-    then the levels. raw_y (..., H, W) and raw_uv (..., H/2, W) are K2's
-    raw_blend outputs; the colour of a pixel comes from the negated flow of
-    its cell (ref: warpFrameKernelSDR.h:172-183). row_offsets (Y, UV): the
-    plane row of each input's first row, for the row bands of the mesh
-    (K2's mesh-sharded raw_blend variant); rows past the plane are coloured
-    as if the flow grid went on, and the mesh crops them."""
-    dev = flow.device
-    black = torch.as_tensor(black_level, dtype=F32, device=dev)
-    white = torch.as_tensor(white_level, dtype=F32, device=dev)
-    out = []
-    for cz, raw, row0 in ((0, raw_y, row_offsets[0]), (1, raw_uv, row_offsets[1])):
-        cx, cy = _plane_coords(raw.shape[-2], raw.shape[-1], dev, row0)
-        coloured = warp_ops.hsv_colour(to_int32(raw), flow, cx, cy, res_scalar=res_scalar,
-                                       cz=cz, is_hdr=is_hdr)
-        out.append(from_int32(warp_ops._apply_levels(coloured, black, white, cz=cz,
-                                                     is_hdr=is_hdr), raw.dtype))
-    return tuple(out)
+    then the levels: K5, ops/hsv_kernel.hsv_flow_overlay (looked up at call
+    time, so a caller may point it at its plain version). raw_y (..., H, W)
+    and raw_uv (..., H/2, W) are K2's raw_blend outputs. row_offsets (Y, UV):
+    the plane row of each input's first row, for the row bands of the mesh;
+    rows past the plane are coloured as if the flow grid went on, and the
+    mesh crops them."""
+    return hsv_kernel.hsv_flow_overlay(raw_y, raw_uv, flow, black_level, white_level,
+                                       res_scalar=res_scalar, is_hdr=is_hdr,
+                                       row_offsets=row_offsets)
 
 
 def grey_flow_frame(flow: torch.Tensor, *, res_scalar: int, is_hdr: bool, dim_y: int,
@@ -105,7 +95,7 @@ def grey_flow_frame(flow: torch.Tensor, *, res_scalar: int, is_hdr: bool, dim_y:
         valid = max(0, min(rows, plane_h - row0))
         grey = torch.zeros((rows, dim_x), dtype=torch.int32, device=flow.device)
         if valid:
-            cx, cy = _plane_coords(valid, dim_x, flow.device, row0)
+            cx, cy = plane_coords(valid, dim_x, flow.device, row0)
             grey[:valid] = warp_ops.grey_flow_plane(flow, cx, cy, res_scalar=res_scalar,
                                                     cz=cz, is_hdr=is_hdr)
         planes.append(from_int32(grey, dtype))

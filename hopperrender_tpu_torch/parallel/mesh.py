@@ -17,7 +17,8 @@ single-GPU; the scale-out maps its axes onto a 2-D mesh of ranks:
         composed from K2's mesh-sharded variant
         (ops/warp_kernel.warp_frames_band), as ops/warp_viz.warp_outputs
         composes the full frame: modes 0/1/2 are its own, mode 3 colours
-        its raw_blend band, mode 4 is the grey flow of the band's rows (no
+        its raw_blend band (kernel K5, the HSV flow overlay, with the band's
+        row offsets), mode 4 is the grey flow of the band's rows (no
         K2), mode 5 puts source 1's band rows beside its mode-2 band, and
         mode 6, whose rows read rows outside the band, is composed from the
         gathered mode-2 frame. The plain row route (warp_frame_sharded)

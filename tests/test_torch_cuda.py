@@ -1,6 +1,8 @@
 """Kernels K1 (flow blur), K2 (batched warp, its raw_blend variant and its
-mesh-sharded row-band variant), K3 (the cost volume's window sums) and K4
-(the argmin and its commit) against their plain PyTorch versions on a CUDA
+mesh-sharded row-band variant), K3 (the cost volume's window sums), K4
+(the argmin and its commit) and K5 (mode 3's HSV flow overlay: every colour
+pair, the full frame and the mesh's bands) against their plain PyTorch
+versions on a CUDA
 card, exactly, across bit depths, res scalars, modes and ragged shapes (K3
 and K4 over chip_smoke.py's phase 3b matrix); the pyramid on the card
 against the CPU and replayed in a CUDA graph; the HSV colour on the card
@@ -20,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from hopperrender_tpu_torch.ops import blur_kernel, cost_volume_kernel, warp_kernel, warp_viz
+from hopperrender_tpu_torch.ops import (blur_kernel, cost_volume_kernel, hsv_kernel, warp_kernel,
+                                        warp_viz)
 from hopperrender_tpu_torch.ops import warp as warp_ops
 from hopperrender_tpu_torch.probes import chain_probe, chain_probe2, gather_probe, mosaic_probe
 from hopperrender_tpu_torch.server import digests
@@ -192,8 +195,9 @@ def test_visualize_flow_cuda_matches_cpu(dev, is_hdr):
 @pytest.mark.parametrize("is_hdr", [False, True])
 def test_engine_viz_modes_match_cpu(dev, is_hdr):
     """Modes 3-6 through the engine on the card (K1, K2, its raw_blend
-    variant and the compositions of ops/warp_viz.py) equal the same stream
-    on the CPU. 86 wide: an odd half width for mode 6."""
+    variant, K5 and the compositions of ops/warp_viz.py) equal the same
+    stream on the CPU; K5 launches in mode 3 only. 86 wide: an odd half
+    width for mode 6."""
     from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
     from hopperrender_tpu_torch.vio import nv12
     h, w = 50, 86
@@ -209,11 +213,96 @@ def test_engine_viz_modes_match_cpu(dev, is_hdr):
                 eng.calculate_optical_flow()
     for mode in (3, 4, 5, 6):
         raw_before = warp_kernel.warp_frames.raw_launches
+        hsv_before = hsv_kernel.hsv_flow_overlay.launches
         want = engines[0].warp_frames_batch([0.4, 0.8], mode)
         got = engines[1].warp_frames_batch([0.4, 0.8], mode)
         assert (warp_kernel.warp_frames.raw_launches > raw_before) == (mode == 3)
+        assert (hsv_kernel.hsv_flow_overlay.launches > hsv_before) == (mode == 3)
         for (gy, guv), (wy, wuv) in zip(got, want):
             assert _same(gy.cpu(), wy) and _same(guv.cpu(), wuv), f"mode {mode}"
+
+
+@pytest.mark.parametrize("rs", [0, 3])
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_hsv_kernel_every_pair_matches_plain(dev, is_hdr, rs):
+    """K5 against its plain version over every (ox, oy) in +-512 as the
+    colour's pair, on Y and both UV channels: res_impact 4 (rs 0) and 1 (rs
+    3), chip_smoke.py phase 4c's matrix."""
+    chip_smoke, port = _chip_smoke()
+    err, values = chip_smoke.hsv_pair_parity(port, dev, is_hdr, rs)
+    assert err == 0 and values >= 3 * 1025 * 1025
+
+
+@pytest.mark.parametrize("n_t", [1, 3])
+def test_hsv_kernel_4k_hdr_matches_plain(dev, n_t):
+    """K5 on K2's raw blend at 4K HDR, res_scalar 3, random +-64 flow, equal
+    to its plain version; one launch counted a call."""
+    rng = np.random.default_rng(80 + n_t)
+    h, w = 2160, 3840
+    srcs = _frame(rng, h, w, True, dev) + _frame(rng, h, w, True, dev)
+    flow = torch.tensor(rng.integers(-64, 65, (2, 270, 480)).astype(np.int16), device=dev)
+    ts = torch.tensor([0.6, 0.2, 1.0][:n_t], dtype=torch.float32, device=dev)
+    kw = dict(res_scalar=3, is_hdr=True)
+    raw = warp_kernel.warp_frames(*srcs, flow, ts, 16 * 256.0, 235 * 256.0, mode=2,
+                                  raw_blend=True, **kw)
+    before = hsv_kernel.hsv_flow_overlay.launches
+    got = hsv_kernel.hsv_flow_overlay(*raw, flow, 16 * 256.0, 235 * 256.0, **kw)
+    assert hsv_kernel.hsv_flow_overlay.launches == before + 1
+    want = hsv_kernel.hsv_flow_overlay_reference(*raw, flow, 16 * 256.0, 235 * 256.0, **kw)
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+def test_hsv_kernel_cases_match_plain(dev):
+    """K5 against its plain version on chip_smoke.py's HSV_CASES: narrow runs
+    (rs 1, 2), ragged rows and rows off 16 bytes, row offsets, the int16
+    range, 1080p SDR."""
+    chip_smoke, port = _chip_smoke()
+    err, calls = chip_smoke.hsv_case_parity(port, dev)
+    assert err == 0 and calls == len(chip_smoke.HSV_CASES)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("h,w,rs,is_hdr", [(2160, 3840, 3, True), (50, 86, 1, False)])
+def test_hsv_kernel_bands_match_plain_and_full(dev, h, w, rs, is_hdr, n):
+    """The mesh's mode 3: K5 on each shard's raw_blend band (K2's band
+    kernel) with the band's row offsets equals its plain version, and the
+    bands stacked and cropped equal K5 on the full frame."""
+    rng = np.random.default_rng(90 + n)
+    srcs = _frame(rng, h, w, is_hdr, dev) + _frame(rng, h, w, is_hdr, dev)
+    low = (2, -(-h // (1 << rs)), -(-w // (1 << rs)))
+    flow = torch.tensor(rng.integers(-64, 65, low).astype(np.int16), device=dev)
+    s = 256.0 if is_hdr else 1.0
+    ts = torch.tensor([0.2, 0.6, 1.0], dtype=torch.float32, device=dev)
+    kw = dict(res_scalar=rs, is_hdr=is_hdr)
+    raw = warp_kernel.warp_frames(*srcs, flow, ts, 16 * s, 235 * s, mode=2, raw_blend=True, **kw)
+    full = hsv_kernel.hsv_flow_overlay(*raw, flow, 16 * s, 235 * s, **kw)
+    bands = []
+    for shard in range(n):
+        ry, ruv = warp_kernel.warp_frames_band(*srcs, flow, ts, 16 * s, 235 * s, mode=2,
+                                               raw_blend=True, num_shards=n, shard_index=shard,
+                                               **kw)
+        rows = (shard * ry.shape[1], shard * ruv.shape[1])
+        got = hsv_kernel.hsv_flow_overlay(ry, ruv, flow, 16 * s, 235 * s, row_offsets=rows, **kw)
+        want = hsv_kernel.hsv_flow_overlay_reference(ry, ruv, flow, 16 * s, 235 * s,
+                                                     row_offsets=rows, **kw)
+        assert _same(got[0], want[0]) and _same(got[1], want[1]), f"shard {shard}"
+        bands.append(got)
+    for cz, plane_h in enumerate((h, h // 2)):
+        assert _same(torch.cat([b[cz] for b in bands], 1)[:, :plane_h], full[cz])
+
+
+def test_hsv_kernel_rejects_bad_input(dev):
+    rng = np.random.default_rng(3)
+    y, uv = _frame(rng, 16, 32, True, dev)
+    flow = torch.zeros((2, 2, 4), dtype=torch.int16, device=dev)
+    kw = dict(res_scalar=3, is_hdr=True)
+    strided = _frame(rng, 16, 64, True, dev)[0][:, ::2]     # (16, 32), every other column
+    with pytest.raises(ValueError, match="contiguous"):
+        hsv_kernel.hsv_flow_overlay(strided, uv, flow, 0.0, 255.0, **kw)
+    with pytest.raises(ValueError, match="one device"):
+        hsv_kernel.hsv_flow_overlay(y, uv, flow.cpu(), 0.0, 255.0, **kw)
+    with pytest.raises(ValueError, match="uint8"):
+        hsv_kernel.hsv_flow_overlay(y, uv, flow, 0.0, 255.0, res_scalar=3, is_hdr=False)
 
 
 # (h, w, rs, is_hdr, n): 4K HDR split in two, and 1080p SDR in eight (UV's

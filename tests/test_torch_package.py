@@ -3,7 +3,9 @@ the port never loads jax, a CUDA engine or server raises when CUDA is absent,
 and chip_smoke.py exits non-zero without a card and outside the repository."""
 
 import ast
+import ctypes
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from hopperrender_tpu_torch import _build
 from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
 from hopperrender_tpu_torch.server.frame_server import FrameServer
 
@@ -95,16 +98,41 @@ def test_port_files_import_nothing_of_the_jax_package():
 
 def test_plain_versions_swaps_the_wrappers_and_restores_them():
     import chip_smoke
-    from hopperrender_tpu_torch.ops import blur_kernel, warp_kernel
+    from hopperrender_tpu_torch.ops import blur_kernel, hsv_kernel, warp_kernel
 
     port = chip_smoke.import_port()
-    kernels = blur_kernel.blur_flow, warp_kernel.warp_frames
+    kernels = blur_kernel.blur_flow, warp_kernel.warp_frames, hsv_kernel.hsv_flow_overlay
     with pytest.raises(KeyError):
         with chip_smoke.plain_versions(port):
             assert blur_kernel.blur_flow is blur_kernel.blur_flow_reference
             assert warp_kernel.warp_frames is warp_kernel.warp_frames_reference
+            assert hsv_kernel.hsv_flow_overlay is hsv_kernel.hsv_flow_overlay_reference
             raise KeyError("restored on the way out")
-    assert (blur_kernel.blur_flow, warp_kernel.warp_frames) == kernels
+    assert (blur_kernel.blur_flow, warp_kernel.warp_frames,
+            hsv_kernel.hsv_flow_overlay) == kernels
+
+
+def _c_prototypes() -> dict:
+    """Each `extern "C" int hrt_*(...)` of csrc/*.cu -> its parameters as
+    ctypes types: a pointer is c_void_p, an int c_int, a float c_float."""
+    protos = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (hrt_\w+)\(([^)]*)\)', src.read_text()):
+            protos[name] = tuple(
+                ctypes.c_void_p if "*" in p else ctypes.c_float if p.split()[0] == "float"
+                else ctypes.c_int if p.split()[0] == "int" else p.strip()
+                for p in params.split(","))
+    return protos
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_ctypes_signatures_match_the_c_prototypes(name):
+    """_build.SIGNATURES declares every C entry point's parameters as its
+    source does: a wrong count or type would pass garbage to a kernel, and
+    only on the card."""
+    protos = _c_prototypes()
+    assert set(protos) == set(_build.SIGNATURES)
+    assert _build.SIGNATURES[name] == protos[name]
 
 
 def test_probe_work_counts_every_variant_and_the_words_read():

@@ -6,12 +6,17 @@
                                             # adds meshes of a rank per card (NCCL)
     python3 chip_smoke.py --bench-only      # phases 1, 2 and 10: the bench
     python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only:
-                                            # K1, K2, the band, K5, K3, K4, the pyramid
+                                            # K1, K2, the band, K5, K2's mode 3 beside
+                                            # K2 raw_blend + K5, K3, K4, the pyramid
                                             # step (flow_step), P1-P4 and the L2 read
                                             # rate, P1/P2 on the probe path on 1 and
                                             # 132 blocks, the split of a wrapper call's
                                             # host time into stages and the floor of a
                                             # one-block launch taken apart
+    python3 chip_smoke.py --served-wall [keep|drop]
+                                            # phases 1, 2, then phase 5's stream alone,
+                                            # twice: its wall and flow in a fresh process,
+                                            # the outputs kept to the end or released
 
 Builds the hand-written CUDA kernels from hopperrender_tpu_torch/csrc (nvcc,
 sm_90a), then runs these phases, one line each:
@@ -44,7 +49,15 @@ sm_90a), then runs these phases, one line each:
      both UV channels, SDR and HDR, res_impact 4 (rs 0) and 1 (rs 3); 4K HDR
      on K2's raw blend of the three flows at T = 1 and 3; rs 1-3 at 50 x 86
      (ragged rows, rows off 16 bytes, row offsets, the int16 range) and 1080p
-     SDR at rs 2;
+     SDR at rs 2 (K5 is off the served path since K2's mode 3; phase 4c
+     holds it, and K2's raw_blend variant, as 4b does);
+     4d. K2's mode 3 (the HSV flow overlay in K2's epilogue, one launch)
+     against its plain version, exact: 4K HDR on the three flows at T = 1
+     and 3 (also equal to K2 raw_blend + K5 on the same inputs); the row
+     bands at n = 2, 4 and 8 against their plain bands and stacked against
+     the full frame; rs 1-3 at 50 x 86 (with bands of n = 3, t outside
+     [0, 1], the int16 range) and 1080p SDR at rs 2; a flow grid at rs 0
+     whose cells run through every (ox, oy) in +-512, SDR and HDR;
   5. the served slice: FrameServer at 3840x2160 HDR, 24 -> 60, mode 2, levels
      16/235, search radius 16, ten panning frames through the kernels; the
      output count against the cadence controller's, the kernels' launch
@@ -52,24 +65,33 @@ sm_90a), then runs these phases, one line each:
      a flow and no standalone K3 or K4), every output against the
      same stream run with the plain versions, and all five golden fixtures
      replayed byte for byte;
-     5b. served mode 3 (HSV flow) the same way: ten frames through K1, K2's
-     raw_blend variant and K5 (the plain-version stream launches no K5);
+     5b. served mode 3 (HSV flow) the same way: ten frames through K1,
+     flow_step and K2's mode 3 (no raw_blend, no K5 launched; the
+     plain-version stream launches nothing);
      5c. served modes 4, 5 and 6, six frames each (mode 4 runs K1 and
      flow_step only, modes 5/6 K2 too);
      5d. served mode 3 at 4K HDR with the quality scaler on, 30 panning
      frames: the radius, the cadence state and the engine compute (flow +
      warps, what the scaler reads) of each source frame, and its
-     ACTIVE/TOO_SLOW edges; it fails if the stream ever enters TOO_SLOW or a
-     kernel of the path never launched. The same frames with the plain
-     overlay (mode 3's path before K5) are reported beside it;
+     ACTIVE/TOO_SLOW edges; it fails if the stream ever enters TOO_SLOW, a
+     kernel of the path never launched or the old chain launched. The same
+     frames through that chain (K2's raw_blend variant, then K5: mode 3's
+     path before K2's mode 3) and with the plain overlay (mode 3's path
+     before K5) are reported beside it;
   6. the numbers: served wall time per source frame (host clock around
      push_frame), flow time per source frame, warp time per output, copy
      time, peak memory, and a torch.profiler pass over three more served
      frames: device busy time, idle share and launches per source frame, and
      device time by kind (it fails if K3's fill ran); the warp time per
      output of modes 3-6 (CUDA
-     events) from 5b/5c, and of mode 3 in 5d with K5 and with the plain
-     overlay; K5 at 4K HDR on K2's raw blend, T = 1 and 3, graph-timed on
+     events) from 5b/5c, and of mode 3 in 5d on K2's mode 3, on the chain
+     and with the plain overlay; K2's mode 3 at 4K HDR, T = 1 and 3,
+     graph-timed in turns with the chain it replaced (K2 raw_blend + K5) on
+     the same inputs, on random and smooth flow, with its host us a call
+     and the chain's, its plain version, an empty launch of its one grid,
+     its bound (both sources' Y planes and the flow read, both planes
+     written; operations counted from its code) and its ratios to the bound
+     and to the chain; K5 at 4K HDR on K2's raw blend, T = 1 and 3, graph-timed on
      random and smooth flow, with its host us a call, its plain version, an
      empty launch of its two grids and its bound (the raw Y plane and the
      flow read, both planes written; operations counted from its code); and
@@ -95,22 +117,25 @@ sm_90a), then runs these phases, one line each:
      version for every shard, and the shards stacked against the full K2:
      4K HDR P010, flow +-64, t (0.2, 0.6, 1.0), modes 0/1/2, levels 16/235,
      n = 2, 4, 8; smooth and mirror-edge flow at n = 2; and 1080p SDR at n =
-     8, where UV's rows split unevenly; mode 3 at 4K HDR, n = 2: the band's
-     raw_blend variant against its plain version (each flow), coloured by K5
-     with the band's row offsets against K5's plain version and the plain
-     row route; the band graph-timed on random and smooth flow, as phase 6;
+     8, where UV's rows split unevenly; mode 3 at 4K HDR, n = 2: the band
+     in mode 3 against the plain row route; the band's raw_blend variant
+     against its plain version (each flow), coloured by K5 with the band's
+     row offsets against K5's plain version and the plain row route; the
+     band graph-timed on random and smooth flow, as phase 6;
      7b. batched_step on two 4K HDR streams (panning 3 px/frame, radius 16,
      three steps): outputs, flow and delta against the single-stream path
      (pyramid_flow + K2), and against the same run on the plain versions;
-     K1, flow_step and K2 must each have launched;
+     K1, flow_step and K2 must each have launched; then in mode 3, each
+     output against the single-stream K2 mode 3 (K2's mode 3 must have
+     launched, and neither K5, the raw_blend variant nor mode 2);
      7c. make_multichip_step through launch.run_ranks at 4K HDR, rs 3, modes
      2-6, t_batch 3, on meshes (1, 2) and (2, 1) of ranks sharing this card
      over gloo (and (1, 4), (2, 2) over NCCL where four cards are visible):
      each rank writes its outputs to an .npz, held byte for byte to 7b's
      single-device results (modes 3-6: warp_viz.warp_outputs on the full
      frame); every rank must have launched the band kernel in modes 2, 5
-     and 6, its raw_blend variant and K5 in mode 3 (K5 in no other mode),
-     and neither band in mode 4, the
+     and 6, its mode 3 in mode 3 (and in no other mode), and no band in
+     mode 4, the
      standalone K3 and K4 (the mesh gathers the layer shards between them)
      in every mode, and no
      rank may load a module of jax or of the JAX package. Its numbers: each
@@ -188,11 +213,14 @@ host_us and bound a call over one 4K HDR flow at radius 16 (`r5` at radius
 `mesh_launches` (7c's ranks), flow_step's `launches` those of the served
 slice (phase 5), K3's and K4's those of the mesh (7c), their path, with
 `main_path_launches` (0) beside them, and K3's timing `variants`; K5's
-`ms`, `plain_ms`, `host_us` and bound at T = 1 (the served path), `t3` at T
-= 3, `grid_ms`, its `launches` in 5b beside 5d's, 7a's and 7c's; the band's
-`launches` over
-7c's modes 2, 5 and 6, and `launches_by_mode` (mode 3: its raw_blend
-variant's); for the probes `ms`
+`ms`, `plain_ms`, `host_us` and bound at T = 1 (as mode 3 was served), `t3`
+at T = 3, `grid_ms`, its `launches` those of 4c (its parity; the served paths
+launch it no more) beside 5d's and 7a's; K2's mode 3 (`warp_frames_mode3`)
+the same at T = 1 and 3, with `chain_ms` (K2 raw_blend + K5 on the same
+inputs) and `vs_chain`, its `launches` in 5b beside 5d's, 4d's, 7b's,
+7a's and 7c's; K2 raw_blend's `launches` those of 4b beside 7a's bands'; the band's
+`launches` over 7c's modes 2, 5 and 6, and `launches_by_mode` (mode 3:
+its mode 3's); for the probes `ms`
 summed over the variants, graph-timed, P1/P2's bound beside the bound
 without its L2 term (`bound_ms_without_l2`) and each variant's ms and
 bound, `host_us` and `library_host_us` the means over the variants,
@@ -304,6 +332,69 @@ def log(line: str) -> None:
     print(line, flush=True)
 
 
+# Phase 5's served stream: 4K HDR P010 24 -> 60, mode 2, levels 16/235, the
+# scaler off (the radius is set a frame).
+SERVED_SETTINGS = dict(target_fps=60.0, use_display_fps=False, frame_output=2, black_level=16,
+                       white_level=235, auto_quality=False)
+
+
+def served_frames(port, n: int) -> list:
+    """Phase 5's source frames: n 4K HDR P010 frames panning 3 px a frame,
+    from seed 0."""
+    rng = np.random.default_rng(0)
+    frames = []
+    for i in range(n):
+        y, uv = port.nv12.synthetic_frame(rng, H, W, is_hdr=True, motion_x=3 * i)
+        frames.append((y & P010_MASK, uv & P010_MASK))
+    return frames
+
+
+def serve(srv, frames, radius: int, keep: bool = True):
+    """Frames through srv at this search radius: the outputs (none unless
+    keep: then each source frame's outputs are released before the next
+    push), and for each source frame that ran flow, push_frame's wall
+    seconds (host clock) and the engine's flow time; warp and copy times
+    per output."""
+    outs, wall_s, flow_s, warp_s, copy_s = [], [], [], [], []
+    for y, uv in frames:
+        if srv.engine is not None:
+            srv.engine.search_radius = radius
+        start = time.perf_counter()
+        got = srv.push_frame(y, uv)
+        wall = time.perf_counter() - start
+        eng = srv.engine
+        if eng.frame_count >= 3:
+            wall_s.append(wall)
+            flow_s.append(eng.ofc_time.current)
+        for o in got:
+            (warp_s if o.interpolated else copy_s).append(eng.warp_time.current)
+        if keep:
+            outs.extend(got)
+    return outs, wall_s, flow_s, warp_s, copy_s
+
+
+def served_wall(port, dev, card: str, outputs: str) -> None:
+    """--served-wall: phase 5's stream (its first 10 frames, radius 16) on two
+    new FrameServers in turn, in this process right after the build: for each
+    the median of push_frame's wall (host clock) and of the engine's flow
+    time (CUDA events) over the frames that ran flow. outputs "keep" holds
+    every output to the stream's end, as phase 5 does (phase 6 reports its
+    numbers after phases 3-4d in one process); "drop" releases each source
+    frame's outputs before the next push, as a server that writes them out
+    does."""
+    frames = served_frames(port, 10)
+    for k in (1, 2):
+        srv = port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev,
+                               settings=port.Settings(**SERVED_SETTINGS))
+        _, wall_s, flow_s, _, _ = serve(srv, frames, port.config.MAX_SEARCH_RADIUS,
+                                        keep=outputs == "keep")
+        torch.cuda.synchronize()
+        log(f"served wall [{card}] of {ROOT}: stream {k}, outputs {outputs}, {W}x{H} HDR "
+            f"24->60 mode 2 r16, {1e3 * statistics.median(wall_s):.3f} ms/source frame (median "
+            f"of {len(wall_s)}, host clock around push_frame), flow "
+            f"{1e3 * statistics.median(flow_s):.3f} ms/source frame (CUDA events)")
+
+
 def import_port() -> types.SimpleNamespace:
     """Everything the run uses, imported from hopperrender_tpu_torch only."""
     from hopperrender_tpu_torch import _build, bench, config, entry
@@ -360,6 +451,35 @@ def plain_overlay(port):
         hk.hsv_flow_overlay = kernel
 
 
+def mode3_chain_call(port, kernel):
+    """K2's wrapper `kernel` with mode 3 made as it was served before K2's
+    mode 3: K2's raw_blend variant, then hsv_kernel.hsv_flow_overlay (K5, or
+    what that attribute points at), one more wrapper call. Other modes go to
+    `kernel` as they are."""
+    hk = port.hsv_kernel
+
+    def call(*args, mode, raw_blend=False, **kw):
+        if mode != 3:
+            return kernel(*args, mode=mode, raw_blend=raw_blend, **kw)
+        raw = kernel(*args, mode=2, raw_blend=True, **kw)
+        return hk.hsv_flow_overlay(*raw, args[4], *args[6:8], **kw)
+    return call
+
+
+@contextlib.contextmanager
+def mode3_chain(port):
+    """Points K2's wrapper attribute (ops/warp_kernel.warp_frames) at
+    mode3_chain_call while the block runs: mode 3 served by the chain of K2's
+    raw_blend variant and K5. ops/warp_viz looks it up at call time."""
+    wk = port.warp_kernel
+    kernel = wk.warp_frames
+    wk.warp_frames = mode3_chain_call(port, kernel)
+    try:
+        yield
+    finally:
+        wk.warp_frames = kernel
+
+
 @contextlib.contextmanager
 def plain_versions(port):
     """Points the K1, K2, K3, K4 and K5 wrappers' module attributes (K2's
@@ -399,6 +519,7 @@ def device_profile(prof, wall_s: float) -> tuple[float, int, dict[str, float]]:
         name = e.name
         kind = ("K1 blur_flow" if "blur_flow_kernel" in name else
                 "K2 warp" if "warp_plane_kernel" in name else
+                "K2 mode 3" if "warp_mode3_kernel" in name else
                 "K3 delta_sums" if "delta_sums_kernel" in name else
                 "K3's fill" if "fill_sums_kernel" in name else
                 "K4 commit_winners" if "commit_winners_kernel" in name else
@@ -861,8 +982,10 @@ def launch_counters(port) -> dict:
     wk, cv = port.warp_kernel, port.cost_volume_kernel
     return {"blur_flow": (port.blur_kernel.blur_flow, "launches"),
             "warp_frames": (wk.warp_frames, "launches"),
+            "warp_frames_mode3": (wk.warp_frames, "mode3_launches"),
             "warp_frames_raw_blend": (wk.warp_frames, "raw_launches"),
             "warp_frames_band": (wk.warp_frames_band, "launches"),
+            "warp_frames_band_mode3": (wk.warp_frames_band, "mode3_launches"),
             "flow_step": (cv.flow_step, "launches"),
             "delta_sums": (cv.delta_sums, "launches"),
             "commit_winners": (cv.commit_winners, "launches"),
@@ -882,6 +1005,8 @@ def read_launches(port) -> dict[str, int]:
 # pyramid step, K3 then K4, then K1) and the mesh's (K3 on each layer shard,
 # the all-gather, K4 on the gathered sums, then K1).
 FLOW_KERNELS = ("flow_step", "blur_flow")
+# The chain that served mode 3 before K2's mode 3: no served path launches it.
+MODE3_OFF_PATH = ("warp_frames_raw_blend", "hsv_flow_overlay")
 MESH_FLOW_KERNELS = ("delta_sums", "commit_winners")
 STEPS_PER_FLOW = 16          # a 270 x 480 grid's schedule: 8 windows, two steps each
 
@@ -1099,6 +1224,217 @@ def format_hsv(numbers: dict) -> str:
         f"{label}: {v['ms']:.5f} ms, smooth {v['smooth_ms']:.5f}, host {v['host_us']:.1f} "
         f"us/call, plain {v['plain_ms']:.4f} ms, empty launch of its grids {v['grids']} "
         f"{v['grid_ms']:.5f} ms, bound {v['bound_ms']:.5f} ms ({v['bound_by']})"
+        for label, v in numbers.items())
+
+
+def mode3_blocks(dim_y: int, dim_x: int, res_scalar: int, is_hdr: bool) -> int:
+    """The blocks of K2's mode-3 grid (csrc/warp_frame.cu, launch_mode3): the
+    Y plane's tiles of HSV_BLOCK runs, then the UV plane's, in one grid."""
+    runs_y, runs_uv = hsv_runs(dim_x, res_scalar, is_hdr)
+    bx, by = HSV_BLOCK
+    return (-(-runs_y // bx) * -(-dim_y // by)) + (-(-runs_uv // bx) * -(-(dim_y // 2) // by))
+
+
+def mode3_colours(dim_y: int, dim_x: int, res_scalar: int, is_hdr: bool) -> tuple[int, int]:
+    """The colours K2's mode 3 makes (Y, UV): one per distinct flow cell of
+    each block of HSV_BLOCK runs (its leader's), counted over the plane's
+    tiling: the blocks' distinct cell columns times their distinct cell rows."""
+    max_shift = 3 if is_hdr else 4
+    out = []
+    for plane_h, shift, uv in ((dim_y, min(res_scalar, max_shift), 0),
+                               (dim_y // 2, min(res_scalar + 1, max_shift), 1)):
+        x0 = np.arange(0, dim_x, 1 << shift)
+        cols = len(set(zip((np.arange(len(x0)) // HSV_BLOCK[0]).tolist(),
+                           ((x0 >> res_scalar) >> uv).tolist())))
+        cy = np.arange(plane_h)
+        rows = len(set(zip((cy // HSV_BLOCK[1]).tolist(), (cy >> res_scalar).tolist())))
+        out.append(cols * rows)
+    return out[0], out[1]
+
+
+def mode3_bound(src, flow, ts, res_scalar: int, is_hdr: bool) -> tuple[float, str]:
+    """Bound of one call of K2's mode 3: it reads both sources' Y planes and
+    the flow once and writes both output planes for each t (the colour
+    replaces the UV blend, so no UV source is read). Its operations: each Y
+    output's warp and raw blend (as the raw_blend variant's) and its colour's
+    shift, add and levels; a colour per distinct flow cell of a block, with a
+    Y run's base or a UV run's levelled U and V. A UV output is a store."""
+    dim_y, dim_x = src[0].shape
+    moved = 2 * nbytes(src[0]) + nbytes(flow, ts) + ts.shape[0] * nbytes(src[0], src[1])
+    colours_y, colours_uv = mode3_colours(dim_y, dim_x, res_scalar, is_hdr)
+    ops = (ts.shape[0] * src[0].numel() * (OPS_PER_ELEMENT["warp_frames_raw_blend"]
+                                           + HSV_Y_SAMPLE_OPS)
+           + colours_y * (HSV_CELL_OPS + HSV_Y_RUN_OPS)
+           + colours_uv * (HSV_CELL_OPS + HSV_UV_RUN_OPS))
+    return roofline(moved, ops, OPS_PER_S)
+
+
+# 4d's small cases: (h, w, res_scalar, is_hdr, ts, flow magnitude). rs 1-3 at
+# 50 x 86 (narrow runs take the generic instance; ragged row tails, rows off
+# 16 bytes), SDR and HDR, t outside [0, 1] (the blend's other conversion),
+# the int16 range; 1080p SDR at rs 2.
+MODE3_CASES = [(50, 86, 1, False, (0.2, 0.6, 1.0), 64), (50, 86, 1, True, (0.4,), 64),
+               (50, 86, 2, False, (0.0, 0.5, 1.0), 64), (50, 86, 2, True, (-0.25, 0.5, 1.5), 64),
+               (50, 86, 3, False, (0.3,), 32768), (50, 86, 3, True, (0.2, 0.6, 1.0), 64),
+               (1080, 1920, 2, False, (0.2, 0.6, 1.0), 64)]
+MODE3_BAND_SHARDS = (2, 4, 8)   # 4d's row bands at 4K HDR
+
+
+def mode3_parity(port, dev, inp) -> tuple[int, int, int]:
+    """4d: K2's mode 3 against its plain version (ops/warp.warp_frame in mode
+    3), exactly: 4K HDR on the three flows at T = 1 and 3 (and equal to the
+    chain it replaced, K2's raw_blend variant then K5); the row bands at n =
+    2, 4 and 8 (each against its plain band, stacked against the full
+    frame); MODE3_CASES (each also as bands of n = 3); and a flow grid at rs
+    0 whose cells run through every (ox, oy) in +-512, SDR and HDR. Returns
+    (max |err|, outputs compared, the kernel's launches)."""
+    wk = port.warp_kernel
+    err, outputs = 0, 0
+    launches_before = wk.warp_frames.mode3_launches + wk.warp_frames_band.mode3_launches
+
+    def check(got, want, what):
+        nonlocal err
+        err = max(err, require_equal(got[0], want[0], what + " Y"),
+                  require_equal(got[1], want[1], what + " UV"))
+
+    def bands(args, n, kw, what):
+        full = wk.warp_frames(*args, **kw)
+        parts = []
+        for shard in range(n):
+            got = wk.warp_frames_band(*args, num_shards=n, shard_index=shard, **kw)
+            check(got, wk.warp_frames_band_reference(*args, num_shards=n, shard_index=shard,
+                                                     **kw), f"{what} band n {n} shard {shard}")
+            parts.append(got)
+        for cz, plane_h in enumerate((args[0].shape[0], args[1].shape[0])):
+            require_equal(torch.cat([b[cz] for b in parts], 1)[:, :plane_h], full[cz],
+                          f"{what} bands n {n} stacked, plane {cz}")
+
+    kw = dict(res_scalar=3, mode=3, is_hdr=True)
+    chain = mode3_chain_call(port, wk.warp_frames)
+    for flow_name, fl in inp.flows.items():
+        for ts in (inp.t1, inp.t3):
+            args = (*inp.src, fl, ts, inp.black, inp.white)
+            what = f"K2 mode 3 4K HDR {flow_name} T {len(ts)}"
+            got = wk.warp_frames(*args, **kw)
+            check(got, wk.warp_frames_reference(*args, **kw), what)
+            check(got, chain(*args, **kw), what + " against raw_blend + K5")
+            outputs += len(ts)
+    for n in MODE3_BAND_SHARDS:
+        bands((*inp.src, inp.flows["random +-64"], inp.t3, inp.black, inp.white), n, kw,
+              "K2 mode 3 4K HDR")
+    rng = np.random.default_rng(19)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for h, w, rs, is_hdr, ts, mag in MODE3_CASES:
+        y, uv = random_planes(gen, 2, h, w, is_hdr, dev)
+        low = (2, -(-h >> rs), -(-w >> rs))
+        flow = torch.tensor(rng.integers(-mag, mag, low, endpoint=mag < 32768).astype(np.int16),
+                            device=dev)
+        t = torch.tensor(ts, dtype=torch.float32, device=dev)
+        args = (y[0], uv[0], y[1], uv[1], flow, t, *hsv_levels(is_hdr))
+        case_kw = dict(res_scalar=rs, mode=3, is_hdr=is_hdr)
+        what = f"K2 mode 3 {h}x{w} rs {rs} {'HDR' if is_hdr else 'SDR'} t {ts}"
+        check(wk.warp_frames(*args, **case_kw), wk.warp_frames_reference(*args, **case_kw), what)
+        if h == 50:
+            bands(args, 3, case_kw, what)
+        outputs += len(ts)
+    # Every pair at rs 0: flow cell (r, c) holds (HSV_PAIRS[c >> 1], HSV_PAIRS[r >> 1]),
+    # so Y (every cell) and U and V (even cells of even rows) colour every pair.
+    shape = (2 * len(HSV_PAIRS), 2 * len(HSV_PAIRS))
+    fx = np.broadcast_to(np.repeat(HSV_PAIRS, 2)[None, :], shape)
+    fy = np.broadcast_to(np.repeat(HSV_PAIRS, 2)[:, None], shape)
+    flow = torch.tensor(np.stack([fx, fy]), device=dev)
+    for is_hdr in (False, True):
+        y, uv = random_planes(gen, 2, *shape, is_hdr, dev)
+        args = (y[0], uv[0], y[1], uv[1], flow, inp.t1, *hsv_levels(is_hdr))
+        pair_kw = dict(res_scalar=0, mode=3, is_hdr=is_hdr)
+        check(wk.warp_frames(*args, **pair_kw), wk.warp_frames_reference(*args, **pair_kw),
+              f"K2 mode 3 every pair {'HDR' if is_hdr else 'SDR'} rs 0")
+        outputs += 1
+    launches = wk.warp_frames.mode3_launches + wk.warp_frames_band.mode3_launches
+    return err, outputs, launches - launches_before
+
+
+# Timing variants of K2's mode 3 (csrc/warp_frame.cu, hrt_warp_mode3_probe):
+# name -> variant; the last column says whether its output is the path's.
+MODE3_VARIANTS = {"as on the path": (0, True), "colour a run, no barrier": (1, True),
+                  "no colour": (2, False), "uncapped registers": (3, True)}
+
+
+def mode3_variants(port, inp, ts) -> dict | None:
+    """Graph-timed device ms of each of MODE3_VARIANTS on 4K HDR random flow
+    at these ts, each first checked equal to the path's output where it
+    should be. None where the library has no such entry point."""
+    b, wk = port._build, port.warp_kernel
+    if not hasattr(b.load().lib, "hrt_warp_mode3_probe"):
+        return None
+    src, fl = inp.src, inp.flows["random +-64"]
+    index = src[0].get_device()
+    want = wk.warp_frames(*src, fl, ts, inp.black, inp.white, res_scalar=3, mode=3,
+                          is_hdr=True)
+    out_y, out_uv = torch.empty_like(want[0]), torch.empty_like(want[1])
+    out = {}
+    for name, (variant, same) in MODE3_VARIANTS.items():
+        def call(v=variant):
+            b.launch("hrt_warp_mode3_probe", index, v, src[0].data_ptr(), src[2].data_ptr(),
+                     fl.data_ptr(), ts.data_ptr(), ts.shape[0], out_y.data_ptr(),
+                     out_uv.data_ptr(), H, W, fl.shape[1], fl.shape[2], 3, inp.black, inp.white)
+        call()
+        if same:
+            require_equal(out_y, want[0], f"mode 3 variant {name} Y")
+            require_equal(out_uv, want[1], f"mode 3 variant {name} UV")
+        out[name] = graph_ms(call, 20)
+    return out
+
+
+def mode3_numbers(port, inp) -> dict:
+    """K2's mode 3 at 4K HDR, T = 1 (the served path: one output a call) and
+    T = 3, beside the chain it replaced (K2's raw_blend variant, then K5) on
+    the same inputs: graph-timed device ms in turns (fused, chain, chain,
+    fused; random flow; smooth flow for the fused call), host us per call of
+    each, the plain version's ms (CUDA events), an empty launch of its one
+    grid (graph-timed) and the bound."""
+    wk, b = port.warp_kernel, port._build
+    index = inp.src[0].get_device()
+    random, smooth = inp.flows["random +-64"], inp.flows["smooth"]
+    chain_kernel = mode3_chain_call(port, wk.warp_frames)
+    out = {}
+    for label, ts in (("T1", inp.t1), ("T3", inp.t3)):
+        def call(fl, fn=wk.warp_frames):
+            return lambda: fn(*inp.src, fl, ts, inp.black, inp.white, res_scalar=3, mode=3,
+                              is_hdr=True)
+
+        blocks = mode3_blocks(H, W, 3, True)
+
+        def empty_grid():
+            b.launch("hrt_empty_grid", index, blocks, 1, *HSV_BLOCK)
+
+        plain = call(random, wk.warp_frames_reference)
+        turns = [graph_ms(call(random, fn), 20)
+                 for fn in (wk.warp_frames, chain_kernel, chain_kernel, wk.warp_frames)]
+        fused_ms, chain_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        bound_ms, bound_by = mode3_bound(inp.src, random, ts, 3, True)
+        out[label] = {"ms": fused_ms, "smooth_ms": graph_ms(call(smooth), 20),
+                      "host_us": host_us(call(random), 20),
+                      "plain_ms": (time_ms(plain, 2) + time_ms(plain, 2)) / 2,
+                      "grid_ms": graph_ms(empty_grid, 20), "blocks": blocks,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "chain_ms": chain_ms,
+                      "chain_host_us": host_us(call(random, chain_kernel), 20),
+                      "turns_ms": turns, "vs_chain": fused_ms / chain_ms,
+                      "vs_bound": fused_ms / bound_ms, "variants": mode3_variants(port, inp, ts)}
+    return out
+
+
+def format_mode3(numbers: dict) -> str:
+    return "; ".join(
+        f"{label}: {v['ms']:.5f} ms (turns fused/chain/chain/fused "
+        f"{'/'.join(f'{t:.5f}' for t in v['turns_ms'])}), smooth {v['smooth_ms']:.5f}, "
+        f"host {v['host_us']:.1f} us/call, plain {v['plain_ms']:.4f} ms, empty launch of its "
+        f"grid ({v['blocks']} blocks) {v['grid_ms']:.5f} ms, bound {v['bound_ms']:.5f} ms "
+        f"({v['bound_by']}), {v['vs_bound']:.2f}x its bound; the chain (raw_blend + K5) "
+        f"{v['chain_ms']:.5f} ms, host {v['chain_host_us']:.1f} us/call; fused / chain "
+        f"{v['vs_chain']:.3f}" + ("" if not v.get("variants") else "; variants " + ", ".join(
+            f"{name} {ms:.5f}" for name, ms in v["variants"].items()))
         for label, v in numbers.items())
 
 
@@ -1606,13 +1942,16 @@ def parallel_path(port, dev, card: str) -> dict:
                 n_shards += 1
             require_equal(torch.cat(bands_y, 1)[:, :h], full_y, f"K2 bands {h}p n {n} Y")
             require_equal(torch.cat(bands_uv, 1)[:, :h // 2], full_uv, f"K2 bands {h}p n {n} UV")
-    # Mode 3 at 4K HDR, n = 2: the band's raw_blend variant against its plain
+    # Mode 3 at 4K HDR, n = 2: the band in mode 3 (the mesh's mode 3) against
+    # the plain row route; the band's raw_blend variant against its plain
     # version (each flow), and coloured by the banded overlay (K5 with the
     # band's row offsets) against K5's plain version and the plain row route
     # (random flow).
     kw = dict(res_scalar=3, is_hdr=True)
     hk = port.hsv_kernel
     hsv_before = hk.hsv_flow_overlay.launches
+    band_mode3_before = k2_band.mode3_launches
+    band_raw_before = k2_band.raw_launches
     for shard in range(2):
         band = dict(num_shards=2, shard_index=shard)
         for flow_name, fl in flows.items():
@@ -1634,15 +1973,22 @@ def parallel_path(port, dev, card: str) -> dict:
                        require_equal(uv, puv, f"K5 band 2160p n 2 shard {shard} UV"))
         require_equal(y, wy, f"mode 3 band 2160p n 2 shard {shard} Y")
         require_equal(uv, wuv, f"mode 3 band 2160p n 2 shard {shard} UV")
+        fy, fuv = k2_band(*src, flow, t3, black, white, mode=3, **band, **kw)
+        band_err = max(band_err, require_equal(fy, wy, f"K2 mode 3 band 2160p n 2 shard {shard} Y"),
+                       require_equal(fuv, wuv, f"K2 mode 3 band 2160p n 2 shard {shard} UV"))
     band_hsv_launches = hk.hsv_flow_overlay.launches - hsv_before
-    if band_hsv_launches != 2:
-        raise AssertionError(f"7a: the mode-3 bands made {band_hsv_launches} K5 launches, not 2")
+    band_mode3_launches = k2_band.mode3_launches - band_mode3_before
+    band_raw_launches = k2_band.raw_launches - band_raw_before
+    if band_hsv_launches != 2 or band_mode3_launches != 2:
+        raise AssertionError(f"7a: the mode-3 bands made {band_hsv_launches} K5 and "
+                             f"{band_mode3_launches} K2 mode-3 launches, not 2 each")
     torch.cuda.synchronize()
     band = band_numbers(port, src, flows, t3, black, white)
     log(f"phase 7a K2 band: {n_shards} shard calls (4K HDR P010 flow +-64 at n = 2, 4, 8; "
         f"smooth and mirror-edge flow at n = 2; 1080p SDR at n = 8), modes 0/1/2, t (0.2, "
         f"0.6, 1.0): each equal to its plain version, the shards stacked equal to the full K2; "
-        f"mode 3 at 4K HDR n = 2: the raw_blend band equal to its plain version (each flow), "
+        f"mode 3 at 4K HDR n = 2: the band in mode 3 ({band_mode3_launches} launches) equal to "
+        f"the plain row route; the raw_blend band equal to its plain version (each flow), "
         f"and coloured by K5 ({band_hsv_launches} launches) equal to K5's plain version and to "
         f"the plain row route; max |err| {band_err}")
 
@@ -1664,11 +2010,12 @@ def parallel_path(port, dev, card: str) -> dict:
     blend_t = torch.tensor(blend, dtype=torch.float32, device=dev)
     zero_flow = torch.zeros(LOW, dtype=torch.int16, device=dev)
 
-    def run_batched():
+    def run_batched(mode=2):
         flow_prev, outs = torch.stack([zero_flow] * 2), []
         for i in range(n_frames - 2):
             ring = [a[:, i + k].contiguous() for k in range(3) for a in (ys, uvs)]
-            out = port.batched_step(*ring, flow_prev, *scal, blend_t, black, white, mode=2, **kw)
+            out = port.batched_step(*ring, flow_prev, *scal, blend_t, black, white, mode=mode,
+                                    **kw)
             flow_prev = out[2]
             outs.append(out)
         return outs
@@ -1706,9 +2053,30 @@ def parallel_path(port, dev, card: str) -> dict:
     for i, (out, p_out) in enumerate(zip(batched, plain)):
         for a, b_, what in zip(out, p_out, ("Y", "UV", "flow", "delta")):
             require_equal(a, b_, f"batched_step step {i} {what} against the plain versions")
+    # Mode 3: the same streams through K2's mode 3, each output against the
+    # single-stream call with the same flow, the flow against mode 2's run.
+    reset_launches(port)
+    batched3 = run_batched(mode=3)
+    torch.cuda.synchronize()
+    batched3_launches = read_launches(port)
+    require_launched(batched3_launches, FLOW_KERNELS + ("warp_frames_mode3",),
+                     "7b batched_step mode 3")
+    if any(batched3_launches[k] for k in MODE3_OFF_PATH + ("warp_frames",)):
+        raise AssertionError(f"7b: mode 3 launched more than K2's mode 3: {batched3_launches}")
+    for i, out in enumerate(batched3):
+        for b in range(2):
+            flow_prev = zero_flow if i == 0 else single[b][i - 1][2]
+            f0, f1 = ((ys[b, i + k], uvs[b, i + k]) for k in range(2))
+            y, uv = k2(*f0, *f1, flow_prev, blend_t[b:b + 1], black, white, res_scalar=3, mode=3,
+                       is_hdr=True)
+            what = f"batched_step mode 3 step {i} stream {b}"
+            require_equal(out[0][b], y[0], what + " Y")
+            require_equal(out[1][b], uv[0], what + " UV")
+            require_equal(out[2][b], batched[i][2][b], what + " flow")
     log(f"phase 7b batched_step: 2 streams {W}x{H} HDR, radius 16, {n_frames - 2} steps, t "
         f"{blend}: outputs, flow and delta equal to the single-stream path and to the "
-        f"plain-version run; launches {batched_launches}")
+        f"plain-version run; launches {batched_launches}; in mode 3 each output equal to the "
+        f"single-stream K2 mode 3, launches {batched3_launches}")
 
     # -- 7c. make_multichip_step on ranks of this card (gloo), rs 3, modes
     # 2-6, t_batch 3: frames 1-4 of 7b's streams, the prior flow of 7b's
@@ -1731,8 +2099,7 @@ def parallel_path(port, dev, card: str) -> dict:
         jobs = [dict(in_path=in_path, mode=mode, res_scalar=3, radius=scal[0],
                      delta_scalar=scal[1], neighbor_scalar=scal[2], black=black, white=white)
                 for mode in mesh_modes]
-        mesh_launches, mesh_raw_launches, mode_launches, mesh_lines = 0, 0, {}, []
-        mesh_hsv_launches = 0
+        mesh_launches, mesh_mode3_launches, mode_launches, mesh_lines = 0, 0, {}, []
         flow_launches = {k: 0 for k in MESH_FLOW_KERNELS}
         for dp, sp in meshes:
             for job in jobs:
@@ -1746,26 +2113,23 @@ def parallel_path(port, dev, card: str) -> dict:
             for rank, paths in enumerate(rank_paths):
                 for mode, path in zip(mesh_modes, paths):
                     with np.load(path) as z:
-                        # Each job's own launches: the band (modes 2, 5, 6)
-                        # and its raw_blend variant and K5 (mode 3); mode 4 none.
-                        band_n, raw_n = int(z["band_launches"]), int(z["band_raw_launches"])
-                        hsv_n = int(z["hsv_overlay_launches"])
-                        need = {3: min(raw_n, hsv_n)}.get(mode, band_n)
+                        # Each job's own launches: the band in modes 2, 5
+                        # and 6, in mode 3 its mode 3 alone; mode 4 none.
+                        band_n, mode3_n = int(z["band_launches"]), int(z["band_mode3_launches"])
+                        want = {3: (0, True), 4: (0, 0)}.get(mode, (True, 0))
                         # K3 and K4: the flow, in every mode.
                         flow_n = {k: int(z[f"{k}_launches"]) for k in flow_launches}
-                        if (mode == 4 and band_n + raw_n) or (mode != 4 and need == 0) \
-                                or (mode != 3 and hsv_n) \
+                        if (bool(band_n), bool(mode3_n)) != tuple(map(bool, want)) \
                                 or min(flow_n.values()) == 0 or z["foreign_modules"].size:
                             raise AssertionError(
                                 f"mesh {dp}x{sp} rank {rank} mode {mode}: band launches "
-                                f"{band_n}, raw_blend {raw_n}, K5 {hsv_n}, flow {flow_n}, jax "
+                                f"{band_n}, in mode 3 {mode3_n}, flow {flow_n}, jax "
                                 f"modules {list(z['foreign_modules'])}")
                         for k, n in flow_n.items():
                             flow_launches[k] += n
                         mesh_launches += band_n
-                        mesh_raw_launches += raw_n
-                        mesh_hsv_launches += hsv_n
-                        mode_launches[mode] = mode_launches.get(mode, 0) + band_n + raw_n
+                        mesh_mode3_launches += mode3_n
+                        mode_launches[mode] = mode_launches.get(mode, 0) + band_n + mode3_n
                         step_ms[mode].append(float(z["step_ms"][-1]))
                         backends.add(str(z["backend"]))
             for j, mode in enumerate(mesh_modes):
@@ -1793,8 +2157,8 @@ def parallel_path(port, dev, card: str) -> dict:
     log(f"phase 7c make_multichip_step {W}x{H} HDR rs 3 modes 2-6 t_batch 3, 2 streams x 2 "
         f"steps on meshes {meshes}: every rank's outputs, flow and delta equal to the "
         f"single-device results (7b; warp_outputs in modes 3-6) byte for byte; K2 band "
-        f"launched {mesh_launches} times over the ranks (modes 2, 5, 6), its raw_blend variant "
-        f"{mesh_raw_launches} times and K5 {mesh_hsv_launches} times (mode 3); launches by "
+        f"launched {mesh_launches} times over the ranks (modes 2, 5, 6) and "
+        f"{mesh_mode3_launches} times in mode 3 (one launch a band); launches by "
         f"mode {mode_launches}; K3 and K4 "
         f"launched by every rank in every mode, {flow_launches} in all; "
         + "; ".join(mesh_lines))
@@ -1812,8 +2176,10 @@ def parallel_path(port, dev, card: str) -> dict:
             "plain_ms": band["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}, {
                 "batched": {k: batched_launches[k] for k in ("flow_step", *flow_launches)},
-                "mesh": flow_launches, "mesh_hsv": mesh_hsv_launches,
-                "band_hsv": band_hsv_launches}
+                "batched_mode3": batched3_launches["warp_frames_mode3"],
+                "mesh": flow_launches, "mesh_mode3": mesh_mode3_launches,
+                "band_hsv": band_hsv_launches, "band_mode3": band_mode3_launches,
+                "band_raw": band_raw_launches}
 
 
 def u32_err(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
@@ -2618,6 +2984,12 @@ def main(argv: list[str]) -> int:
                              "7a's kernel numbers, P3's and P4's of 8c, and the host split of a "
                              "wrapper call), whichever hopperrender_tpu_torch sits beside this "
                              "script: a copy of it in an older tree times that tree's kernels")
+    parser.add_argument("--served-wall", nargs="?", const="keep", choices=("keep", "drop"),
+                        help="run phases 1 and 2, then phase 5's served stream alone, twice, "
+                             "each on a new FrameServer: its wall and flow time in a process "
+                             "that ran nothing else, whichever hopperrender_tpu_torch sits "
+                             "beside this script; keep (the default) holds the outputs to the "
+                             "stream's end as phase 5 does, drop releases them a frame")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs a CUDA card",
@@ -2629,7 +3001,7 @@ def main(argv: list[str]) -> int:
         return 1
     port = import_port()
     _build, blur_kernel, warp_kernel = port._build, port.blur_kernel, port.warp_kernel
-    config, nv12 = port.config, port.nv12
+    config = port.config
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2644,7 +3016,12 @@ def main(argv: list[str]) -> int:
 
     # -- 2. build ---------------------------------------------------------------
     lib = _build.load()
-    ptxas = [l.strip() for l in lib.ptxas_log.splitlines() if "registers" in l or "spill" in l]
+    ptxas, entry_name = [], ""
+    for line in lib.ptxas_log.splitlines():   # each kernel's registers and spills, by name
+        if "Compiling entry function" in line:
+            entry_name = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            ptxas.append(f"{entry_name}: {line.strip()}")
     print("\n".join(ptxas), file=sys.stderr)
     log(f"phase 2 build: nvcc {lib.build_seconds:.2f} s, {len(ptxas) // 2} kernel "
         f"instantiations, library {os.path.relpath(lib.path, ROOT)}")
@@ -2658,6 +3035,9 @@ def main(argv: list[str]) -> int:
         return finish(port, [{"name": name, "bench_launches": {run: n[name] for run, n in
                                                                 launches.items()}}
                              for name in FLOW_KERNELS + ("warp_frames",)], card, kind)
+    if args.served_wall:
+        served_wall(port, dev, card, args.served_wall)
+        return 0
     if args.kernel_times:
         inp = k2_inputs(port, dev)
         numbers = kernel_numbers(port, inp)
@@ -2667,6 +3047,10 @@ def main(argv: list[str]) -> int:
         if port.hsv_kernel is not None:
             numbers["hsv_flow_overlay"] = hsv_numbers(port, inp)
             log(f"K5 times [{card}] of {ROOT}: {format_hsv(numbers['hsv_flow_overlay'])}")
+        if 3 in getattr(warp_kernel, "KERNEL_MODES", ()):
+            numbers["warp_frames_mode3"] = mode3_numbers(port, inp)
+            log(f"K2 mode 3 times [{card}] of {ROOT}: "
+                f"{format_mode3(numbers['warp_frames_mode3'])}")
         numbers["wrapper_split_us"] = wrapper_split(port, dev)
         numbers["launch_anatomy_ms"] = floor_numbers(port, dev)
         if port.cost_volume_kernel is not None:
@@ -2729,6 +3113,7 @@ def main(argv: list[str]) -> int:
     # -- 4b. K2's raw_blend variant against its plain version ------------------
     raw_kw = dict(res_scalar=3, mode=2, is_hdr=True, raw_blend=True)
     raw_err = 0
+    raw_before = warp_kernel.warp_frames.raw_launches
     for flow_name, flow in flows.items():
         ky, kuv = warp_kernel.warp_frames(*src, flow, t3, black, white, **raw_kw)
         py, puv = warp_kernel.warp_frames_reference(*src, flow, t3, black, white, **raw_kw)
@@ -2741,6 +3126,7 @@ def main(argv: list[str]) -> int:
     if max_abs_err(levelled, ky) == 0:
         raise AssertionError("K2 raw_blend equals the levelled mode 2")
     torch.cuda.synchronize()
+    raw_launches_4b = warp_kernel.warp_frames.raw_launches - raw_before
     log(f"phase 4b K2 raw_blend {W}x{H} P010, flow {', '.join(flows)}, t (0.2, 0.6, 1.0): Y "
         f"and UV equal to the plain version; max |err| {raw_err}")
 
@@ -2765,6 +3151,7 @@ def main(argv: list[str]) -> int:
     # HDR; 4K HDR on K2's raw blend of each flow, T = 1 and 3; HSV_CASES.
     hk = port.hsv_kernel
     hsv_err, n_hsv = 0, 0
+    hsv_before = hk.hsv_flow_overlay.launches
     for is_hdr in (False, True):
         for rs in HSV_PAIR_STRIPS:
             err, values = hsv_pair_parity(port, dev, is_hdr, rs)
@@ -2782,6 +3169,7 @@ def main(argv: list[str]) -> int:
     case_err, n_cases = hsv_case_parity(port, dev)
     hsv_err = max(hsv_err, case_err)
     torch.cuda.synchronize()
+    hsv_launches_4c = hk.hsv_flow_overlay.launches - hsv_before
     log(f"phase 4c HSV colour: {n_colour} values (every (ox, oy) in +-512, SDR and HDR, "
         f"res_impact 1 and 4, channels 0/1/2) equal on the card and the CPU; K5 "
         f"hsv_flow_overlay equal to its plain version: {n_hsv} values over every (ox, oy) in "
@@ -2790,43 +3178,31 @@ def main(argv: list[str]) -> int:
         f"{n_cases} more geometries (rs 1-3, ragged rows, row offsets, the int16 range, 1080p "
         f"SDR); max |err| {hsv_err}")
 
+    # -- 4d. K2's mode 3 against its plain version --------------------------------
+    mode3_err, n_mode3, mode3_launches_4d = mode3_parity(port, dev, inp)
+    torch.cuda.synchronize()
+    log(f"phase 4d K2 mode 3 (the HSV flow overlay in K2's epilogue, one launch): {n_mode3} "
+        f"outputs equal to the plain version ({W}x{H} HDR on {', '.join(flows)} flow at T = 1 "
+        f"and 3, also equal to K2 raw_blend + K5; the row bands at n = "
+        f"{', '.join(map(str, MODE3_BAND_SHARDS))}, each against its plain band and stacked "
+        f"against the full frame; {len(MODE3_CASES)} more geometries (rs 1-3 at 50 x 86 with "
+        f"bands of n = 3, t outside [0, 1], the int16 range, 1080p SDR at rs 2); every (ox, oy) "
+        f"in +-512 as a flow cell at rs 0, SDR and HDR), {mode3_launches_4d} launches; max "
+        f"|err| {mode3_err}")
+
     # -- 5. served slice ----------------------------------------------------------
-    settings = dict(target_fps=60.0, use_display_fps=False, frame_output=2, black_level=16,
-                    white_level=235, auto_quality=False)
-    frame_rng = np.random.default_rng(0)
-    frames = []
-    for i in range(10 + N_PROFILED):   # 10 served and checked, then the profiled ones
-        y, uv = nv12.synthetic_frame(frame_rng, H, W, is_hdr=True, motion_x=3 * i)
-        frames.append((y & P010_MASK, uv & P010_MASK))
+    settings = dict(SERVED_SETTINGS)
+    frames = served_frames(port, 10 + N_PROFILED)   # 10 served and checked, then the profiled
+    r16 = config.MAX_SEARCH_RADIUS
 
     def new_server():
         return port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev,
                                 settings=port.Settings(**settings))
 
-    def serve(srv, frames, radius=config.MAX_SEARCH_RADIUS):
-        """Frames through srv at this search radius: the outputs, and for each
-        source frame that ran flow, push_frame's wall seconds (host clock) and
-        the engine's flow time; warp and copy times per output."""
-        outs, wall_s, flow_s, warp_s, copy_s = [], [], [], [], []
-        for y, uv in frames:
-            if srv.engine is not None:
-                srv.engine.search_radius = radius
-            start = time.perf_counter()
-            got = srv.push_frame(y, uv)
-            wall = time.perf_counter() - start
-            eng = srv.engine
-            if eng.frame_count >= 3:
-                wall_s.append(wall)
-                flow_s.append(eng.ofc_time.current)
-            for o in got:
-                (warp_s if o.interpolated else copy_s).append(eng.warp_time.current)
-            outs.extend(got)
-        return outs, wall_s, flow_s, warp_s, copy_s
-
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches(port)
     srv = new_server()
-    outs, wall_s, flow_s, warp_s, copy_s = serve(srv, frames[:10])
+    outs, wall_s, flow_s, warp_s, copy_s = serve(srv, frames[:10], r16)
     torch.cuda.synchronize()
     launches = read_launches(port)
     peak_bytes = torch.cuda.max_memory_allocated(dev)
@@ -2846,7 +3222,7 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"search radius {srv.metrics().search_radius}, not 16")
 
     with plain_versions(port):
-        plain_outs = serve(new_server(), frames[:10])[0]
+        plain_outs = serve(new_server(), frames[:10], r16)[0]
     if read_launches(port) != launches:
         raise AssertionError("the plain-version stream launched a kernel")
     require_same_stream(outs, plain_outs, "mode 2")
@@ -2864,7 +3240,7 @@ def main(argv: list[str]) -> int:
 
     # -- 5b / 5c. served visualisation modes --------------------------------------
     # The kernels each mode's path runs (mode 4 needs the flow only).
-    path_kernels = {3: FLOW_KERNELS + ("warp_frames_raw_blend", "hsv_flow_overlay"),
+    path_kernels = {3: FLOW_KERNELS + ("warp_frames_mode3",),
                     4: FLOW_KERNELS,
                     5: FLOW_KERNELS + ("warp_frames",), 6: FLOW_KERNELS + ("warp_frames",)}
     viz_warp_ms, viz_launches = {}, {}
@@ -2875,17 +3251,20 @@ def main(argv: list[str]) -> int:
             return port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev, settings=st)
 
         reset_launches(port)
-        vouts, _, _, vwarp_s, _ = serve(viz_server(), frames[:n_frames])
+        vouts, _, _, vwarp_s, _ = serve(viz_server(), frames[:n_frames], r16)
         torch.cuda.synchronize()
         got = read_launches(port)
         viz_launches[mode] = got
         require_launched(got, path_kernels[mode], f"mode {mode}")
+        off_path = [k for k in MODE3_OFF_PATH if got[k]]
+        if off_path:
+            raise AssertionError(f"mode {mode} launched {off_path}, off the served path: {got}")
         expected = cadence_count(port, n_frames)
         if len(vouts) != expected or not any(o.interpolated for o in vouts):
             raise AssertionError(f"mode {mode}: {len(vouts)} outputs (cadence {expected}), "
                                  f"{sum(o.interpolated for o in vouts)} interpolated")
         with plain_versions(port):
-            plain_vouts = serve(viz_server(), frames[:n_frames])[0]
+            plain_vouts = serve(viz_server(), frames[:n_frames], r16)[0]
         if read_launches(port) != got:
             raise AssertionError(f"mode {mode}: the plain-version stream launched a kernel")
         require_same_stream(vouts, plain_vouts, f"mode {mode}")
@@ -2896,20 +3275,30 @@ def main(argv: list[str]) -> int:
             f"to the plain-version stream")
 
     # -- 5d. mode 3 with the quality scaler on ------------------------------------
-    # K5's stream must never enter TOO_SLOW; the same frames with the plain
-    # overlay (mode 3's path before K5) are reported beside it.
+    # K2's mode-3 stream must never enter TOO_SLOW. Beside it: the same frames
+    # through the chain that served mode 3 before (K2's raw_blend variant,
+    # then K5), and through the chain with the plain overlay (mode 3's path
+    # before K5).
     m3_frames = panning_frames(port, H, W, MODE3_SCALER_FRAMES, is_hdr=True)
     m3 = mode3_scaler_stream(port, dev, m3_frames)
     require_launched(m3["launches"], path_kernels[3], "5d")
+    if any(m3["launches"][k] for k in MODE3_OFF_PATH):
+        raise AssertionError(f"5d: K2's mode-3 stream launched the chain: {m3['launches']}")
     if "TOO_SLOW" in m3["states"] or m3["interpolated"] == 0:
-        raise AssertionError(f"5d: mode 3 with K5 entered TOO_SLOW or interpolated nothing: "
+        raise AssertionError(f"5d: mode 3 on K2 entered TOO_SLOW or interpolated nothing: "
                              f"edges {m3['edges']}, radii {m3['radii']}")
-    with plain_overlay(port):
-        m3_plain = mode3_scaler_stream(port, dev, m3_frames)
-    if m3_plain["launches"]["hsv_flow_overlay"]:
-        raise AssertionError("5d: the plain-overlay stream launched K5")
+    with mode3_chain(port):
+        m3_chain = mode3_scaler_stream(port, dev, m3_frames)
+        with plain_overlay(port):
+            m3_plain = mode3_scaler_stream(port, dev, m3_frames)
+    require_launched(m3_chain["launches"], FLOW_KERNELS + MODE3_OFF_PATH, "5d chain")
+    if m3_chain["launches"]["warp_frames_mode3"] or m3_plain["launches"]["warp_frames_mode3"] \
+            or m3_plain["launches"]["hsv_flow_overlay"]:
+        raise AssertionError(f"5d: the chain streams launched K2's mode 3 or the plain-overlay "
+                             f"stream K5: {m3_chain['launches']}, {m3_plain['launches']}")
     del m3_frames
-    for label, run in (("K5", m3), ("plain overlay", m3_plain)):
+    for label, run in (("K2 mode 3", m3), ("K2 raw_blend + K5", m3_chain),
+                       ("K2 raw_blend + plain overlay", m3_plain)):
         trip = next((k for k, st in enumerate(run["states"]) if st == "TOO_SLOW"), None)
         log(f"phase 5d served mode 3 {W}x{H} HDR 24->60, scaler on, {MODE3_SCALER_FRAMES} "
             f"panning frames, {label}: {run['outputs']} outputs, {run['interpolated']} "
@@ -2923,12 +3312,13 @@ def main(argv: list[str]) -> int:
     # -- 6. numbers ------------------------------------------------------------------
     numbers = kernel_numbers(port, inp)
     hsv = hsv_numbers(port, inp)
+    mode3 = mode3_numbers(port, inp)
 
     # The served stream goes on for N_PROFILED more frames under torch.profiler.
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        serve(srv, frames[10:])
+        serve(srv, frames[10:], r16)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - start
     busy_s, n_events, kinds = device_profile(prof, prof_wall)
@@ -2951,8 +3341,11 @@ def main(argv: list[str]) -> int:
         f"T = 3 unless marked, random +-64 flow unless marked): {format_numbers(numbers)}")
     log(f"phase 6 numbers [{card}]: warp ms/output (median, CUDA events, one warp per "
         f"output) " + ", ".join(f"mode {m} {t:.3f}" for m, t in viz_warp_ms.items())
-        + f"; mode 3 in 5d, scaler on: K5 {statistics.median(m3['warp_ms']):.3f}, the plain "
+        + f"; mode 3 in 5d, scaler on: K2 mode 3 {statistics.median(m3['warp_ms']):.3f}, K2 "
+        f"raw_blend + K5 {statistics.median(m3_chain['warp_ms']):.3f}, K2 raw_blend + the plain "
         f"overlay {statistics.median(m3_plain['warp_ms']):.3f}")
+    log(f"phase 6 K2 mode 3 [{card}] ({W}x{H} HDR, random +-64 flow unless marked, "
+        f"graph-timed device ms per call): {format_mode3(mode3)}")
     log(f"phase 6 K5 [{card}] (hsv_flow_overlay on K2's raw blend, {W}x{H} HDR, random +-64 "
         f"flow unless marked, graph-timed device ms per call): {format_hsv(hsv)}")
     # The flow at radius 16 and 5 in turns: phase 5's ten frames on one new
@@ -3017,7 +3410,9 @@ def main(argv: list[str]) -> int:
         {"name": "warp_frames_raw_blend", "route": "cuda",
          "source": "hopperrender_tpu_torch/csrc/warp_frame.cu",
          "replaces": "hopperrender_tpu/ops/warp_band.py:695 (variant raw_blend)",
-         "launches": viz_launches[3]["warp_frames_raw_blend"], "max_abs_err": raw_err},
+         "launches": raw_launches_4b, "launches_path": "4b parity (off the served path)",
+         "main_path_launches": viz_launches[3]["warp_frames_raw_blend"],
+         "band_launches": parallel_flow_launches["band_raw"], "max_abs_err": raw_err},
     ]
     for k in kernels[:2]:   # K1 and K2 in the CLI's processes (9a) and the bench's runs (10a)
         k["cli_launches"] = {c: r["launches"][k["name"]] for c, r in cli["results"].items()}
@@ -3028,23 +3423,50 @@ def main(argv: list[str]) -> int:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None
         k["host_us"] = v["host_us"]
-    # K5: ms, plain_ms, host_us and the bound at T = 1, the served path's one
-    # output a call (t3: at T = 3); `launches` those of the served mode-3 path
-    # (5b), beside the 5d stream's, 7a's bands' and 7c's ranks'; grid_ms an
+    # K2's mode 3: ms, plain_ms, host_us and the bound at T = 1, the served
+    # path's one output a call (t3: at T = 3), beside the chain it replaced
+    # (chain_ms: K2's raw_blend variant then K5, graph-timed in turns on the
+    # same inputs); `launches` those of the served mode-3 path (5b), beside
+    # 5d's stream's, 4d's, 7a's bands' and 7c's ranks'; grid_ms an empty
+    # launch of its one grid. library_ms is null: no single PyTorch call
+    # computes the warp with its clamped mirror and C rounding, or this
+    # colour.
+    kernels.append({
+        "name": "warp_frames_mode3", "route": "cuda",
+        "source": "hopperrender_tpu_torch/csrc/warp_frame.cu",
+        "replaces": "hopperrender_tpu/ops/warp_band.py:695 (variant raw_blend) and, with no "
+                    "pallas_call, hopperrender_tpu/ops/warp_viz.py:54 (XLA): mode 3 as "
+                    "hopperrender_tpu/ops/warp.py:223-236 computes it",
+        "launches": viz_launches[3]["warp_frames_mode3"], "launches_path": "5b served mode 3",
+        "max_abs_err": mode3_err, "ms": mode3["T1"]["ms"],
+        "smooth_ms": mode3["T1"]["smooth_ms"], "plain_ms": mode3["T1"]["plain_ms"],
+        "bound_ms": mode3["T1"]["bound_ms"], "bound_by": mode3["T1"]["bound_by"],
+        "library_ms": None, "host_us": mode3["T1"]["host_us"],
+        "grid_ms": mode3["T1"]["grid_ms"], "chain_ms": mode3["T1"]["chain_ms"],
+        "vs_chain": mode3["T1"]["vs_chain"], "t3": mode3["T3"],
+        "scaler_stream_launches": m3["launches"]["warp_frames_mode3"],
+        "parity_launches": mode3_launches_4d,
+        "batched_launches": parallel_flow_launches["batched_mode3"],
+        "band_launches": parallel_flow_launches["band_mode3"],
+        "mesh_launches": parallel_flow_launches["mesh_mode3"]})
+    # K5: ms, plain_ms, host_us and the bound at T = 1 (t3: at T = 3); off
+    # the served path since K2's mode 3, so `launches` are 4c's (its parity)
+    # beside the served paths' (0) and 7a's raw_blend bands'; grid_ms an
     # empty launch of its two grids. library_ms is null: no single PyTorch
     # call computes fdlibm's atan2 and this colour.
     kernels.append({
         "name": "hsv_flow_overlay", "route": "cuda",
         "source": "hopperrender_tpu_torch/csrc/hsv_overlay.cu",
         "replaces": "no pallas_call: hopperrender_tpu/ops/warp_viz.py:54 (XLA)",
-        "launches": viz_launches[3]["hsv_flow_overlay"], "launches_path": "5b served mode 3",
+        "launches": hsv_launches_4c, "launches_path": "4c parity (off the served path)",
+        "main_path_launches": viz_launches[3]["hsv_flow_overlay"],
         "max_abs_err": hsv_err, "ms": hsv["T1"]["ms"], "smooth_ms": hsv["T1"]["smooth_ms"],
         "plain_ms": hsv["T1"]["plain_ms"], "bound_ms": hsv["T1"]["bound_ms"],
         "bound_by": hsv["T1"]["bound_by"], "library_ms": None, "host_us": hsv["T1"]["host_us"],
         "grid_ms": hsv["T1"]["grid_ms"], "t3": hsv["T3"],
         "scaler_stream_launches": m3["launches"]["hsv_flow_overlay"],
-        "band_launches": parallel_flow_launches["band_hsv"],
-        "mesh_launches": parallel_flow_launches["mesh_hsv"]})
+        "chain_stream_launches": m3_chain["launches"]["hsv_flow_overlay"],
+        "band_launches": parallel_flow_launches["band_hsv"]})
     # flow_step (K3 then K4, the main path's one call a pyramid step), K3 and K4
     # (the mesh's standalone calls): ms, plain_ms, host_us and the bound are a
     # call's, the mean over one 4K HDR flow's 16 calls at radius 16 (r5: at

@@ -69,6 +69,9 @@ SIGNATURES = {
     # K4 in a timing variant (variant, in, out, sums, low_h, low_w, num_layers, radius,
     #  window_size, step, stream)
     "hrt_commit_winners_probe": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # K2's mode 3 in a timing variant (variant, src12_y, src21_y, flow, ts, n_t, out_y,
+    #  out_uv, dim_y, dim_x, low_h, low_w, res_scalar, black, white, stream)
+    "hrt_warp_mode3_probe": (_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     # K5 (raw_y, flow, out_y, out_uv, n_t, rows_y, rows_uv, dim_x, row0_y, row0_uv, low_h,
     #  low_w, res_scalar, is_hdr, black, white, stream)
     "hrt_hsv_overlay": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),

@@ -1,4 +1,4 @@
-// K2 — bidirectional warp + blend + levels (warpFrameKernel modes 0/1/2),
+// K2 — bidirectional warp + blend + levels (warpFrameKernel modes 0/1/2/3),
 // batched over T blending scalars, for the Y plane and the interleaved UV plane.
 //
 // Replaces the TPU kernel hopperrender_tpu/ops/warp_band.py::warp_frame_band
@@ -15,16 +15,25 @@
 //   * mode 0 takes the 1->2 sample, mode 1 the 2->1 sample, mode 2 blends
 //     trunc(v12 * (1 - t) + v21 * t) and applies the black/white levels;
 //   * kRaw (mode 2 only) stores the blend without levels: the TPU kernel's
-//     raw_blend variant (warp_band.py, "Mode-3 feeder"), which the HSV
-//     overlay of mode 3 colours. Identity levels would not give the blend
-//     back: the level arithmetic is not exact in float32;
+//     raw_blend variant (warp_band.py, "Mode-3 feeder"), which K5
+//     (csrc/hsv_overlay.cu) colours. Identity levels would not give the
+//     blend back: the level arithmetic is not exact in float32;
+//   * mode 3 (the HSV flow overlay, ops/warp.py::warp_frame_plane with mode
+//     3) colours in K2's epilogue: Y blends as mode 2 does, adds the colour
+//     of the output's cell (the negated flow12 that the back-projection
+//     loads) as (y << 7) + (raw >> 1) in HDR, (y >> 1) + (raw >> 1) in SDR,
+//     and applies the Y levels; UV reads no source sample: its outputs are
+//     the cell's levelled U (even columns) and V (odd ones), the same for
+//     every t. See "Mode 3" below;
 //   * a row band (row0, rows) per plane is the TPU kernel's mesh-sharded
 //     variant (warp_frame_band with num_shards > 1, which slices its band
 //     tables and packed sources per shard): shard s of n computes rows
 //     [s * r, (s + 1) * r) of each plane, r = ceil(plane_h / n) apart for Y
 //     and UV, into a band-local (T, r, W) output. Sources and flow stay
 //     whole; the mirror and the flow lookup use the whole plane. Rows past
-//     the plane are not written.
+//     the plane are not written (the wrapper zeroes them; in mode 3 too,
+//     where K5 on the raw_blend band coloured them from a raw 0: no output
+//     shows them, the mesh crops them).
 //
 // Float rules. The JAX package is the reference, so every float operation is
 // pinned to the rounding the JAX package's compiled code performs:
@@ -80,8 +89,33 @@
 // difference is the second source and the blend's arithmetic, and on random
 // flow the scatter: each run reads its 16 bytes from its own row for every
 // t, so the T reads share no L1 lines.
+//
+// Mode 3. One grid for both planes: blocks [0, n_y) take the Y plane's
+// tiles, the rest the UV plane's, so a call is one launch (modes 0/1/2 keep
+// one launch a plane). Y runs are mode 2's (the fast path, both sources'
+// loads issued together, the slow path at mirror edges and ragged tails);
+// finish_run adds the colour's luma to the raw blend and applies the Y
+// levels, with mode 2's float rules. UV runs load no source and no flow21:
+// the cell's flow12, its colour, U and V levelled once, the run stored T
+// times. The colour (fdlibm's atan2f and the hue: some 250-300 divergent
+// instructions, csrc/hsv_colour.h) is made once per distinct flow cell of a
+// block, not once a run: the first run of each cell in the block (its
+// leader, in x and in y) colours it into shared memory from the flow12 it
+// loaded, and after one __syncthreads every run reads its cell's entry. A
+// block of 32 x 8 runs spans at most 32 x 8 cells, one entry each. At rs 3
+// that is 8x (Y) and 16x (UV) fewer colours than one a run. The kernel is
+// held to 64 registers (4 blocks an SM), the colour's code spilling a few
+// bytes: left to itself it takes 78-82 and runs about 1.6x slower. What
+// bounds it: the bytes of both sources' Y planes, the flow and both output
+// planes (at 4K HDR T = 1, 58.6 MB: 17.5 us at 3.35 TB/s). Timed in variants
+// (hrt_warp_mode3_probe, PERF.md), what keeps it above that is K2's own Y
+// gather (without the colour it takes three quarters of its time) and the
+// barrier's wait for the colour; a colour made a run, without the barrier,
+// is slower.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hsv_colour.h"
 
 namespace {
 
@@ -265,10 +299,12 @@ __device__ __forceinline__ Words gather_slow(const T* row, int x0, int n, int dx
 // [0, 1], so every blend lies in [0, 2^24) and truncates by an add rounded
 // toward zero (x + 2^23 -> 2^23 + trunc(x)); else by conversion instructions.
 // Both give the same bits.
+// Mode 3 (Y only) adds `base`, its cell's colour, to half the raw blend and
+// applies the Y levels.
 template <typename T, int kMode, bool kUV, bool kRaw, bool kUnit, int kMax>
 __device__ __forceinline__ Words finish_run(const Words& g12, const Words& g21, int n,
                                             float fs12, float fs21, float black, float white,
-                                            float peak, float mid) {
+                                            float peak, float mid, int base) {
   if (kMode == 0) return g12;
   if (kMode == 1) return g21;
   uint32_t r[kMax];
@@ -287,7 +323,12 @@ __device__ __forceinline__ Words finish_run(const Words& g12, const Words& g21, 
       blended = truncf(x);
       r[k] = static_cast<uint32_t>(static_cast<int>(blended));
     }
-    if (!kRaw) {  // the raw_blend variant stores the blend as it is
+    if (kMode == 3) {  // ops/warp.hsv_colour over the blend, then _apply_levels_y
+      const int raw = kUnit ? static_cast<int>(r[k] - kTwo23Bits) : static_cast<int>(r[k]);
+      const float v = __fmul_rn(__fdiv_rn(__fsub_rn(static_cast<float>(base + (raw >> 1)),
+                                                    black), __fsub_rn(white, black)), peak);
+      r[k] = __float_as_uint(__fadd_rz(fminf(fmaxf(v, 0.0f), peak), kTwo23));
+    } else if (!kRaw) {  // the raw_blend variant stores the blend as it is
       float v;
       if (kUV) {  // ops/warp.py::_apply_levels_uv: fma((v - mid) / white, peak, mid)
         v = __fmaf_rn(__fdiv_rn(__fsub_rn(blended, mid), white), peak, mid);
@@ -311,7 +352,7 @@ __device__ __forceinline__ void warp_run(const T* __restrict__ src12,
                                          size_t t_stride, int cy, int plane_h, int x0, int n,
                                          int run, int dim_x, int ox12, int oy12, int ox21,
                                          int oy21, float black, float white, float peak,
-                                         float mid) {
+                                         float mid, int base = 0) {
   const int nbytes = run * static_cast<int>(sizeof(T));
   for (int i = 0; i < n_t; ++i, dst += t_stride) {
     const float fs12 = ts[i];
@@ -352,9 +393,9 @@ __device__ __forceinline__ void warp_run(const T* __restrict__ src12,
     }
     const Words res = fs12 >= 0.0f && fs12 <= 1.0f
         ? finish_run<T, kMode, kUV, kRaw, true, kMax>(g12, g21, n, fs12, fs21, black, white,
-                                                      peak, mid)
+                                                      peak, mid, base)
         : finish_run<T, kMode, kUV, kRaw, false, kMax>(g12, g21, n, fs12, fs21, black, white,
-                                                       peak, mid);
+                                                       peak, mid, base);
     store_run<T, kMax>(dst, res, n, run);
   }
 }
@@ -414,6 +455,141 @@ struct Band {
   int row0_y, rows_y, row0_uv, rows_uv;
 };
 
+// Mode 3's block: 32 runs of 8 rows, as launch_plane's; one colour entry per
+// flow cell it can span.
+constexpr int kBlockX = 32, kBlockY = 8;
+
+// Mode 3 (see "Mode 3" above): blocks [0, n_y_blocks) take the Y plane's
+// tiles of kBlockX runs x kBlockY rows, row-major over blocks_x_y tiles a row;
+// the rest take the UV plane's, blocks_x_uv tiles a row. Y runs are
+// 1 << shift_y samples (kRunY > 0: compiled for kRunY), UV runs 1 << shift_uv.
+// kMinBlocks: the blocks an SM must hold (__launch_bounds__), which caps the
+// registers: 4 blocks of 256 threads, at most 64 registers a thread, as K2's
+// mode 2 uses; left uncapped the colour's code takes 78 and more, and an SM
+// holds 2 or 3 blocks, too few loads in flight (timed, PERF.md). kVariant
+// (timing variants, hrt_warp_mode3_probe; 0 on the path): 1 the colour made
+// a run, by every thread, with no barrier; 2 no colour (no barrier; the
+// warp and the bytes alone).
+template <typename T, int kRunY, int kVariant = 0, int kMinBlocks = 4>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) warp_mode3_kernel(
+    const T* __restrict__ src12, const T* __restrict__ src21,
+    const int16_t* __restrict__ flow, const float* __restrict__ ts, int n_t,
+    T* __restrict__ out_y, T* __restrict__ out_uv, int dim_y, int dim_x, Band band, int low_h,
+    int low_w, int rs, int shift_y, int shift_uv, int n_y_blocks, int blocks_x_y,
+    int blocks_x_uv, float black, float white) {
+  constexpr bool kHdr = sizeof(T) == 2;
+  constexpr int kMaxY = kRunY > 0 ? kRunY : 16 / static_cast<int>(sizeof(T));
+  constexpr int kMaxUV = 16 / static_cast<int>(sizeof(T));
+  constexpr float kPeak = kHdr ? 65535.0f : 255.0f;
+  constexpr float kMid = kHdr ? 32768.0f : 128.0f;
+  // Y: the cell's colour base; UV: the cell's levelled (U, V) pairs, as the
+  // word a run of them repeats.
+  __shared__ uint32_t colour[kBlockX * kBlockY];
+
+  const bool uv = blockIdx.x >= static_cast<unsigned>(n_y_blocks);   // uniform in a block
+  const int b = uv ? blockIdx.x - n_y_blocks : blockIdx.x;
+  const int tiles_x = uv ? blocks_x_uv : blocks_x_y;
+  const int bx = b % tiles_x, by = b / tiles_x;
+  const int shift = uv ? shift_uv : shift_y;
+  const int run = !uv && kRunY > 0 ? kRunY : 1 << shift;
+  const int plane_h = uv ? dim_y / 2 : dim_y;
+  const int row0 = uv ? band.row0_uv : band.row0_y;
+  const int rows = uv ? band.rows_uv : band.rows_y;
+  const int x0 = (bx * kBlockX + threadIdx.x) * run;
+  const int band_y = by * kBlockY + threadIdx.y;   // row within the band
+  const int cy = row0 + band_y;                    // row of the plane
+  const bool active = x0 < dim_x && band_y < rows && cy < plane_h;
+
+  // The run's flow cell: column (x0 >> rs) on Y, ((x0 >> rs) & ~1) on UV,
+  // counted in cells of its plane (cell_x), and row cy >> rs.
+  const auto cell_of = [&](int x) { return uv ? (x >> rs) >> 1 : x >> rs; };
+  const int cell_x = cell_of(x0), cell_y = cy >> rs;
+  const int entry = (cell_y - ((row0 + by * kBlockY) >> rs)) * kBlockX
+                    + cell_x - cell_of(bx * kBlockX * run);
+  const bool leader = (threadIdx.x == 0 || cell_of(x0 - run) != cell_x)
+                      && (threadIdx.y == 0 || ((cy - 1) >> rs) != cell_y);
+  int ox12 = 0, oy12 = 0, ox21 = 0, oy21 = 0;
+  uint32_t own = 0;   // the colour word a leader (in variant 1 every run) makes
+  if (active) {
+    const int scx = clamp_hi(uv ? cell_x << 1 : cell_x, 0, low_w - 1);
+    const int scy = clamp_hi(uv ? cell_y << 1 : cell_y, 0, low_h - 1);
+    const int16_t* flow_x = flow;
+    const int16_t* flow_y = flow + static_cast<size_t>(low_h) * low_w;
+    ox12 = flow_x[scy * low_w + scx];
+    oy12 = flow_y[scy * low_w + scx];
+    if (!uv) {   // flow21 at the back-projected cell, as K2's other modes
+      const int bcy = clamp_hi(scy - (oy12 >> rs), 0, low_h - 1);
+      const int bcx = clamp_hi(scx - (ox12 >> rs), 0, low_w - 1);
+      ox21 = flow_x[bcy * low_w + bcx];
+      oy21 = flow_y[bcy * low_w + bcx];
+    }
+    // the colour of the cell's negated flow12, once a block (by its leader)
+    if (kVariant != 2 && (leader || kVariant == 1)) {
+      const Rgb c = flow_rgb(negate16(static_cast<int16_t>(ox12)),
+                             negate16(static_cast<int16_t>(oy12)), rs <= 2 ? 4.0f : 1.0f);
+      if (uv) {
+        const uint32_t lu = level_uv(kHdr ? chroma_u(c) << 8 : chroma_u(c), white, kPeak, kMid);
+        const uint32_t lv = level_uv(kHdr ? chroma_v(c) << 8 : chroma_v(c), white, kPeak, kMid);
+        own = kHdr ? lu | lv << 16 : (lu | lv << 8) * 0x00010001u;
+      } else {
+        own = static_cast<uint32_t>(kHdr ? luma(c) << 7 : luma(c) >> 1);
+      }
+      if (kVariant == 0) colour[entry] = own;
+    }
+  }
+  if (kVariant == 0) __syncthreads();
+  if (!active) return;
+  const uint32_t word = kVariant == 0 ? colour[entry] : own;
+  const int n = min(run, dim_x - x0);   // the ragged tail of a row has fewer
+  const size_t t_stride = static_cast<size_t>(rows) * dim_x;
+  const size_t at = static_cast<size_t>(band_y) * dim_x + x0;
+  if (uv) {   // U on even columns, V on odd ones (x0 is even), every t the same
+    const Words v{{word, word, word, word}};
+    for (int i = 0; i < n_t; ++i) store_run<T, kMaxUV>(out_uv + at + i * t_stride, v, n, run);
+    return;
+  }
+  const int base = static_cast<int>(word);
+  if (kRunY > 0 && n == kRunY) {   // a whole run: n and run are compile-time
+    warp_run<T, 3, false, false, kMaxY>(src12, src21, ts, n_t, out_y + at, t_stride, cy,
+                                        plane_h, x0, kMaxY, kMaxY, dim_x, ox12, oy12, ox21,
+                                        oy21, black, white, kPeak, kMid, base);
+  } else {
+    warp_run<T, 3, false, false, kMaxY>(src12, src21, ts, n_t, out_y + at, t_stride, cy,
+                                        plane_h, x0, n, run, dim_x, ox12, oy12, ox21, oy21,
+                                        black, white, kPeak, kMid, base);
+  }
+}
+
+// Mode 3's one launch: the Y tiles, then the UV tiles, in one grid.
+template <typename T, int kVariant = 0, int kMinBlocks = 4>
+cudaError_t launch_mode3(const void* s12y, const void* s21y, const int16_t* flow,
+                         const float* ts, int n_t, void* out_y, void* out_uv, int dim_y,
+                         int dim_x, const Band& band, int low_h, int low_w, int rs, float black,
+                         float white, cudaStream_t stream) {
+  constexpr int kMaxShift = sizeof(T) == 2 ? 3 : 4;
+  const int shift_y = rs < kMaxShift ? rs : kMaxShift;
+  const int shift_uv = rs + 1 < kMaxShift ? rs + 1 : kMaxShift;
+  const auto tiles_x = [&](int shift) {
+    const int runs = (dim_x + (1 << shift) - 1) >> shift;
+    return (runs + kBlockX - 1) / kBlockX;
+  };
+  const int blocks_x_y = tiles_x(shift_y), blocks_x_uv = tiles_x(shift_uv);
+  const int n_y_blocks = blocks_x_y * ((band.rows_y + kBlockY - 1) / kBlockY);
+  const int n_blocks = n_y_blocks + blocks_x_uv * ((band.rows_uv + kBlockY - 1) / kBlockY);
+  const auto go = [&](auto kernel) {
+    kernel<<<n_blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
+        static_cast<const T*>(s12y), static_cast<const T*>(s21y), flow, ts, n_t,
+        static_cast<T*>(out_y), static_cast<T*>(out_uv), dim_y, dim_x, band, low_h, low_w, rs,
+        shift_y, shift_uv, n_y_blocks, blocks_x_y, blocks_x_uv, black, white);
+    return cudaGetLastError();
+  };
+  if (shift_y == 3) return go(warp_mode3_kernel<T, 8, kVariant, kMinBlocks>);
+  if constexpr (sizeof(T) == 1) {
+    if (shift_y == 4) return go(warp_mode3_kernel<T, 16, kVariant, kMinBlocks>);
+  }
+  return go(warp_mode3_kernel<T, 0, kVariant, kMinBlocks>);
+}
+
 // One plane: runs of 1 << shift samples, compiled for 8 samples (HDR) or 8
 // and 16 (SDR), generic otherwise; a warp takes 32 neighbouring runs of one
 // row.
@@ -472,6 +648,9 @@ cudaError_t launch_type(int mode, bool raw, const void* s12y, const void* s12uv,
                                    mid, stream);
   }
   switch (mode) {
+    case 3:   // the HSV flow overlay: one launch for both planes; reads no UV source
+      return launch_mode3<T>(s12y, s21y, flow, ts, n_t, out_y, out_uv, dim_y, dim_x, band,
+                             low_h, low_w, rs, black, white, stream);
     case 0:
       return launch_mode<T, 0, false>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y,
                                       out_uv, dim_y, dim_x, band, low_h, low_w, rs, black,
@@ -498,8 +677,9 @@ cudaError_t launch_type(int mode, bool raw, const void* s12y, const void* s12uv,
 // the plane are not written. The whole frame is row0 0, rows dim_y and dim_y/2;
 // a shard of the row-band split (K2's mesh-sharded variant) passes its band.
 // All contiguous, on the current device. black/white are the levels in sample
-// units (HDR pre-scaled x256). raw_blend != 0 (mode 2 only) stores the blend
-// without levels.
+// units (HDR pre-scaled x256). mode 0, 1, 2 or 3 (3: the HSV flow overlay,
+// one launch; the UV sources are not read). raw_blend != 0 (mode 2 only)
+// stores the blend without levels.
 extern "C" int hrt_warp_frames(const void* src12_y, const void* src12_uv,
                                const void* src21_y, const void* src21_uv,
                                const void* flow, const void* ts, int n_t,
@@ -524,4 +704,29 @@ extern "C" int hrt_warp_frames(const void* src12_y, const void* src12_uv,
                                     out_y, out_uv, dim_y, dim_x, band, low_h, low_w,
                                     res_scalar, black, white, 255.0f, 128.0f, s);
   return static_cast<int>(err);
+}
+
+// Timing variants of K2's mode 3, HDR, the whole frame, res_scalar >= 3 (runs
+// of 8): 0 as on the path; 1 the colour made a run, no barrier; 2 no colour;
+// 3 the path uncapped (1 block an SM: the registers the code asks for).
+// The arguments are hrt_warp_frames' without the band, mode and raw_blend.
+extern "C" int hrt_warp_mode3_probe(int variant, const void* src12_y, const void* src21_y,
+                                    const void* flow, const void* ts, int n_t, void* out_y,
+                                    void* out_uv, int dim_y, int dim_x, int low_h, int low_w,
+                                    int res_scalar, float black, float white, void* stream) {
+  if (variant < 0 || variant > 3 || res_scalar < 3) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* f = static_cast<const int16_t*>(flow);
+  const auto* t = static_cast<const float*>(ts);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const Band band{0, dim_y, 0, dim_y / 2};
+  const auto go = [&](auto launch) {
+    return static_cast<int>(launch(src12_y, src21_y, f, t, n_t, out_y, out_uv, dim_y, dim_x,
+                                   band, low_h, low_w, res_scalar, black, white, s));
+  };
+  switch (variant) {
+    case 0: return go(launch_mode3<uint16_t, 0, 4>);
+    case 1: return go(launch_mode3<uint16_t, 1, 4>);
+    case 2: return go(launch_mode3<uint16_t, 2, 4>);
+    default: return go(launch_mode3<uint16_t, 0, 1>);
+  }
 }

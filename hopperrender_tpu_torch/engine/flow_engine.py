@@ -16,8 +16,8 @@ calls:
 Each pyramid step of the flow is kernels K3 (cost volume) and K4 (argmin and
 commit), the flow blur is kernel K1 and every warp of modes 0/1/2 is kernel
 K2 (one launch for all T outputs of a source interval). The visualisation modes are
-composed from them (ops/warp_viz.py): mode 3 colours K2's raw_blend variant
-with kernel K5 (the HSV flow overlay), modes 5/6 rearrange K2's mode-2 output
+composed from them (ops/warp_viz.py): mode 3 is K2's own mode 3 (the HSV flow
+overlay in its epilogue, one launch), modes 5/6 rearrange K2's mode-2 output
 in plain PyTorch, mode 4 needs the flow only. The JAX engine's strip and
 band machinery (contexts, tier plans, apron tiers, chain bounds) exists
 because a TPU has no fast per-lane gather; Hopper gathers natively, so none of

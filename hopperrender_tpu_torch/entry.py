@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from hopperrender_tpu_torch import config
-from hopperrender_tpu_torch.ops import cost_volume_kernel, hsv_kernel, warp_kernel
+from hopperrender_tpu_torch.ops import cost_volume_kernel, warp_kernel
 from hopperrender_tpu_torch.parallel import launch
 from hopperrender_tpu_torch.parallel.batched import batched_step
 from hopperrender_tpu_torch.parallel.mesh import make_multichip_step
@@ -93,17 +93,14 @@ def run_stream_steps(mesh, jobs: list[dict]) -> list[str]:
     step warping with the previous step's flow). It writes y (B_local, F-2,
     [T,] H, W), uv, blurred (B_local, F-2, 2, low_h, low_w), delta (B_local,
     F-2), each step's ms, the job's own launches of K2's band
-    (warp_frames_band.launches: modes 0/1/2/5/6), of its raw_blend variant
-    (.raw_launches: mode 3), of K5 (the HSV overlay of that band: mode 3) and
-    of K3 and K4 (the flow), the rank's place and
-    backend, and foreign_modules(); returns the paths."""
+    (warp_frames_band.launches: modes 0/1/2/5/6; .mode3_launches: mode 3)
+    and of K3 and K4 (the flow), the rank's place and backend, and
+    foreign_modules(); returns the paths."""
     paths = []
     band = warp_kernel.warp_frames_band
     k3, k4 = cost_volume_kernel.delta_sums, cost_volume_kernel.commit_winners
-    hsv = hsv_kernel.hsv_flow_overlay
     for job in jobs:
-        launches_before = (band.launches, band.raw_launches, k3.launches, k4.launches,
-                           hsv.launches)
+        launches_before = (band.launches, band.mode3_launches, k3.launches, k4.launches)
         with np.load(job["in_path"]) as z:
             y, uv, flow, ts = z["y"], z["uv"], z["flow"], z["ts"]
         n_streams, n_frames, h, w = y.shape
@@ -133,10 +130,9 @@ def run_stream_steps(mesh, jobs: list[dict]) -> list[str]:
         path = job["out_path"].format(rank=mesh.rank)
         np.savez(path, y=y_o, uv=uv_o, blurred=blurred, delta=delta,
                  step_ms=np.asarray(step_ms), band_launches=band.launches - launches_before[0],
-                 band_raw_launches=band.raw_launches - launches_before[1],
+                 band_mode3_launches=band.mode3_launches - launches_before[1],
                  delta_sums_launches=k3.launches - launches_before[2],
                  commit_winners_launches=k4.launches - launches_before[3],
-                 hsv_overlay_launches=hsv.launches - launches_before[4],
                  dp_index=mesh.dp_index, sp_index=mesh.sp_index, backend=mesh.backend,
                  foreign_modules=np.asarray(foreign_modules(), dtype=str))
         paths.append(path)

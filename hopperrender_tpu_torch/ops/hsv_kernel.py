@@ -6,7 +6,9 @@ jitted XLA program (hopperrender_tpu/ops/warp_viz.py::hsv_flow_overlay) after
 the TPU kernel's raw_blend variant. `hsv_flow_overlay` launches the CUDA
 kernel for CUDA tensors and takes the plain PyTorch version
 `hsv_flow_overlay_reference` only for CPU tensors. Its counter:
-`hsv_flow_overlay.launches`.
+`hsv_flow_overlay.launches`. Served mode 3 does not run it: K2's mode 3
+(ops/warp_kernel.py) colours in its own epilogue. It is the kernel behind
+ops/warp_viz.hsv_flow_overlay, the counterpart of the JAX function.
 """
 
 from __future__ import annotations

@@ -1,21 +1,25 @@
-"""K2: the batched warp (modes 0/1/2, and mode 2's raw_blend variant) —
+"""K2: the batched warp (modes 0/1/2/3, and mode 2's raw_blend variant) —
 wrapper of csrc/warp_frame.cu and its plain version.
 
 Replaces hopperrender_tpu/ops/warp_band.py::warp_frame_band (the TPU kernel)
 with a (T,) blending-scalar vector: all T outputs of a source interval come
 from one call. raw_blend=True is that kernel's raw_blend variant: mode 2's
-blend stored without levels, which mode 3 colours (ops/warp_viz.py).
+blend stored without levels, which K5 colours (ops/warp_viz.hsv_flow_overlay).
+Mode 3 is the HSV flow overlay in K2's epilogue, as ops/warp.warp_frame
+computes it: one launch for both planes that warps, blends, colours and
+levels, and reads no UV source (the colour replaces it); it is how the
+engine, batched_step and the mesh serve mode 3.
 `warp_frames` launches the CUDA kernel for CUDA tensors and takes the plain
 PyTorch version `warp_frames_reference` only for CPU tensors. Its counters:
-`warp_frames.launches` (modes 0/1/2) and `warp_frames.raw_launches` (the
-raw_blend variant).
+`warp_frames.launches` (modes 0/1/2), `warp_frames.mode3_launches` (mode 3)
+and `warp_frames.raw_launches` (the raw_blend variant).
 
 `warp_frames_band` is that kernel's mesh-sharded variant (warp_frame_band
 with num_shards > 1): one shard's row band of each plane, from the same
-kernel body, for the row split of parallel/mesh.py; raw_blend=True gives
-the band of the raw_blend variant, which the mesh colours for mode 3. Plain
-version `warp_frames_band_reference`; counters `warp_frames_band.launches`
-(modes 0/1/2) and `warp_frames_band.raw_launches` (raw_blend).
+kernel body, for the row split of parallel/mesh.py, in modes 0-3 and
+raw_blend. Plain version `warp_frames_band_reference`; counters
+`warp_frames_band.launches` (modes 0/1/2), `.mode3_launches` (mode 3) and
+`.raw_launches` (raw_blend).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from hopperrender_tpu_torch import _build
 from hopperrender_tpu_torch.ops import warp as warp_ops
 
-KERNEL_MODES = (0, 1, 2)
+KERNEL_MODES = (0, 1, 2, 3)
 
 
 def warp_frames_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
@@ -48,7 +52,7 @@ def warp_frames_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
 
 def _check_mode(mode, raw_blend):
     if mode not in KERNEL_MODES:
-        raise ValueError(f"K2 computes modes {KERNEL_MODES}, not {mode} (modes 3-6 are "
+        raise ValueError(f"K2 computes modes {KERNEL_MODES}, not {mode} (modes 4-6 are "
                          "composed from its outputs: ops/warp_viz.py)")
     if raw_blend and mode != 2:
         raise ValueError("raw_blend is a variant of mode 2")
@@ -85,8 +89,9 @@ def warp_frames(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
     """K2 wrapper: (T,) blending scalars -> ((T, H, W), (T, H/2, W)) outputs,
     bit-identical to warp_frames_reference. Sources are uint8 (SDR) or uint16
     (HDR); flow is (2, low_h, low_w) int16; levels are in sample units (HDR
-    pre-scaled x256). Launches the CUDA kernel for CUDA tensors (on the
-    current stream, no synchronisation); CPU tensors take the plain version."""
+    pre-scaled x256). Mode 3 reads the UV sources' shapes only. Launches the
+    CUDA kernel for CUDA tensors (on the current stream, no synchronisation);
+    CPU tensors take the plain version."""
     tensors = _check(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
                      mode=mode, is_hdr=is_hdr, raw_blend=raw_blend)
     if flow.device.type == "cpu":
@@ -97,15 +102,23 @@ def warp_frames(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
     out = _launch(tensors, black_level, white_level, (0, dim_y, 0, dim_y // 2),
                   res_scalar=res_scalar, mode=mode, is_hdr=is_hdr, raw_blend=raw_blend,
                   name="warp_frames")
-    if raw_blend:
-        warp_frames.raw_launches += 1
-    else:
-        warp_frames.launches += 1
+    _count(warp_frames, mode, raw_blend)
     return out
 
 
 warp_frames.launches = 0
+warp_frames.mode3_launches = 0
 warp_frames.raw_launches = 0
+
+
+def _count(wrapper, mode, raw_blend):
+    """One launch on the wrapper's counter of its variant."""
+    if raw_blend:
+        wrapper.raw_launches += 1
+    elif mode == 3:
+        wrapper.mode3_launches += 1
+    else:
+        wrapper.launches += 1
 
 
 def _launch(tensors, black_level, white_level, band, *, res_scalar, mode, is_hdr,
@@ -177,12 +190,10 @@ def warp_frames_band(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
         valid = max(0, plane_h - shard_index * r)
         if valid < r:
             out[:, valid:].view(torch.uint8).zero_()
-    if raw_blend:
-        warp_frames_band.raw_launches += 1
-    else:
-        warp_frames_band.launches += 1
+    _count(warp_frames_band, mode, raw_blend)
     return out_y, out_uv
 
 
 warp_frames_band.launches = 0
+warp_frames_band.mode3_launches = 0
 warp_frames_band.raw_launches = 0

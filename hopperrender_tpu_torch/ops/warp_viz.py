@@ -6,9 +6,12 @@ PyTorch port of hopperrender_tpu/ops/warp_viz.py and of
 hopperrender_tpu/ops/warp_strip.py::grey_flow_frame. Each function equals
 ops/warp.py::warp_frame_plane in its mode (ref: warpFrameKernelSDR.h:116-184):
 
-  * mode 3 colours K2's raw mode-2 blend (warp_frames(raw_blend=True)) with
-    the flow of each pixel's cell, then applies the levels: kernel K5
-    (ops/hsv_kernel.py, csrc/hsv_overlay.cu) on the card;
+  * mode 3 is K2's own mode 3 (warp_frames(mode=3)): one launch that warps,
+    blends, colours with the flow of each pixel's cell and applies the
+    levels, as warp_frame computes mode 3 (the JAX package's reference
+    formulation, hopperrender_tpu/ops/warp.py); hsv_flow_overlay colours a
+    raw blend it is given (kernel K5, ops/hsv_kernel.py), the counterpart
+    of the JAX function that the TPU strip route runs after its raw_blend;
   * mode 4 needs the flow only;
   * mode 5 is the source's left half beside K2's mode-2 right half;
   * mode 6 puts the 2x-downsampled source and mode-2 output side by side in a
@@ -20,13 +23,13 @@ ops/warp.py::warp_frame_plane in its mode (ref: warpFrameKernelSDR.h:116-184):
 The JAX package's versions repeat the flow over whole cells (they assume
 dim_x % (1 << res_scalar) == 0); these look the flow up per pixel as
 warp_frame_plane does, so every even geometry works. None of them is a TPU
-kernel in the JAX package. Mode 3's overlay is K5, a hand-written kernel on
-the card (the JAX package fuses it into one XLA program; as a chain of
-PyTorch operations it cost some 27 ms a 4K output); modes 4-6 are plain
-PyTorch. Warp outputs come batched, (T, H, W) and (T, H/2, W), with their
-(T,) blending scalars. Modes 3-5 also take row_offsets, for the row bands of
-the mesh (parallel/mesh.py); mode 6 reads rows outside a band, so the mesh
-composes it after its row all-gather.
+kernel in the JAX package. Mode 3 and its overlay are hand-written kernels
+on the card (as a chain of PyTorch operations the overlay cost some 27 ms a
+4K output); modes 4-6 are plain PyTorch. Warp outputs come batched, (T, H,
+W) and (T, H/2, W), with their (T,) blending scalars. Modes 4 and 5 and the
+overlay also take row_offsets, for the row bands of the mesh
+(parallel/mesh.py), whose mode 3 is K2's band in mode 3; mode 6 reads rows
+outside a band, so the mesh composes it after its row all-gather.
 """
 
 from __future__ import annotations
@@ -41,20 +44,16 @@ from hopperrender_tpu_torch.ops.warp import F32, from_int32, plane_coords, to_in
 def warp_outputs(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black_level, white_level, *,
                  mode: int, res_scalar: int, is_hdr: bool):
     """The warp in any output mode 0-6, one output per blending scalar of the
-    (T,) vector ts: (T, H, W), (T, H/2, W). Modes 0/1/2 are K2; the
-    visualisation modes are composed as the JAX engine composes them
-    (hopperrender_tpu/engine/flow_engine.py::_run_warp). The K2 and K5
-    wrappers are looked up at call time, so a caller may point them at their
-    plain versions."""
+    (T,) vector ts: (T, H, W), (T, H/2, W). Modes 0-3 are K2 (mode 3 its
+    HSV flow overlay, one call); modes 4-6 are composed as the JAX engine
+    composes them (hopperrender_tpu/engine/flow_engine.py::_run_warp). The
+    K2 wrapper is looked up at call time, so a caller may point it at its
+    plain version."""
     kw = dict(res_scalar=res_scalar, is_hdr=is_hdr)
     srcs = (src12_y, src12_uv, src21_y, src21_uv)
     if mode == 4:   # grey flow: no source sample
         y, uv = grey_flow_frame(flow, dim_y=src12_y.shape[0], dim_x=src12_y.shape[1], **kw)
         return y.expand(len(ts), -1, -1), uv.expand(len(ts), -1, -1)
-    if mode == 3:   # HSV flow over K2's raw mode-2 blend
-        raw_y, raw_uv = warp_kernel.warp_frames(*srcs, flow, ts, black_level, white_level,
-                                                mode=2, raw_blend=True, **kw)
-        return hsv_flow_overlay(raw_y, raw_uv, flow, black_level, white_level, **kw)
     y, uv = warp_kernel.warp_frames(*srcs, flow, ts, black_level, white_level,
                                     mode=2 if mode in (5, 6) else mode, **kw)
     if mode == 5:
@@ -67,9 +66,10 @@ def warp_outputs(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black_level, wh
 def hsv_flow_overlay(raw_y: torch.Tensor, raw_uv: torch.Tensor, flow: torch.Tensor,
                      black_level, white_level, *, res_scalar: int, is_hdr: bool,
                      row_offsets: tuple[int, int] = (0, 0)):
-    """Mode 3: the HSV flow colour over the raw (pre-levels) mode-2 blend,
-    then the levels: K5, ops/hsv_kernel.hsv_flow_overlay (looked up at call
-    time, so a caller may point it at its plain version). raw_y (..., H, W)
+    """The HSV flow colour over a raw (pre-levels) mode-2 blend, then the
+    levels: K5, ops/hsv_kernel.hsv_flow_overlay (looked up at call time, so
+    a caller may point it at its plain version). Served mode 3 does not
+    call it: K2's mode 3 colours in its own epilogue. raw_y (..., H, W)
     and raw_uv (..., H/2, W) are K2's raw_blend outputs. row_offsets (Y, UV):
     the plane row of each input's first row, for the row bands of the mesh;
     rows past the plane are coloured as if the flow grid went on, and the

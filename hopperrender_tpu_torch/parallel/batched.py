@@ -9,8 +9,8 @@ is the single-device counterpart of the "dp" axis of parallel/mesh.py.
 The blending scalar is per stream (streams sit at different cadence phases);
 the search radius, the tunables and the levels are shared (one settings
 profile per batch). The streams run one after another through the engine's
-functions: on the card the blur is K1 and the warp K2 (modes 0/1/2; modes 3-6
-composed from it, ops/warp_viz.py, mode 3's HSV overlay by kernel K5).
+functions: on the card the blur is K1 and the warp K2 (modes 0-3, mode 3 its
+HSV flow overlay in one launch; modes 4-6 composed from it, ops/warp_viz.py).
 """
 
 from __future__ import annotations

@@ -16,14 +16,13 @@ single-GPU; the scale-out maps its axes onto a 2-D mesh of ranks:
         over the dp row's ranks joins the bands. Every output mode 0-6 is
         composed from K2's mesh-sharded variant
         (ops/warp_kernel.warp_frames_band), as ops/warp_viz.warp_outputs
-        composes the full frame: modes 0/1/2 are its own, mode 3 colours
-        its raw_blend band (kernel K5, the HSV flow overlay, with the band's
-        row offsets), mode 4 is the grey flow of the band's rows (no
-        K2), mode 5 puts source 1's band rows beside its mode-2 band, and
-        mode 6, whose rows read rows outside the band, is composed from the
-        gathered mode-2 frame. The plain row route (warp_frame_sharded)
-        stays as the reference the tests hold these bands to; it takes CPU
-        tensors only.
+        composes the full frame: modes 0-3 are its own (mode 3 colours in
+        its epilogue, one launch), mode 4 is the grey flow of the band's
+        rows (no K2), mode 5 puts source 1's band rows beside its mode-2
+        band, and mode 6, whose rows read rows outside the band, is
+        composed from the gathered mode-2 frame. The plain row route
+        (warp_frame_sharded) stays as the reference the tests hold these
+        bands to; it takes CPU tensors only.
 
 Rank r of a dp x sp mesh is (dp_index, sp_index) = divmod(r, sp). Collectives
 go through the sp group of the rank's dp row, on the rank's device: gloo's
@@ -118,11 +117,10 @@ def warp_frame_band_sharded(src12_y, src12_uv, src21_y, src21_uv, flow, ts, blac
     """This rank's row band of each plane, (T, r_y, W) and (T, r_uv, W) for
     the (T,) blending scalars ts, r = ops/warp.band_rows(plane_h, mesh.sp),
     in a band-local mode 0-5, composed from K2's mesh-sharded variant as
-    ops/warp_viz.warp_outputs composes the full frame. Modes 0/1/2 are the
-    kernel's own; mode 3 is the HSV overlay of its raw_blend band; mode 4
-    is the grey flow of the band's rows and launches no K2; mode 5 is source
-    1's band rows beside the mode-2 band. Rows past the plane are 0 (mode 3
-    colours them; the step crops them)."""
+    ops/warp_viz.warp_outputs composes the full frame. Modes 0-3 are the
+    kernel's own; mode 4 is the grey flow of the band's rows and launches
+    no K2; mode 5 is source 1's band rows beside the mode-2 band. Rows past
+    the plane are 0; the step crops them."""
     if mode == 6:
         raise ValueError("mode 6 reads rows outside the band: make_multichip_step composes it "
                          "from the gathered mode-2 frame")
@@ -136,10 +134,6 @@ def warp_frame_band_sharded(src12_y, src12_uv, src21_y, src21_uv, flow, ts, blac
     kw = dict(res_scalar=res_scalar, is_hdr=is_hdr, num_shards=mesh.sp,
               shard_index=mesh.sp_index)
     srcs = (src12_y, src12_uv, src21_y, src21_uv, flow, ts, black, white)
-    if mode == 3:
-        raw_y, raw_uv = warp_kernel.warp_frames_band(*srcs, mode=2, raw_blend=True, **kw)
-        return warp_viz.hsv_flow_overlay(raw_y, raw_uv, flow, black, white,
-                                         res_scalar=res_scalar, is_hdr=is_hdr, row_offsets=rows)
     y, uv = warp_kernel.warp_frames_band(*srcs, mode=2 if mode == 5 else mode, **kw)
     if mode == 5:
         return warp_viz.side_by_side_1(src12_y, src12_uv, y, uv, row_offsets=rows)

@@ -1,8 +1,8 @@
-"""Kernels K1 (flow blur), K2 (batched warp, its raw_blend variant and its
-mesh-sharded row-band variant), K3 (the cost volume's window sums), K4
-(the argmin and its commit) and K5 (mode 3's HSV flow overlay: every colour
-pair, the full frame and the mesh's bands) against their plain PyTorch
-versions on a CUDA
+"""Kernels K1 (flow blur), K2 (batched warp, its mode 3 with the HSV flow
+overlay in its epilogue, its raw_blend variant and its mesh-sharded row-band
+variant), K3 (the cost volume's window sums), K4 (the argmin and its commit)
+and K5 (the HSV flow overlay on a raw blend: every colour pair, the full
+frame and the mesh's bands) against their plain PyTorch versions on a CUDA
 card, exactly, across bit depths, res scalars, modes and ragged shapes (K3
 and K4 over chip_smoke.py's phase 3b matrix); the pyramid on the card
 against the CPU and replayed in a CUDA graph; the HSV colour on the card
@@ -153,6 +153,36 @@ def test_warp_band_kernel_run_cases_match_plain(dev, case):
             assert _same(ky, py) and _same(kuv, puv), f"mode {mode} raw {raw} shard {shard}"
 
 
+@pytest.mark.parametrize("case", WARP_CASES, ids=lambda c: c.name)
+def test_warp_kernel_mode3_run_cases_match_plain(dev, case):
+    """K2's mode 3 (the HSV flow overlay in its epilogue, one launch counted
+    on its own counter) on the cases K2 splits its paths on, against its
+    plain version (ops/warp.warp_frame in mode 3); with bands, every shard
+    against the plain band."""
+    args = _case_tensors(case, dev)
+    kw = dict(res_scalar=case.rs, mode=3, is_hdr=case.is_hdr)
+    before = warp_kernel.warp_frames.launches, warp_kernel.warp_frames.mode3_launches
+    ky, kuv = warp_kernel.warp_frames(*args, *case.levels, **kw)
+    assert (warp_kernel.warp_frames.launches, warp_kernel.warp_frames.mode3_launches) == \
+        (before[0], before[1] + 1)
+    py, puv = warp_kernel.warp_frames_reference(*args, *case.levels, **kw)
+    assert _same(ky, py) and _same(kuv, puv)
+    for shard in range(case.shards if case.shards > 1 else 0):
+        band = dict(num_shards=case.shards, shard_index=shard)
+        ky, kuv = warp_kernel.warp_frames_band(*args, *case.levels, **band, **kw)
+        py, puv = warp_kernel.warp_frames_band_reference(*args, *case.levels, **band, **kw)
+        assert _same(ky, py) and _same(kuv, puv), f"shard {shard}"
+
+
+def test_warp_kernel_mode3_matches_plain(dev):
+    """K2's mode 3 over chip_smoke.py phase 4d's matrix: 4K HDR on three
+    flows at T = 1 and 3 (and equal to K2 raw_blend + K5), the row bands at
+    n = 2, 4 and 8, the small geometries and every (ox, oy) in +-512 at rs 0."""
+    chip_smoke, port = _chip_smoke()
+    err, outputs, launches = chip_smoke.mode3_parity(port, dev, chip_smoke.k2_inputs(port, dev))
+    assert err == 0 and outputs > 0 and launches > 0
+
+
 @pytest.mark.parametrize("is_hdr", [False, True])
 def test_warp_kernel_levels_every_sample_value(dev, is_hdr):
     """Every sample value through K2's blend and levels: zero flow, the 1->2
@@ -194,10 +224,10 @@ def test_visualize_flow_cuda_matches_cpu(dev, is_hdr):
 
 @pytest.mark.parametrize("is_hdr", [False, True])
 def test_engine_viz_modes_match_cpu(dev, is_hdr):
-    """Modes 3-6 through the engine on the card (K1, K2, its raw_blend
-    variant, K5 and the compositions of ops/warp_viz.py) equal the same
-    stream on the CPU; K5 launches in mode 3 only. 86 wide: an odd half
-    width for mode 6."""
+    """Modes 3-6 through the engine on the card (K1, K2, its mode 3 and the
+    compositions of ops/warp_viz.py) equal the same stream on the CPU; K2's
+    mode 3 launches in mode 3 only, and neither K2's raw_blend variant nor
+    K5 in any mode. 86 wide: an odd half width for mode 6."""
     from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
     from hopperrender_tpu_torch.vio import nv12
     h, w = 50, 86
@@ -212,12 +242,14 @@ def test_engine_viz_modes_match_cpu(dev, is_hdr):
             if eng.frame_count >= 3:
                 eng.calculate_optical_flow()
     for mode in (3, 4, 5, 6):
+        mode3_before = warp_kernel.warp_frames.mode3_launches
         raw_before = warp_kernel.warp_frames.raw_launches
         hsv_before = hsv_kernel.hsv_flow_overlay.launches
         want = engines[0].warp_frames_batch([0.4, 0.8], mode)
         got = engines[1].warp_frames_batch([0.4, 0.8], mode)
-        assert (warp_kernel.warp_frames.raw_launches > raw_before) == (mode == 3)
-        assert (hsv_kernel.hsv_flow_overlay.launches > hsv_before) == (mode == 3)
+        assert (warp_kernel.warp_frames.mode3_launches > mode3_before) == (mode == 3)
+        assert warp_kernel.warp_frames.raw_launches == raw_before
+        assert hsv_kernel.hsv_flow_overlay.launches == hsv_before
         for (gy, guv), (wy, wuv) in zip(got, want):
             assert _same(gy.cpu(), wy) and _same(guv.cpu(), wuv), f"mode {mode}"
 
@@ -549,9 +581,11 @@ def test_warp_kernel_rejects_bad_input(dev):
 
 @pytest.mark.parametrize("h,w,rs,is_hdr,n", [(2160, 3840, 3, True, 2), (50, 86, 1, False, 3)])
 def test_mesh_mode_3_band_route_matches_the_plain_row_route(dev, h, w, rs, is_hdr, n):
-    """Mode 3 on the mesh: K2's mesh-sharded raw_blend band (its own counter,
-    equal to its plain version) coloured by the banded HSV overlay equals the
-    plain row route (ops/warp.warp_frame_rows in mode 3) on every shard."""
+    """Mode 3 on the mesh: K2's mesh-sharded band in mode 3 (its own counter,
+    equal to its plain version) equals the plain row route
+    (ops/warp.warp_frame_rows in mode 3) on every shard, padding rows 0
+    included; so does the chain it replaced (the raw_blend band coloured by
+    the banded HSV overlay) on the plane's rows."""
     rng = np.random.default_rng(50 + n)
     srcs = _frame(rng, h, w, is_hdr, dev) + _frame(rng, h, w, is_hdr, dev)
     low = (2, -(-h // (1 << rs)), -(-w // (1 << rs)))
@@ -561,25 +595,28 @@ def test_mesh_mode_3_band_route_matches_the_plain_row_route(dev, h, w, rs, is_hd
     kw = dict(res_scalar=rs, is_hdr=is_hdr)
     for shard in range(n):
         band = dict(num_shards=n, shard_index=shard)
-        before = warp_kernel.warp_frames_band.launches, warp_kernel.warp_frames_band.raw_launches
+        before = warp_kernel.warp_frames_band.launches, warp_kernel.warp_frames_band.mode3_launches
+        y, uv = warp_kernel.warp_frames_band(*srcs, flow, ts, 16 * s, 235 * s, mode=3, **band,
+                                             **kw)
+        assert (warp_kernel.warp_frames_band.launches,
+                warp_kernel.warp_frames_band.mode3_launches) == (before[0], before[1] + 1)
+        py, puv = warp_kernel.warp_frames_band_reference(*srcs, flow, ts, 16 * s, 235 * s,
+                                                         mode=3, **band, **kw)
+        assert _same(y, py) and _same(uv, puv), f"mode 3 band shard {shard}"
+        wy, wuv = warp_ops.warp_frame_rows(*srcs, flow, ts, 16 * s, 235 * s, mode=3, **band, **kw)
+        assert _same(y, wy) and _same(uv, wuv), f"shard {shard}"
         ry, ruv = warp_kernel.warp_frames_band(*srcs, flow, ts, 16 * s, 235 * s, mode=2,
                                                raw_blend=True, **band, **kw)
-        assert (warp_kernel.warp_frames_band.launches,
-                warp_kernel.warp_frames_band.raw_launches) == (before[0], before[1] + 1)
-        py, puv = warp_kernel.warp_frames_band_reference(*srcs, flow, ts, 16 * s, 235 * s,
-                                                         mode=2, raw_blend=True, **band, **kw)
-        assert _same(ry, py) and _same(ruv, puv), f"raw band shard {shard}"
-        y, uv = warp_viz.hsv_flow_overlay(ry, ruv, flow, 16 * s, 235 * s, **kw,
-                                          row_offsets=(shard * ry.shape[1], shard * ruv.shape[1]))
-        wy, wuv = warp_ops.warp_frame_rows(*srcs, flow, ts, 16 * s, 235 * s, mode=3, **band, **kw)
+        cy, cuv = warp_viz.hsv_flow_overlay(ry, ruv, flow, 16 * s, 235 * s, **kw,
+                                            row_offsets=(shard * ry.shape[1], shard * ruv.shape[1]))
         vy, vuv = max(0, h - shard * ry.shape[1]), max(0, h // 2 - shard * ruv.shape[1])
-        assert _same(y[:, :vy], wy[:, :vy]) and _same(uv[:, :vuv], wuv[:, :vuv]), f"shard {shard}"
+        assert _same(cy[:, :vy], y[:, :vy]) and _same(cuv[:, :vuv], uv[:, :vuv]), f"shard {shard}"
 
 
 def test_mesh_mode_3_on_the_card_matches_the_cpu(tmp_path):
     """make_multichip_step in mode 3 on a (1, 2) mesh of ranks sharing the
-    card (gloo): the same outputs as the CPU ranks, through the raw_blend band
-    kernel on every rank."""
+    card (gloo): the same outputs as the CPU ranks, through the band kernel's
+    mode 3 on every rank."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from hopperrender_tpu_torch import entry
@@ -597,7 +634,8 @@ def test_mesh_mode_3_on_the_card_matches_the_cpu(tmp_path):
                                                  timeout=300)]
         for path in paths:
             with np.load(path) as z:
-                assert (int(z["band_raw_launches"]) > 0) == (device == "cuda")
+                assert (int(z["band_mode3_launches"]) > 0) == (device == "cuda")
+                assert int(z["band_launches"]) == 0
         got[device] = entry.gather_dp(paths, 2)
     for k in ("y", "uv", "blurred", "delta"):
         np.testing.assert_array_equal(got["cuda"][k], got["cpu"][k], err_msg=k)
@@ -627,7 +665,7 @@ def test_mesh_modes_4_to_6_on_the_card_match_the_cpu(tmp_path, mode):
             with np.load(path) as z:
                 launched = int(z["band_launches"])
                 assert (launched > 0) == (device == "cuda" and mode != 4), (device, launched)
-                assert int(z["band_raw_launches"]) == 0
+                assert int(z["band_mode3_launches"]) == 0
         got[device] = entry.gather_dp(paths, 2)
     for k in ("y", "uv", "blurred", "delta"):
         np.testing.assert_array_equal(got["cuda"][k], got["cpu"][k], err_msg=k)

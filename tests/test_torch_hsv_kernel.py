@@ -1,10 +1,12 @@
-"""K5, mode 3's HSV flow overlay (ops/hsv_kernel.py, csrc/hsv_overlay.cu), on
-the CPU: the wrapper takes its plain version for CPU tensors and counts no
+"""K5, the HSV flow overlay (ops/hsv_kernel.py, csrc/hsv_overlay.cu), on the
+CPU: the wrapper takes its plain version for CPU tensors and counts no
 launch; the plain version equals jitted JAX's hsv_flow_overlay bit for bit;
 the mesh's row bands stack to the full frame; the engine replays the mode-3
-golden fixture through the wrapper; and the kernel's float32 constant table
-equals the plain version's constants. The kernel itself runs only on the
-card (tests/test_torch_cuda.py -k hsv, chip_smoke.py phases 4c, 5b, 5d)."""
+golden fixture through K2's mode 3 (which colours in its epilogue, with no
+K5 launch); and the colour's float32 constant table (csrc/hsv_colour.h,
+shared by K5 and K2's mode 3) equals the plain version's constants. The
+kernels themselves run only on the card (tests/test_torch_cuda.py -k hsv,
+chip_smoke.py phases 4c and 4d)."""
 
 import os
 import re
@@ -22,7 +24,7 @@ from test_torch_engine import FIXTURE_DIR, replay_fixture
 from test_torch_viz import OVERLAY_FAULT
 
 HSV_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "hopperrender_tpu_torch", "csrc", "hsv_overlay.cu")
+                          "hopperrender_tpu_torch", "csrc", "hsv_colour.h")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -127,21 +129,30 @@ def test_mesh_bands_stack_to_the_full_frame(rs, is_hdr, h, w, n):
 
 def test_engine_replays_the_mode_3_fixture_through_the_wrapper(monkeypatch):
     """The 1080p-sdr golden fixture (modes 2 and 3) through the port's engine
-    on the CPU, byte for byte, with every mode-3 output made by the wrapper
-    (ops/warp_viz looks it up at call time)."""
-    calls = []
-    wrapper = hsv_kernel.hsv_flow_overlay
+    on the CPU, byte for byte, with every mode-3 output made by one call of
+    K2's wrapper in mode 3 (ops/warp_viz looks it up at call time), and none
+    by K5's wrapper or K2's raw_blend variant: served mode 3 colours in K2's
+    epilogue."""
+    calls, overlays = [], []
+    warp, overlay = warp_kernel.warp_frames, hsv_kernel.hsv_flow_overlay
 
     def spy(*args, **kwargs):
-        calls.append(args[0].shape)
-        return wrapper(*args, **kwargs)
+        calls.append((kwargs["mode"], kwargs.get("raw_blend", False), len(args[5])))
+        return warp(*args, **kwargs)
 
-    monkeypatch.setattr(hsv_kernel, "hsv_flow_overlay", spy)
+    def overlay_spy(*args, **kwargs):
+        overlays.append(args[0].shape)
+        return overlay(*args, **kwargs)
+
+    monkeypatch.setattr(warp_kernel, "warp_frames", spy)
+    monkeypatch.setattr(hsv_kernel, "hsv_flow_overlay", overlay_spy)
     ys, uvs, deltas, z = replay_fixture(os.path.join(FIXTURE_DIR, "golden_1080p-sdr.npz"))
     np.testing.assert_array_equal(ys, z["out_y"])
     np.testing.assert_array_equal(uvs, z["out_uv"])
     np.testing.assert_array_equal(deltas, z["deltas"])
-    assert len(calls) == 2 * len(z["deltas"])     # t 0.25 and 0.75 a flow, one output a call
+    # t 0.25 and 0.75 a flow, one output a call
+    assert calls.count((3, False, 1)) == 2 * len(z["deltas"])
+    assert not overlays and not any(raw for _, raw, _ in calls)
 
 
 def test_wrapper_rejects_bad_input():
@@ -174,10 +185,10 @@ KERNEL_CONSTANTS = {
 
 
 def test_kernel_constants_are_the_plain_versions():
-    """Every float32 bit pattern of csrc/hsv_overlay.cu's table is the float32
-    of the plain version's constant, and the table holds each of them: the
-    kernel's arithmetic runs only on the card, its constants are checked
-    here. pi, which 180/pi divides by, is ops/warp.py's float32 of
+    """Every float32 bit pattern of csrc/hsv_colour.h's table (the colour
+    that K5 and K2's mode 3 include) is the float32 of the plain version's
+    constant, and the table holds each of them: the kernels' arithmetic runs
+    only on the card, their constants are checked here. pi, which 180/pi divides by, is ops/warp.py's float32 of
     3.14159274101257324."""
     with open(HSV_SOURCE) as f:
         table = {name: int(bits, 16) for name, bits in

@@ -243,8 +243,8 @@ def test_fma_is_single_rounding():
 
 
 def test_unported_modes_raise(rng):
-    """Modes outside 0-6 are refused, and K2 computes only 0/1/2 (with
-    raw_blend for mode 2 alone): the engine composes modes 3-6."""
+    """Modes outside 0-6 are refused, and K2 computes only 0-3 (with
+    raw_blend for mode 2 alone): the engine composes modes 4-6."""
     y, uv = make_frame(rng, 16, 32)
     flow = make_flow(rng, 16, 32)
     args = (_t(y), _t(uv), _t(y), _t(uv), _t(flow))
@@ -252,7 +252,7 @@ def test_unported_modes_raise(rng):
         with pytest.raises(ValueError, match="mode"):
             torch_warp.warp_frame(*args, 0.5, 0.0, 255.0, res_scalar=0, mode=mode,
                                   is_hdr=False)
-    for mode, raw in ((3, False), (7, False), (-1, False), (1, True)):
+    for mode, raw in ((4, False), (7, False), (-1, False), (1, True), (3, True)):
         with pytest.raises(ValueError):
             warp_kernel.warp_frames(*args, torch.tensor([0.5]), 0.0, 255.0, res_scalar=0,
                                     mode=mode, is_hdr=False, raw_blend=raw)

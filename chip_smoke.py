@@ -7,16 +7,13 @@
     python3 chip_smoke.py --bench-only      # phases 1, 2 and 10: the bench
     python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only:
                                             # K1, K2, the band, K5, K2's mode 3 beside
-                                            # K2 raw_blend + K5, K3, K4, the pyramid
+                                            # K2 raw_blend + K5 and without its colour,
+                                            # K3, K4, the pyramid
                                             # step (flow_step), P1-P4 and the L2 read
                                             # rate, P1/P2 on the probe path on 1 and
                                             # 132 blocks, the split of a wrapper call's
                                             # host time into stages and the floor of a
                                             # one-block launch taken apart
-    python3 chip_smoke.py --served-wall [keep|drop]
-                                            # phases 1, 2, then phase 5's stream alone,
-                                            # twice: its wall and flow in a fresh process,
-                                            # the outputs kept to the end or released
 
 Builds the hand-written CUDA kernels from hopperrender_tpu_torch/csrc (nvcc,
 sm_90a), then runs these phases, one line each:
@@ -57,7 +54,9 @@ sm_90a), then runs these phases, one line each:
      bands at n = 2, 4 and 8 against their plain bands and stacked against
      the full frame; rs 1-3 at 50 x 86 (with bands of n = 3, t outside
      [0, 1], the int16 range) and 1080p SDR at rs 2; a flow grid at rs 0
-     whose cells run through every (ox, oy) in +-512, SDR and HDR;
+     whose cells run through every (ox, oy) in +-512, SDR and HDR. It runs
+     after phase 6, so that phases 5 and 6 measure the served stream in the
+     process state they had before K2 took mode 3;
   5. the served slice: FrameServer at 3840x2160 HDR, 24 -> 60, mode 2, levels
      16/235, search radius 16, ten panning frames through the kernels; the
      output count against the cadence controller's, the kernels' launch
@@ -214,11 +213,12 @@ host_us and bound a call over one 4K HDR flow at radius 16 (`r5` at radius
 slice (phase 5), K3's and K4's those of the mesh (7c), their path, with
 `main_path_launches` (0) beside them, and K3's timing `variants`; K5's
 `ms`, `plain_ms`, `host_us` and bound at T = 1 (as mode 3 was served), `t3`
-at T = 3, `grid_ms`, its `launches` those of 4c (its parity; the served paths
-launch it no more) beside 5d's and 7a's; K2's mode 3 (`warp_frames_mode3`)
-the same at T = 1 and 3, with `chain_ms` (K2 raw_blend + K5 on the same
-inputs) and `vs_chain`, its `launches` in 5b beside 5d's, 4d's, 7b's,
-7a's and 7c's; K2 raw_blend's `launches` those of 4b beside 7a's bands'; the band's
+at T = 3, `grid_ms`, its `launches` those of the served mode-3 path (5b;
+0 since K2's mode 3) beside 5d's, 4c's (`parity_launches`) and 7a's; K2's
+mode 3 (`warp_frames_mode3`) the same at T = 1 and 3, with `chain_ms` (K2
+raw_blend + K5 on the same inputs) and `vs_chain`, its `launches` in 5b
+beside 5d's, 4d's, 7b's, 7a's and 7c's; K2 raw_blend's `launches` those of
+5b (0) beside 4b's (`parity_launches`) and 7a's bands'; the band's
 `launches` over 7c's modes 2, 5 and 6, and `launches_by_mode` (mode 3:
 its mode 3's); for the probes `ms`
 summed over the variants, graph-timed, P1/P2's bound beside the bound
@@ -330,69 +330,6 @@ L2_BLOCKS, L2_PASSES, SECTOR_BYTES = 132, 40, 32
 
 def log(line: str) -> None:
     print(line, flush=True)
-
-
-# Phase 5's served stream: 4K HDR P010 24 -> 60, mode 2, levels 16/235, the
-# scaler off (the radius is set a frame).
-SERVED_SETTINGS = dict(target_fps=60.0, use_display_fps=False, frame_output=2, black_level=16,
-                       white_level=235, auto_quality=False)
-
-
-def served_frames(port, n: int) -> list:
-    """Phase 5's source frames: n 4K HDR P010 frames panning 3 px a frame,
-    from seed 0."""
-    rng = np.random.default_rng(0)
-    frames = []
-    for i in range(n):
-        y, uv = port.nv12.synthetic_frame(rng, H, W, is_hdr=True, motion_x=3 * i)
-        frames.append((y & P010_MASK, uv & P010_MASK))
-    return frames
-
-
-def serve(srv, frames, radius: int, keep: bool = True):
-    """Frames through srv at this search radius: the outputs (none unless
-    keep: then each source frame's outputs are released before the next
-    push), and for each source frame that ran flow, push_frame's wall
-    seconds (host clock) and the engine's flow time; warp and copy times
-    per output."""
-    outs, wall_s, flow_s, warp_s, copy_s = [], [], [], [], []
-    for y, uv in frames:
-        if srv.engine is not None:
-            srv.engine.search_radius = radius
-        start = time.perf_counter()
-        got = srv.push_frame(y, uv)
-        wall = time.perf_counter() - start
-        eng = srv.engine
-        if eng.frame_count >= 3:
-            wall_s.append(wall)
-            flow_s.append(eng.ofc_time.current)
-        for o in got:
-            (warp_s if o.interpolated else copy_s).append(eng.warp_time.current)
-        if keep:
-            outs.extend(got)
-    return outs, wall_s, flow_s, warp_s, copy_s
-
-
-def served_wall(port, dev, card: str, outputs: str) -> None:
-    """--served-wall: phase 5's stream (its first 10 frames, radius 16) on two
-    new FrameServers in turn, in this process right after the build: for each
-    the median of push_frame's wall (host clock) and of the engine's flow
-    time (CUDA events) over the frames that ran flow. outputs "keep" holds
-    every output to the stream's end, as phase 5 does (phase 6 reports its
-    numbers after phases 3-4d in one process); "drop" releases each source
-    frame's outputs before the next push, as a server that writes them out
-    does."""
-    frames = served_frames(port, 10)
-    for k in (1, 2):
-        srv = port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev,
-                               settings=port.Settings(**SERVED_SETTINGS))
-        _, wall_s, flow_s, _, _ = serve(srv, frames, port.config.MAX_SEARCH_RADIUS,
-                                        keep=outputs == "keep")
-        torch.cuda.synchronize()
-        log(f"served wall [{card}] of {ROOT}: stream {k}, outputs {outputs}, {W}x{H} HDR "
-            f"24->60 mode 2 r16, {1e3 * statistics.median(wall_s):.3f} ms/source frame (median "
-            f"of {len(wall_s)}, host clock around push_frame), flow "
-            f"{1e3 * statistics.median(flow_s):.3f} ms/source frame (CUDA events)")
 
 
 def import_port() -> types.SimpleNamespace:
@@ -1356,8 +1293,7 @@ def mode3_parity(port, dev, inp) -> tuple[int, int, int]:
 
 # Timing variants of K2's mode 3 (csrc/warp_frame.cu, hrt_warp_mode3_probe):
 # name -> variant; the last column says whether its output is the path's.
-MODE3_VARIANTS = {"as on the path": (0, True), "colour a run, no barrier": (1, True),
-                  "no colour": (2, False), "uncapped registers": (3, True)}
+MODE3_VARIANTS = {"as on the path": (0, True), "no colour": (1, False)}
 
 
 def mode3_variants(port, inp, ts) -> dict | None:
@@ -1386,13 +1322,13 @@ def mode3_variants(port, inp, ts) -> dict | None:
     return out
 
 
-def mode3_numbers(port, inp) -> dict:
+def mode3_numbers(port, inp, variants: bool = False) -> dict:
     """K2's mode 3 at 4K HDR, T = 1 (the served path: one output a call) and
     T = 3, beside the chain it replaced (K2's raw_blend variant, then K5) on
     the same inputs: graph-timed device ms in turns (fused, chain, chain,
     fused; random flow; smooth flow for the fused call), host us per call of
     each, the plain version's ms (CUDA events), an empty launch of its one
-    grid (graph-timed) and the bound."""
+    grid (graph-timed) and the bound; with variants, MODE3_VARIANTS too."""
     wk, b = port.warp_kernel, port._build
     index = inp.src[0].get_device()
     random, smooth = inp.flows["random +-64"], inp.flows["smooth"]
@@ -1421,7 +1357,8 @@ def mode3_numbers(port, inp) -> dict:
                       "chain_ms": chain_ms,
                       "chain_host_us": host_us(call(random, chain_kernel), 20),
                       "turns_ms": turns, "vs_chain": fused_ms / chain_ms,
-                      "vs_bound": fused_ms / bound_ms, "variants": mode3_variants(port, inp, ts)}
+                      "vs_bound": fused_ms / bound_ms,
+                      "variants": mode3_variants(port, inp, ts) if variants else None}
     return out
 
 
@@ -2984,12 +2921,6 @@ def main(argv: list[str]) -> int:
                              "7a's kernel numbers, P3's and P4's of 8c, and the host split of a "
                              "wrapper call), whichever hopperrender_tpu_torch sits beside this "
                              "script: a copy of it in an older tree times that tree's kernels")
-    parser.add_argument("--served-wall", nargs="?", const="keep", choices=("keep", "drop"),
-                        help="run phases 1 and 2, then phase 5's served stream alone, twice, "
-                             "each on a new FrameServer: its wall and flow time in a process "
-                             "that ran nothing else, whichever hopperrender_tpu_torch sits "
-                             "beside this script; keep (the default) holds the outputs to the "
-                             "stream's end as phase 5 does, drop releases them a frame")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs a CUDA card",
@@ -3035,9 +2966,6 @@ def main(argv: list[str]) -> int:
         return finish(port, [{"name": name, "bench_launches": {run: n[name] for run, n in
                                                                 launches.items()}}
                              for name in FLOW_KERNELS + ("warp_frames",)], card, kind)
-    if args.served_wall:
-        served_wall(port, dev, card, args.served_wall)
-        return 0
     if args.kernel_times:
         inp = k2_inputs(port, dev)
         numbers = kernel_numbers(port, inp)
@@ -3048,7 +2976,7 @@ def main(argv: list[str]) -> int:
             numbers["hsv_flow_overlay"] = hsv_numbers(port, inp)
             log(f"K5 times [{card}] of {ROOT}: {format_hsv(numbers['hsv_flow_overlay'])}")
         if 3 in getattr(warp_kernel, "KERNEL_MODES", ()):
-            numbers["warp_frames_mode3"] = mode3_numbers(port, inp)
+            numbers["warp_frames_mode3"] = mode3_numbers(port, inp, variants=True)
             log(f"K2 mode 3 times [{card}] of {ROOT}: "
                 f"{format_mode3(numbers['warp_frames_mode3'])}")
         numbers["wrapper_split_us"] = wrapper_split(port, dev)
@@ -3178,31 +3106,43 @@ def main(argv: list[str]) -> int:
         f"{n_cases} more geometries (rs 1-3, ragged rows, row offsets, the int16 range, 1080p "
         f"SDR); max |err| {hsv_err}")
 
-    # -- 4d. K2's mode 3 against its plain version --------------------------------
-    mode3_err, n_mode3, mode3_launches_4d = mode3_parity(port, dev, inp)
-    torch.cuda.synchronize()
-    log(f"phase 4d K2 mode 3 (the HSV flow overlay in K2's epilogue, one launch): {n_mode3} "
-        f"outputs equal to the plain version ({W}x{H} HDR on {', '.join(flows)} flow at T = 1 "
-        f"and 3, also equal to K2 raw_blend + K5; the row bands at n = "
-        f"{', '.join(map(str, MODE3_BAND_SHARDS))}, each against its plain band and stacked "
-        f"against the full frame; {len(MODE3_CASES)} more geometries (rs 1-3 at 50 x 86 with "
-        f"bands of n = 3, t outside [0, 1], the int16 range, 1080p SDR at rs 2); every (ox, oy) "
-        f"in +-512 as a flow cell at rs 0, SDR and HDR), {mode3_launches_4d} launches; max "
-        f"|err| {mode3_err}")
-
     # -- 5. served slice ----------------------------------------------------------
-    settings = dict(SERVED_SETTINGS)
-    frames = served_frames(port, 10 + N_PROFILED)   # 10 served and checked, then the profiled
-    r16 = config.MAX_SEARCH_RADIUS
+    settings = dict(target_fps=60.0, use_display_fps=False, frame_output=2, black_level=16,
+                    white_level=235, auto_quality=False)
+    frame_rng = np.random.default_rng(0)
+    frames = []
+    for i in range(10 + N_PROFILED):   # 10 served and checked, then the profiled ones
+        y, uv = port.nv12.synthetic_frame(frame_rng, H, W, is_hdr=True, motion_x=3 * i)
+        frames.append((y & P010_MASK, uv & P010_MASK))
 
     def new_server():
         return port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev,
                                 settings=port.Settings(**settings))
 
+    def serve(srv, frames, radius=config.MAX_SEARCH_RADIUS):
+        """Frames through srv at this search radius: the outputs, and for each
+        source frame that ran flow, push_frame's wall seconds (host clock) and
+        the engine's flow time; warp and copy times per output."""
+        outs, wall_s, flow_s, warp_s, copy_s = [], [], [], [], []
+        for y, uv in frames:
+            if srv.engine is not None:
+                srv.engine.search_radius = radius
+            start = time.perf_counter()
+            got = srv.push_frame(y, uv)
+            wall = time.perf_counter() - start
+            eng = srv.engine
+            if eng.frame_count >= 3:
+                wall_s.append(wall)
+                flow_s.append(eng.ofc_time.current)
+            for o in got:
+                (warp_s if o.interpolated else copy_s).append(eng.warp_time.current)
+            outs.extend(got)
+        return outs, wall_s, flow_s, warp_s, copy_s
+
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches(port)
     srv = new_server()
-    outs, wall_s, flow_s, warp_s, copy_s = serve(srv, frames[:10], r16)
+    outs, wall_s, flow_s, warp_s, copy_s = serve(srv, frames[:10])
     torch.cuda.synchronize()
     launches = read_launches(port)
     peak_bytes = torch.cuda.max_memory_allocated(dev)
@@ -3222,7 +3162,7 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"search radius {srv.metrics().search_radius}, not 16")
 
     with plain_versions(port):
-        plain_outs = serve(new_server(), frames[:10], r16)[0]
+        plain_outs = serve(new_server(), frames[:10])[0]
     if read_launches(port) != launches:
         raise AssertionError("the plain-version stream launched a kernel")
     require_same_stream(outs, plain_outs, "mode 2")
@@ -3251,7 +3191,7 @@ def main(argv: list[str]) -> int:
             return port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev, settings=st)
 
         reset_launches(port)
-        vouts, _, _, vwarp_s, _ = serve(viz_server(), frames[:n_frames], r16)
+        vouts, _, _, vwarp_s, _ = serve(viz_server(), frames[:n_frames])
         torch.cuda.synchronize()
         got = read_launches(port)
         viz_launches[mode] = got
@@ -3264,7 +3204,7 @@ def main(argv: list[str]) -> int:
             raise AssertionError(f"mode {mode}: {len(vouts)} outputs (cadence {expected}), "
                                  f"{sum(o.interpolated for o in vouts)} interpolated")
         with plain_versions(port):
-            plain_vouts = serve(viz_server(), frames[:n_frames], r16)[0]
+            plain_vouts = serve(viz_server(), frames[:n_frames])[0]
         if read_launches(port) != got:
             raise AssertionError(f"mode {mode}: the plain-version stream launched a kernel")
         require_same_stream(vouts, plain_vouts, f"mode {mode}")
@@ -3318,7 +3258,7 @@ def main(argv: list[str]) -> int:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        serve(srv, frames[10:], r16)
+        serve(srv, frames[10:])
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - start
     busy_s, n_events, kinds = device_profile(prof, prof_wall)
@@ -3372,6 +3312,20 @@ def main(argv: list[str]) -> int:
         f"{format_l2(l2)}, int32 operations over {INT32_OPS_PER_S / 1e12:.2f} TOP/s): "
         + format_cost_volume(cost_volume))
 
+    # -- 4d. K2's mode 3 against its plain version --------------------------------
+    # It runs after phase 6, so that phases 5 and 6 measure the served stream
+    # in the process state they had before K2 took mode 3.
+    mode3_err, n_mode3, mode3_launches_4d = mode3_parity(port, dev, inp)
+    torch.cuda.synchronize()
+    log(f"phase 4d K2 mode 3 (the HSV flow overlay in K2's epilogue, one launch): {n_mode3} "
+        f"outputs equal to the plain version ({W}x{H} HDR on {', '.join(inp.flows)} flow at T "
+        f"= 1 and 3, also equal to K2 raw_blend + K5; the row bands at n = "
+        f"{', '.join(map(str, MODE3_BAND_SHARDS))}, each against its plain band and stacked "
+        f"against the full frame; {len(MODE3_CASES)} more geometries (rs 1-3 at 50 x 86 with "
+        f"bands of n = 3, t outside [0, 1], the int16 range, 1080p SDR at rs 2); every (ox, oy) "
+        f"in +-512 as a flow cell at rs 0, SDR and HDR), {mode3_launches_4d} launches; max "
+        f"|err| {mode3_err}")
+
     # -- 7. the parallel path -----------------------------------------------------
     band_entry, parallel_flow_launches = parallel_path(port, dev, card)
 
@@ -3410,8 +3364,9 @@ def main(argv: list[str]) -> int:
         {"name": "warp_frames_raw_blend", "route": "cuda",
          "source": "hopperrender_tpu_torch/csrc/warp_frame.cu",
          "replaces": "hopperrender_tpu/ops/warp_band.py:695 (variant raw_blend)",
-         "launches": raw_launches_4b, "launches_path": "4b parity (off the served path)",
-         "main_path_launches": viz_launches[3]["warp_frames_raw_blend"],
+         "launches": viz_launches[3]["warp_frames_raw_blend"],
+         "launches_path": "5b served mode 3 (off the served path since K2's mode 3)",
+         "parity_launches": raw_launches_4b,
          "band_launches": parallel_flow_launches["band_raw"], "max_abs_err": raw_err},
     ]
     for k in kernels[:2]:   # K1 and K2 in the CLI's processes (9a) and the bench's runs (10a)
@@ -3450,17 +3405,18 @@ def main(argv: list[str]) -> int:
         "band_launches": parallel_flow_launches["band_mode3"],
         "mesh_launches": parallel_flow_launches["mesh_mode3"]})
     # K5: ms, plain_ms, host_us and the bound at T = 1 (t3: at T = 3); off
-    # the served path since K2's mode 3, so `launches` are 4c's (its parity)
-    # beside the served paths' (0) and 7a's raw_blend bands'; grid_ms an
-    # empty launch of its two grids. library_ms is null: no single PyTorch
-    # call computes fdlibm's atan2 and this colour.
+    # the served path since K2's mode 3, so `launches` (the served mode-3
+    # path's, 5b) are 0, beside 4c's (its parity) and 7a's raw_blend bands';
+    # grid_ms an empty launch of its two grids. library_ms is null: no single
+    # PyTorch call computes fdlibm's atan2 and this colour.
     kernels.append({
         "name": "hsv_flow_overlay", "route": "cuda",
         "source": "hopperrender_tpu_torch/csrc/hsv_overlay.cu",
         "replaces": "no pallas_call: hopperrender_tpu/ops/warp_viz.py:54 (XLA)",
-        "launches": hsv_launches_4c, "launches_path": "4c parity (off the served path)",
-        "main_path_launches": viz_launches[3]["hsv_flow_overlay"],
-        "max_abs_err": hsv_err, "ms": hsv["T1"]["ms"], "smooth_ms": hsv["T1"]["smooth_ms"],
+        "launches": viz_launches[3]["hsv_flow_overlay"],
+        "launches_path": "5b served mode 3 (off the served path since K2's mode 3)",
+        "parity_launches": hsv_launches_4c, "max_abs_err": hsv_err, "ms": hsv["T1"]["ms"],
+        "smooth_ms": hsv["T1"]["smooth_ms"],
         "plain_ms": hsv["T1"]["plain_ms"], "bound_ms": hsv["T1"]["bound_ms"],
         "bound_by": hsv["T1"]["bound_by"], "library_ms": None, "host_us": hsv["T1"]["host_us"],
         "grid_ms": hsv["T1"]["grid_ms"], "t3": hsv["T3"],

@@ -107,11 +107,10 @@
 // held to 64 registers (4 blocks an SM), the colour's code spilling a few
 // bytes: left to itself it takes 78-82 and runs about 1.6x slower. What
 // bounds it: the bytes of both sources' Y planes, the flow and both output
-// planes (at 4K HDR T = 1, 58.6 MB: 17.5 us at 3.35 TB/s). Timed in variants
-// (hrt_warp_mode3_probe, PERF.md), what keeps it above that is K2's own Y
-// gather (without the colour it takes three quarters of its time) and the
-// barrier's wait for the colour; a colour made a run, without the barrier,
-// is slower.
+// planes (at 4K HDR T = 1, 58.6 MB: 17.5 us at 3.35 TB/s). Timed without
+// the colour (hrt_warp_mode3_probe, PERF.md), what keeps it above that is
+// K2's own Y gather (three quarters of its time) and the barrier's wait for
+// the colour; a colour made a run, without the barrier, was slower.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -463,15 +462,14 @@ constexpr int kBlockX = 32, kBlockY = 8;
 // tiles of kBlockX runs x kBlockY rows, row-major over blocks_x_y tiles a row;
 // the rest take the UV plane's, blocks_x_uv tiles a row. Y runs are
 // 1 << shift_y samples (kRunY > 0: compiled for kRunY), UV runs 1 << shift_uv.
-// kMinBlocks: the blocks an SM must hold (__launch_bounds__), which caps the
-// registers: 4 blocks of 256 threads, at most 64 registers a thread, as K2's
-// mode 2 uses; left uncapped the colour's code takes 78 and more, and an SM
-// holds 2 or 3 blocks, too few loads in flight (timed, PERF.md). kVariant
-// (timing variants, hrt_warp_mode3_probe; 0 on the path): 1 the colour made
-// a run, by every thread, with no barrier; 2 no colour (no barrier; the
-// warp and the bytes alone).
-template <typename T, int kRunY, int kVariant = 0, int kMinBlocks = 4>
-__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) warp_mode3_kernel(
+// __launch_bounds__ asks for 4 blocks of 256 threads an SM, which caps the
+// registers at 64 a thread, as K2's mode 2 uses; left uncapped the colour's
+// code takes 78 and more, and an SM holds 2 or 3 blocks, too few loads in
+// flight (timed, PERF.md). kColour false (a timing variant,
+// hrt_warp_mode3_probe) makes no colour and waits at no barrier: the warp
+// and the bytes alone.
+template <typename T, int kRunY, bool kColour = true>
+__global__ void __launch_bounds__(kBlockX * kBlockY, 4) warp_mode3_kernel(
     const T* __restrict__ src12, const T* __restrict__ src21,
     const int16_t* __restrict__ flow, const float* __restrict__ ts, int n_t,
     T* __restrict__ out_y, T* __restrict__ out_uv, int dim_y, int dim_x, Band band, int low_h,
@@ -509,7 +507,6 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) warp_mode3_kern
   const bool leader = (threadIdx.x == 0 || cell_of(x0 - run) != cell_x)
                       && (threadIdx.y == 0 || ((cy - 1) >> rs) != cell_y);
   int ox12 = 0, oy12 = 0, ox21 = 0, oy21 = 0;
-  uint32_t own = 0;   // the colour word a leader (in variant 1 every run) makes
   if (active) {
     const int scx = clamp_hi(uv ? cell_x << 1 : cell_x, 0, low_w - 1);
     const int scy = clamp_hi(uv ? cell_y << 1 : cell_y, 0, low_h - 1);
@@ -524,22 +521,21 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) warp_mode3_kern
       oy21 = flow_y[bcy * low_w + bcx];
     }
     // the colour of the cell's negated flow12, once a block (by its leader)
-    if (kVariant != 2 && (leader || kVariant == 1)) {
+    if (kColour && leader) {
       const Rgb c = flow_rgb(negate16(static_cast<int16_t>(ox12)),
                              negate16(static_cast<int16_t>(oy12)), rs <= 2 ? 4.0f : 1.0f);
       if (uv) {
         const uint32_t lu = level_uv(kHdr ? chroma_u(c) << 8 : chroma_u(c), white, kPeak, kMid);
         const uint32_t lv = level_uv(kHdr ? chroma_v(c) << 8 : chroma_v(c), white, kPeak, kMid);
-        own = kHdr ? lu | lv << 16 : (lu | lv << 8) * 0x00010001u;
+        colour[entry] = kHdr ? lu | lv << 16 : (lu | lv << 8) * 0x00010001u;
       } else {
-        own = static_cast<uint32_t>(kHdr ? luma(c) << 7 : luma(c) >> 1);
+        colour[entry] = static_cast<uint32_t>(kHdr ? luma(c) << 7 : luma(c) >> 1);
       }
-      if (kVariant == 0) colour[entry] = own;
     }
   }
-  if (kVariant == 0) __syncthreads();
+  if (kColour) __syncthreads();
   if (!active) return;
-  const uint32_t word = kVariant == 0 ? colour[entry] : own;
+  const uint32_t word = kColour ? colour[entry] : 0u;
   const int n = min(run, dim_x - x0);   // the ragged tail of a row has fewer
   const size_t t_stride = static_cast<size_t>(rows) * dim_x;
   const size_t at = static_cast<size_t>(band_y) * dim_x + x0;
@@ -561,7 +557,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) warp_mode3_kern
 }
 
 // Mode 3's one launch: the Y tiles, then the UV tiles, in one grid.
-template <typename T, int kVariant = 0, int kMinBlocks = 4>
+template <typename T, bool kColour = true>
 cudaError_t launch_mode3(const void* s12y, const void* s21y, const int16_t* flow,
                          const float* ts, int n_t, void* out_y, void* out_uv, int dim_y,
                          int dim_x, const Band& band, int low_h, int low_w, int rs, float black,
@@ -583,11 +579,11 @@ cudaError_t launch_mode3(const void* s12y, const void* s21y, const int16_t* flow
         shift_y, shift_uv, n_y_blocks, blocks_x_y, blocks_x_uv, black, white);
     return cudaGetLastError();
   };
-  if (shift_y == 3) return go(warp_mode3_kernel<T, 8, kVariant, kMinBlocks>);
+  if (shift_y == 3) return go(warp_mode3_kernel<T, 8, kColour>);
   if constexpr (sizeof(T) == 1) {
-    if (shift_y == 4) return go(warp_mode3_kernel<T, 16, kVariant, kMinBlocks>);
+    if (shift_y == 4) return go(warp_mode3_kernel<T, 16, kColour>);
   }
-  return go(warp_mode3_kernel<T, 0, kVariant, kMinBlocks>);
+  return go(warp_mode3_kernel<T, 0, kColour>);
 }
 
 // One plane: runs of 1 << shift samples, compiled for 8 samples (HDR) or 8
@@ -706,27 +702,19 @@ extern "C" int hrt_warp_frames(const void* src12_y, const void* src12_uv,
   return static_cast<int>(err);
 }
 
-// Timing variants of K2's mode 3, HDR, the whole frame, res_scalar >= 3 (runs
-// of 8): 0 as on the path; 1 the colour made a run, no barrier; 2 no colour;
-// 3 the path uncapped (1 block an SM: the registers the code asks for).
-// The arguments are hrt_warp_frames' without the band, mode and raw_blend.
+// A timing variant of K2's mode 3, HDR, the whole frame, res_scalar >= 3
+// (runs of 8): 0 as on the path; 1 no colour. The arguments are
+// hrt_warp_frames' without the band, mode and raw_blend.
 extern "C" int hrt_warp_mode3_probe(int variant, const void* src12_y, const void* src21_y,
                                     const void* flow, const void* ts, int n_t, void* out_y,
                                     void* out_uv, int dim_y, int dim_x, int low_h, int low_w,
                                     int res_scalar, float black, float white, void* stream) {
-  if (variant < 0 || variant > 3 || res_scalar < 3) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* f = static_cast<const int16_t*>(flow);
-  const auto* t = static_cast<const float*>(ts);
-  const auto s = static_cast<cudaStream_t>(stream);
+  if (variant < 0 || variant > 1 || res_scalar < 3) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = variant == 0 ? launch_mode3<uint16_t, true>
+                                    : launch_mode3<uint16_t, false>;
   const Band band{0, dim_y, 0, dim_y / 2};
-  const auto go = [&](auto launch) {
-    return static_cast<int>(launch(src12_y, src21_y, f, t, n_t, out_y, out_uv, dim_y, dim_x,
-                                   band, low_h, low_w, res_scalar, black, white, s));
-  };
-  switch (variant) {
-    case 0: return go(launch_mode3<uint16_t, 0, 4>);
-    case 1: return go(launch_mode3<uint16_t, 1, 4>);
-    case 2: return go(launch_mode3<uint16_t, 2, 4>);
-    default: return go(launch_mode3<uint16_t, 0, 1>);
-  }
+  return static_cast<int>(launch(src12_y, src21_y, static_cast<const int16_t*>(flow),
+                                 static_cast<const float*>(ts), n_t, out_y, out_uv, dim_y, dim_x,
+                                 band, low_h, low_w, res_scalar, black, white,
+                                 static_cast<cudaStream_t>(stream)));
 }

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only:
                                             # K1, K2, the band, K5, K2's mode 3 beside
                                             # K2 raw_blend + K5 and without its colour,
+                                            # K2's modes 4-6 beside their compositions,
                                             # K3, K4, the pyramid
                                             # step (flow_step), P1-P4 and the L2 read
                                             # rate, P1/P2 on the probe path on 1 and
@@ -57,6 +58,15 @@ sm_90a), then runs these phases, one line each:
      whose cells run through every (ox, oy) in +-512, SDR and HDR. It runs
      after phase 6, so that phases 5 and 6 measure the served stream in the
      process state they had before K2 took mode 3;
+     4e. K2's modes 4, 5 and 6 (one launch each) against their plain version
+     and against the composition each replaced (K2's mode 2 and
+     warp_viz.side_by_side_1 / side_by_side_2; mode 4 grey_flow_frame),
+     exact: 4K HDR on the three flows at T = 1 and 3; the row bands at n =
+     2, 4 and 8 against their plain bands and stacked against the full
+     frame; rs 1-3 at 50 x 86 (an odd half: mode 5's runs straddle it, mode
+     6's V columns take the m_off path; bands of n = 3, t outside [0, 1],
+     the int16 range), 1080p SDR at rs 2, and rs 0 with flow cells to
+     +-32767. It runs after phase 6, as 4d does;
   5. the served slice: FrameServer at 3840x2160 HDR, 24 -> 60, mode 2, levels
      16/235, search radius 16, ten panning frames through the kernels; the
      output count against the cadence controller's, the kernels' launch
@@ -67,8 +77,9 @@ sm_90a), then runs these phases, one line each:
      5b. served mode 3 (HSV flow) the same way: ten frames through K1,
      flow_step and K2's mode 3 (no raw_blend, no K5 launched; the
      plain-version stream launches nothing);
-     5c. served modes 4, 5 and 6, six frames each (mode 4 runs K1 and
-     flow_step only, modes 5/6 K2 too);
+     5c. served modes 4, 5 and 6, six frames each: K1, flow_step and K2 in
+     the mode, exactly one K2 launch an interpolated output, and no mode-2
+     (or mode-3) K2 launch;
      5d. served mode 3 at 4K HDR with the quality scaler on, 30 panning
      frames: the radius, the cadence state and the engine compute (flow +
      warps, what the scaler reads) of each source frame, and its
@@ -90,7 +101,12 @@ sm_90a), then runs these phases, one line each:
      and the chain's, its plain version, an empty launch of its one grid,
      its bound (both sources' Y planes and the flow read, both planes
      written; operations counted from its code) and its ratios to the bound
-     and to the chain; K5 at 4K HDR on K2's raw blend, T = 1 and 3, graph-timed on
+     and to the chain; K2's modes 4, 5 and 6 at 4K HDR, T = 1 and 3,
+     graph-timed in turns with an empty launch of their grid, with host us a
+     call, the plain version, the bound and the composition each replaced
+     (CUDA events over back-to-back calls, the kernel's beside it: the
+     composition copies scalars to the card, which a CUDA graph cannot
+     capture); K5 at 4K HDR on K2's raw blend, T = 1 and 3, graph-timed on
      random and smooth flow, with its host us a call, its plain version, an
      empty launch of its two grids and its bound (the raw Y plane and the
      flow read, both planes written; operations counted from its code); and
@@ -126,15 +142,17 @@ sm_90a), then runs these phases, one line each:
      (pyramid_flow + K2), and against the same run on the plain versions;
      K1, flow_step and K2 must each have launched; then in mode 3, each
      output against the single-stream K2 mode 3 (K2's mode 3 must have
-     launched, and neither K5, the raw_blend variant nor mode 2);
+     launched, and neither K5, the raw_blend variant nor mode 2); in modes
+     4, 5 and 6, one K2 launch in the mode a stream and step, each output
+     against the single-stream warp_outputs;
      7c. make_multichip_step through launch.run_ranks at 4K HDR, rs 3, modes
      2-6, t_batch 3, on meshes (1, 2) and (2, 1) of ranks sharing this card
      over gloo (and (1, 4), (2, 2) over NCCL where four cards are visible):
      each rank writes its outputs to an .npz, held byte for byte to 7b's
      single-device results (modes 3-6: warp_viz.warp_outputs on the full
-     frame); every rank must have launched the band kernel in modes 2, 5
-     and 6, its mode 3 in mode 3 (and in no other mode), and no band in
-     mode 4, the
+     frame); every rank must have launched the band kernel once a step in
+     each mode, on that mode's counter (modes 0-2, 3, 4-6) and on no other,
+     the
      standalone K3 and K4 (the mesh gathers the layer shards between them)
      in every mode, and no
      rank may load a module of jax or of the JAX package. Its numbers: each
@@ -217,10 +235,14 @@ at T = 3, `grid_ms`, its `launches` those of the served mode-3 path (5b;
 0 since K2's mode 3) beside 5d's, 4c's (`parity_launches`) and 7a's; K2's
 mode 3 (`warp_frames_mode3`) the same at T = 1 and 3, with `chain_ms` (K2
 raw_blend + K5 on the same inputs) and `vs_chain`, its `launches` in 5b
-beside 5d's, 4d's, 7b's, 7a's and 7c's; K2 raw_blend's `launches` those of
+beside 5d's, 4d's, 7b's, 7a's and 7c's; K2's modes 4, 5 and 6
+(`warp_frames_mode4` .. `mode6`) the same at T = 1 and 3, with
+`composition_ms` (the composition each replaced, CUDA events) beside
+`events_ms`, `launches` those of the served mode (5c) beside 4e's, 7b's
+and 7c's; K2 raw_blend's `launches` those of
 5b (0) beside 4b's (`parity_launches`) and 7a's bands'; the band's
-`launches` over 7c's modes 2, 5 and 6, and `launches_by_mode` (mode 3:
-its mode 3's); for the probes `ms`
+`launches` 7c's in mode 2, and `launches_by_mode` (each mode's own
+counter); for the probes `ms`
 summed over the variants, graph-timed, P1/P2's bound beside the bound
 without its L2 term (`bound_ms_without_l2`) and each variant's ms and
 bound, `host_us` and `library_host_us` the means over the variants,
@@ -457,6 +479,7 @@ def device_profile(prof, wall_s: float) -> tuple[float, int, dict[str, float]]:
         kind = ("K1 blur_flow" if "blur_flow_kernel" in name else
                 "K2 warp" if "warp_plane_kernel" in name else
                 "K2 mode 3" if "warp_mode3_kernel" in name else
+                "K2 modes 4-6" if "warp_viz_kernel" in name else
                 "K3 delta_sums" if "delta_sums_kernel" in name else
                 "K3's fill" if "fill_sums_kernel" in name else
                 "K4 commit_winners" if "commit_winners_kernel" in name else
@@ -920,9 +943,11 @@ def launch_counters(port) -> dict:
     return {"blur_flow": (port.blur_kernel.blur_flow, "launches"),
             "warp_frames": (wk.warp_frames, "launches"),
             "warp_frames_mode3": (wk.warp_frames, "mode3_launches"),
+            "warp_frames_viz": (wk.warp_frames, "viz_launches"),
             "warp_frames_raw_blend": (wk.warp_frames, "raw_launches"),
             "warp_frames_band": (wk.warp_frames_band, "launches"),
             "warp_frames_band_mode3": (wk.warp_frames_band, "mode3_launches"),
+            "warp_frames_band_viz": (wk.warp_frames_band, "viz_launches"),
             "flow_step": (cv.flow_step, "launches"),
             "delta_sums": (cv.delta_sums, "launches"),
             "commit_winners": (cv.commit_winners, "launches"),
@@ -1372,6 +1397,210 @@ def format_mode3(numbers: dict) -> str:
         f"{v['chain_ms']:.5f} ms, host {v['chain_host_us']:.1f} us/call; fused / chain "
         f"{v['vs_chain']:.3f}" + ("" if not v.get("variants") else "; variants " + ", ".join(
             f"{name} {ms:.5f}" for name, ms in v["variants"].items()))
+        for label, v in numbers.items())
+
+
+# -- K2's modes 4, 5 and 6 ------------------------------------------------------
+
+VIZ_MODES = (4, 5, 6)
+VIZ_NAMES = {4: "warp_frames_mode4", 5: "warp_frames_mode5", 6: "warp_frames_mode6"}
+
+
+def viz_composition(port, mode: int, args, res_scalar: int, is_hdr: bool):
+    """Modes 4-6 as they were served before K2 took them: the grey flow of
+    ops/warp_viz.grey_flow_frame (expanded over T), or K2's mode 2 then
+    warp_viz.side_by_side_1 / side_by_side_2."""
+    wv, wk = port.warp_viz, port.warp_kernel
+    s12y, s12uv, s21y, s21uv, flow, ts, black, white = args
+    kw = dict(res_scalar=res_scalar, is_hdr=is_hdr)
+    if mode == 4:
+        y, uv = wv.grey_flow_frame(flow, dim_y=s12y.shape[0], dim_x=s12y.shape[1], **kw)
+        return y.expand(len(ts), -1, -1), uv.expand(len(ts), -1, -1)
+    y, uv = wk.warp_frames(*args, mode=2, **kw)
+    if mode == 5:
+        return wv.side_by_side_1(s12y, s12uv, y, uv)
+    return wv.side_by_side_2(s12y, s12uv, s21uv, y, uv, flow, ts, white, **kw)
+
+
+def viz_blocks(mode: int, dim_y: int, dim_x: int, res_scalar: int, is_hdr: bool) -> int:
+    """The blocks of K2's grid in mode 4, 5 or 6 (csrc/warp_frame.cu,
+    launch_viz): the Y plane's tiles of HSV_BLOCK runs, then the UV plane's."""
+    max_shift = 3 if is_hdr else 4
+    runs = lambda width, shift: -(-width >> shift)   # noqa: E731
+    half = dim_x >> 1
+    bx, by = HSV_BLOCK
+    blocks = 0
+    for plane_h, uv in ((dim_y, 0), (dim_y // 2, 1)):
+        if mode == 6:
+            shift_r = min(res_scalar, max_shift) if uv else max(0, min(res_scalar - 1, max_shift))
+            n_runs = runs(half, max_shift) + runs(dim_x - half, shift_r)
+        else:
+            shift = max_shift if mode == 4 and uv else min(res_scalar + uv, max_shift)
+            n_runs = runs(dim_x, shift)
+        blocks += -(-n_runs // bx) * -(-plane_h // by)
+    return blocks
+
+
+# Operations per output element of modes 4-6, counted from csrc/warp_frame.cu:
+# a store (mode 4's UV, a fill, a copied sample) is one; mode 4's Y grey is
+# its cell's lookup and |ox| + |oy|, shift and cap, shared by a run, and a
+# store; a warped output (mode 5's right half, mode 6's right half in the
+# band) is mode 2's (OPS_PER_ELEMENT["warp_frames"]).
+VIZ_STORE_OPS = 1
+
+
+def viz_bound(mode: int, src, flow, ts) -> tuple[float, str]:
+    """Bound of one call of K2 in mode 4, 5 or 6 at these inputs: it writes
+    both output planes for each t and reads what its outputs need once. Mode
+    4 reads the flow only. Mode 5 reads source 1 whole (its left half is
+    copied, its right half warped) and source 2's right half, and the flow.
+    Mode 6 reads half of each source (its band shows every other row: source
+    1's even rows on the left, both sources' even rows under the right half's
+    warp) and the flow. Operations: VIZ_STORE_OPS a store, mode 2's a warped
+    output."""
+    h, w = src[0].shape
+    n_t, plane = ts.shape[0], src[0].numel() + src[1].numel()
+    written = n_t * nbytes(src[0], src[1])
+    one = nbytes(src[0], src[1])
+    read = {4: 0, 5: one + one // 2, 6: one}[mode] + nbytes(flow, ts)
+    warped = {4: 0, 5: plane - plane // 2, 6: plane // 4}[mode]
+    ops = n_t * (warped * OPS_PER_ELEMENT["warp_frames"] + (plane - warped) * VIZ_STORE_OPS)
+    return roofline(written + read, ops, OPS_PER_S)
+
+
+# 4e's small cases: (h, w, res_scalar, is_hdr, ts, flow magnitude). 50 x 86 at
+# rs 1-3: the half (43) is odd, so mode 5's runs straddle it and mode 6's V
+# columns take side_by_side_2's m_off path; ragged rows, rows off 16 bytes;
+# SDR and HDR; t outside [0, 1] (the blend's other conversion); the int16
+# range. 1080p SDR at rs 2. A 64 x 128 flow grid at rs 0 whose cells reach
+# +-32767 (and -32768), SDR and HDR.
+VIZ_CASES = [(50, 86, 1, False, (0.2, 0.6, 1.0), 64), (50, 86, 1, True, (-0.25, 0.5, 1.5), 64),
+             (50, 86, 2, False, (0.0, 0.5, 1.0), 32768), (50, 86, 2, True, (0.4,), 64),
+             (50, 86, 3, False, (-0.5, 0.3, 1.25), 64), (50, 86, 3, True, (0.2, 0.6, 1.0), 32768),
+             (1080, 1920, 2, False, (0.2, 0.6, 1.0), 64),
+             (64, 128, 0, False, (0.3, 0.9), 32768), (64, 128, 0, True, (0.7,), 32768)]
+VIZ_BAND_SHARDS = (2, 4, 8)   # 4e's row bands at 4K HDR
+
+
+def viz_parity(port, dev, inp) -> tuple[int, int, int]:
+    """4e: K2's modes 4, 5 and 6 against their plain version (ops/warp.warp_frame
+    in each mode) and the composition they replace (viz_composition), exactly:
+    4K HDR on the three flows at T = 1 and 3; the row bands at n = 2, 4 and 8
+    (each against its plain band, stacked against the full frame); VIZ_CASES
+    (the 50-row ones also as bands of n = 3). Returns (max |err|, outputs
+    compared, the kernel's launches)."""
+    wk = port.warp_kernel
+    err, outputs = 0, 0
+    launches_before = wk.warp_frames.viz_launches + wk.warp_frames_band.viz_launches
+
+    def check(got, want, what):
+        nonlocal err
+        err = max(err, require_equal(got[0], want[0], what + " Y"),
+                  require_equal(got[1], want[1], what + " UV"))
+
+    def bands(args, n, kw, full, what):
+        parts = []
+        for shard in range(n):
+            got = wk.warp_frames_band(*args, num_shards=n, shard_index=shard, **kw)
+            check(got, wk.warp_frames_band_reference(*args, num_shards=n, shard_index=shard,
+                                                     **kw), f"{what} band n {n} shard {shard}")
+            parts.append(got)
+        for cz, plane_h in enumerate((args[0].shape[0], args[1].shape[0])):
+            stacked = torch.cat([b[cz] for b in parts], 1)
+            require_equal(stacked[:, :plane_h], full[cz], f"{what} bands n {n} stacked, plane {cz}")
+            if stacked.shape[1] > plane_h and as_int32(stacked[:, plane_h:]).any():
+                raise AssertionError(f"{what} bands n {n}: rows past plane {cz} are not 0")
+
+    def case(args, rs, is_hdr, what, shards=()):
+        nonlocal outputs
+        for mode in VIZ_MODES:
+            kw = dict(res_scalar=rs, mode=mode, is_hdr=is_hdr)
+            got = wk.warp_frames(*args, **kw)
+            check(got, wk.warp_frames_reference(*args, **kw), f"K2 mode {mode} {what}")
+            check(got, viz_composition(port, mode, args, rs, is_hdr),
+                  f"K2 mode {mode} {what} against the composition")
+            for n in shards:
+                bands(args, n, kw, got, f"K2 mode {mode} {what}")
+            outputs += len(args[5])
+
+    for flow_name, fl in inp.flows.items():
+        for ts in (inp.t1, inp.t3):
+            case((*inp.src, fl, ts, inp.black, inp.white), 3, True,
+                 f"4K HDR {flow_name} T {len(ts)}",
+                 VIZ_BAND_SHARDS if flow_name == "random +-64" and len(ts) == 3 else ())
+    rng = np.random.default_rng(23)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for h, w, rs, is_hdr, ts, mag in VIZ_CASES:
+        y, uv = random_planes(gen, 2, h, w, is_hdr, dev)
+        low = (2, -(-h >> rs), -(-w >> rs))
+        flow = torch.tensor(rng.integers(-mag, mag, low, endpoint=mag < 32768).astype(np.int16),
+                            device=dev)
+        t = torch.tensor(ts, dtype=torch.float32, device=dev)
+        case((y[0], uv[0], y[1], uv[1], flow, t, *hsv_levels(is_hdr)), rs, is_hdr,
+             f"{h}x{w} rs {rs} {'HDR' if is_hdr else 'SDR'} t {ts}", (3,) if h == 50 else ())
+    launches = wk.warp_frames.viz_launches + wk.warp_frames_band.viz_launches
+    return err, outputs, launches - launches_before
+
+
+def viz_numbers(port, inp) -> dict:
+    """K2's modes 4, 5 and 6 at 4K HDR, T = 1 (the served path: one output a
+    call) and T = 3, on random +-64 flow: graph-timed device ms in turns with
+    an empty launch of its grid (kernel, grid, grid, kernel), smooth flow, host
+    us per call, the plain version's ms (CUDA events), and the composition it
+    replaced (viz_composition: plain PyTorch around K2's mode 2, which a CUDA
+    graph cannot capture: it copies scalars to the card) beside the kernel,
+    both with CUDA events over back-to-back calls in turns (kernel,
+    composition, composition, kernel), host gaps included; the bound."""
+    wk, b = port.warp_kernel, port._build
+    index = inp.src[0].get_device()
+    random, smooth = inp.flows["random +-64"], inp.flows["smooth"]
+    out = {}
+    for mode in VIZ_MODES:
+        blocks = viz_blocks(mode, H, W, 3, True)
+
+        def empty_grid():
+            b.launch("hrt_empty_grid", index, blocks, 1, *HSV_BLOCK)
+
+        for label, ts in (("T1", inp.t1), ("T3", inp.t3)):
+            def call(fl, fn=wk.warp_frames):
+                return lambda: fn(*inp.src, fl, ts, inp.black, inp.white, res_scalar=3,
+                                  mode=mode, is_hdr=True)
+
+            def composition():
+                return viz_composition(port, mode, (*inp.src, random, ts, inp.black, inp.white),
+                                       3, True)
+
+            graph_turns = [graph_ms(fn, 20) for fn in (call(random), empty_grid, empty_grid,
+                                                       call(random))]
+            event_turns = [time_ms(fn, 10) for fn in (call(random), composition, composition,
+                                                      call(random))]
+            plain = call(random, wk.warp_frames_reference)
+            bound_ms, bound_by = viz_bound(mode, inp.src, random, ts)
+            ms = (graph_turns[0] + graph_turns[3]) / 2
+            out[f"mode{mode} {label}"] = {
+                "ms": ms, "smooth_ms": graph_ms(call(smooth), 20),
+                "host_us": host_us(call(random), 20),
+                "plain_ms": (time_ms(plain, 2) + time_ms(plain, 2)) / 2,
+                "grid_ms": (graph_turns[1] + graph_turns[2]) / 2, "blocks": blocks,
+                "bound_ms": bound_ms, "bound_by": bound_by, "vs_bound": ms / bound_ms,
+                "events_ms": (event_turns[0] + event_turns[3]) / 2,
+                "composition_ms": (event_turns[1] + event_turns[2]) / 2,
+                "composition_host_us": host_us(composition, 10),
+                "graph_turns_ms": graph_turns, "event_turns_ms": event_turns}
+    return out
+
+
+def format_viz(numbers: dict) -> str:
+    return "; ".join(
+        f"{label}: {v['ms']:.5f} ms (turns kernel/grid/grid/kernel "
+        f"{'/'.join(f'{t:.5f}' for t in v['graph_turns_ms'])}), smooth {v['smooth_ms']:.5f}, "
+        f"host {v['host_us']:.1f} us/call, plain {v['plain_ms']:.4f} ms, empty launch of its "
+        f"grid ({v['blocks']} blocks) {v['grid_ms']:.5f} ms, bound {v['bound_ms']:.5f} ms "
+        f"({v['bound_by']}), {v['vs_bound']:.2f}x its bound; CUDA events back to back: kernel "
+        f"{v['events_ms']:.5f} ms, the composition (K2 mode 2 + warp_viz) "
+        f"{v['composition_ms']:.5f} ms (turns "
+        f"{'/'.join(f'{t:.5f}' for t in v['event_turns_ms'])}), host "
+        f"{v['composition_host_us']:.1f} us/call"
         for label, v in numbers.items())
 
 
@@ -2010,10 +2239,34 @@ def parallel_path(port, dev, card: str) -> dict:
             require_equal(out[0][b], y[0], what + " Y")
             require_equal(out[1][b], uv[0], what + " UV")
             require_equal(out[2][b], batched[i][2][b], what + " flow")
+    # Modes 4-6: one K2 launch in the mode a stream and step, and no other
+    # K2; each output the single-stream warp_outputs with the same flow.
+    batched_viz = {}
+    for mode in VIZ_MODES:
+        reset_launches(port)
+        outs = run_batched(mode=mode)
+        torch.cuda.synchronize()
+        got = read_launches(port)
+        if got["warp_frames_viz"] != 2 * len(outs) or any(
+                got[k] for k in MODE3_OFF_PATH + ("warp_frames", "warp_frames_mode3")):
+            raise AssertionError(f"7b: mode {mode} made not one K2 launch in its mode a stream "
+                                 f"and step ({2 * len(outs)}): {got}")
+        batched_viz[mode] = got["warp_frames_viz"]
+        for i, out in enumerate(outs):
+            for b in range(2):
+                flow_prev = zero_flow if i == 0 else single[b][i - 1][2]
+                f0, f1 = ((ys[b, i + k], uvs[b, i + k]) for k in range(2))
+                y, uv = port.warp_viz.warp_outputs(*f0, *f1, flow_prev, blend_t[b:b + 1], black,
+                                                   white, mode=mode, res_scalar=3, is_hdr=True)
+                what = f"batched_step mode {mode} step {i} stream {b}"
+                require_equal(out[0][b], y[0], what + " Y")
+                require_equal(out[1][b], uv[0], what + " UV")
     log(f"phase 7b batched_step: 2 streams {W}x{H} HDR, radius 16, {n_frames - 2} steps, t "
         f"{blend}: outputs, flow and delta equal to the single-stream path and to the "
         f"plain-version run; launches {batched_launches}; in mode 3 each output equal to the "
-        f"single-stream K2 mode 3, launches {batched3_launches}")
+        f"single-stream K2 mode 3, launches {batched3_launches}; in modes 4, 5 and 6 each "
+        f"output equal to the single-stream warp_outputs, K2 launches in the mode "
+        f"{batched_viz} (one a stream and step)")
 
     # -- 7c. make_multichip_step on ranks of this card (gloo), rs 3, modes
     # 2-6, t_batch 3: frames 1-4 of 7b's streams, the prior flow of 7b's
@@ -2036,7 +2289,8 @@ def parallel_path(port, dev, card: str) -> dict:
         jobs = [dict(in_path=in_path, mode=mode, res_scalar=3, radius=scal[0],
                      delta_scalar=scal[1], neighbor_scalar=scal[2], black=black, white=white)
                 for mode in mesh_modes]
-        mesh_launches, mesh_mode3_launches, mode_launches, mesh_lines = 0, 0, {}, []
+        mesh_launches, mesh_mode3_launches, mesh_viz_launches = 0, 0, 0
+        mode_launches, mesh_lines = {}, []
         flow_launches = {k: 0 for k in MESH_FLOW_KERNELS}
         for dp, sp in meshes:
             for job in jobs:
@@ -2047,26 +2301,31 @@ def parallel_path(port, dev, card: str) -> dict:
                                           workdir=tmp, args=(jobs,), timeout=600)
             wall = time.perf_counter() - start
             step_ms, backends = {mode: [] for mode in mesh_modes}, set()
+            # A rank's streams times its steps: one band launch each.
+            rank_steps = (2 // dp) * 2
             for rank, paths in enumerate(rank_paths):
                 for mode, path in zip(mesh_modes, paths):
                     with np.load(path) as z:
-                        # Each job's own launches: the band in modes 2, 5
-                        # and 6, in mode 3 its mode 3 alone; mode 4 none.
-                        band_n, mode3_n = int(z["band_launches"]), int(z["band_mode3_launches"])
-                        want = {3: (0, True), 4: (0, 0)}.get(mode, (True, 0))
+                        # Each job's own launches: one band a step, in the
+                        # mode's counter (modes 0-2, 3, 4-6), none in another.
+                        got_n = (int(z["band_launches"]), int(z["band_mode3_launches"]),
+                                 int(z["band_viz_launches"]))
+                        want = tuple(rank_steps if k == min(2, max(0, mode - 2)) else 0
+                                     for k in range(3))
                         # K3 and K4: the flow, in every mode.
                         flow_n = {k: int(z[f"{k}_launches"]) for k in flow_launches}
-                        if (bool(band_n), bool(mode3_n)) != tuple(map(bool, want)) \
-                                or min(flow_n.values()) == 0 or z["foreign_modules"].size:
+                        if got_n != want or min(flow_n.values()) == 0 \
+                                or z["foreign_modules"].size:
                             raise AssertionError(
                                 f"mesh {dp}x{sp} rank {rank} mode {mode}: band launches "
-                                f"{band_n}, in mode 3 {mode3_n}, flow {flow_n}, jax "
+                                f"(modes 0-2, 3, 4-6) {got_n}, not {want}; flow {flow_n}, jax "
                                 f"modules {list(z['foreign_modules'])}")
                         for k, n in flow_n.items():
                             flow_launches[k] += n
-                        mesh_launches += band_n
-                        mesh_mode3_launches += mode3_n
-                        mode_launches[mode] = mode_launches.get(mode, 0) + band_n + mode3_n
+                        mesh_launches += got_n[0]
+                        mesh_mode3_launches += got_n[1]
+                        mesh_viz_launches += got_n[2]
+                        mode_launches[mode] = mode_launches.get(mode, 0) + sum(got_n)
                         step_ms[mode].append(float(z["step_ms"][-1]))
                         backends.add(str(z["backend"]))
             for j, mode in enumerate(mesh_modes):
@@ -2094,9 +2353,9 @@ def parallel_path(port, dev, card: str) -> dict:
     log(f"phase 7c make_multichip_step {W}x{H} HDR rs 3 modes 2-6 t_batch 3, 2 streams x 2 "
         f"steps on meshes {meshes}: every rank's outputs, flow and delta equal to the "
         f"single-device results (7b; warp_outputs in modes 3-6) byte for byte; K2 band "
-        f"launched {mesh_launches} times over the ranks (modes 2, 5, 6) and "
-        f"{mesh_mode3_launches} times in mode 3 (one launch a band); launches by "
-        f"mode {mode_launches}; K3 and K4 "
+        f"launched once a rank and step in each mode: {mesh_launches} times over the ranks "
+        f"in mode 2, {mesh_mode3_launches} in mode 3, {mesh_viz_launches} in modes 4-6; "
+        f"launches by mode {mode_launches}; K3 and K4 "
         f"launched by every rank in every mode, {flow_launches} in all; "
         + "; ".join(mesh_lines))
     log(f"phase 7 numbers [{card}]: K2 band (n 2, shard 0, mode 2, T = 3, {W}x{H} HDR) "
@@ -2114,7 +2373,9 @@ def parallel_path(port, dev, card: str) -> dict:
             "library_ms": None}, {
                 "batched": {k: batched_launches[k] for k in ("flow_step", *flow_launches)},
                 "batched_mode3": batched3_launches["warp_frames_mode3"],
+                "batched_viz": batched_viz,
                 "mesh": flow_launches, "mesh_mode3": mesh_mode3_launches,
+                "mesh_viz": {str(m): mode_launches[m] for m in VIZ_MODES},
                 "band_hsv": band_hsv_launches, "band_mode3": band_mode3_launches,
                 "band_raw": band_raw_launches}
 
@@ -2979,6 +3240,9 @@ def main(argv: list[str]) -> int:
             numbers["warp_frames_mode3"] = mode3_numbers(port, inp, variants=True)
             log(f"K2 mode 3 times [{card}] of {ROOT}: "
                 f"{format_mode3(numbers['warp_frames_mode3'])}")
+        if 6 in getattr(warp_kernel, "KERNEL_MODES", ()):
+            numbers["warp_frames_viz"] = viz_numbers(port, inp)
+            log(f"K2 modes 4-6 times [{card}] of {ROOT}: {format_viz(numbers['warp_frames_viz'])}")
         numbers["wrapper_split_us"] = wrapper_split(port, dev)
         numbers["launch_anatomy_ms"] = floor_numbers(port, dev)
         if port.cost_volume_kernel is not None:
@@ -3179,10 +3443,10 @@ def main(argv: list[str]) -> int:
         f"replayed byte for byte")
 
     # -- 5b / 5c. served visualisation modes --------------------------------------
-    # The kernels each mode's path runs (mode 4 needs the flow only).
+    # The kernels each mode's path runs: the flow's and K2 in that mode, one
+    # launch an interpolated output (modes 3-6 launch no mode-2 K2).
     path_kernels = {3: FLOW_KERNELS + ("warp_frames_mode3",),
-                    4: FLOW_KERNELS,
-                    5: FLOW_KERNELS + ("warp_frames",), 6: FLOW_KERNELS + ("warp_frames",)}
+                    **{m: FLOW_KERNELS + ("warp_frames_viz",) for m in VIZ_MODES}}
     viz_warp_ms, viz_launches = {}, {}
     for mode, n_frames in ((3, 10), (4, 6), (5, 6), (6, 6)):
         viz_settings = port.Settings(**{**settings, "frame_output": mode})
@@ -3196,13 +3460,19 @@ def main(argv: list[str]) -> int:
         got = read_launches(port)
         viz_launches[mode] = got
         require_launched(got, path_kernels[mode], f"mode {mode}")
-        off_path = [k for k in MODE3_OFF_PATH if got[k]]
+        off_path = [k for k in MODE3_OFF_PATH + ("warp_frames",)
+                    + (("warp_frames_mode3",) if mode != 3 else ("warp_frames_viz",)) if got[k]]
         if off_path:
             raise AssertionError(f"mode {mode} launched {off_path}, off the served path: {got}")
         expected = cadence_count(port, n_frames)
-        if len(vouts) != expected or not any(o.interpolated for o in vouts):
+        n_interp = sum(o.interpolated for o in vouts)
+        if len(vouts) != expected or not n_interp:
             raise AssertionError(f"mode {mode}: {len(vouts)} outputs (cadence {expected}), "
-                                 f"{sum(o.interpolated for o in vouts)} interpolated")
+                                 f"{n_interp} interpolated")
+        k2_calls = got["warp_frames_mode3" if mode == 3 else "warp_frames_viz"]
+        if mode != 3 and k2_calls != n_interp:
+            raise AssertionError(f"mode {mode}: {k2_calls} K2 launches for {n_interp} "
+                                 "interpolated outputs, not one each")
         with plain_versions(port):
             plain_vouts = serve(viz_server(), frames[:n_frames])[0]
         if read_launches(port) != got:
@@ -3253,6 +3523,7 @@ def main(argv: list[str]) -> int:
     numbers = kernel_numbers(port, inp)
     hsv = hsv_numbers(port, inp)
     mode3 = mode3_numbers(port, inp)
+    viz = viz_numbers(port, inp)
 
     # The served stream goes on for N_PROFILED more frames under torch.profiler.
     from torch.profiler import ProfilerActivity, profile
@@ -3288,6 +3559,8 @@ def main(argv: list[str]) -> int:
         f"graph-timed device ms per call): {format_mode3(mode3)}")
     log(f"phase 6 K5 [{card}] (hsv_flow_overlay on K2's raw blend, {W}x{H} HDR, random +-64 "
         f"flow unless marked, graph-timed device ms per call): {format_hsv(hsv)}")
+    log(f"phase 6 K2 modes 4-6 [{card}] ({W}x{H} HDR, random +-64 flow unless marked, "
+        f"graph-timed device ms per call unless marked): {format_viz(viz)}")
     # The flow at radius 16 and 5 in turns: phase 5's ten frames on one new
     # server, even frames at 16, odd frames at 5.
     alt, turns = new_server(), {16: [], 5: []}
@@ -3325,6 +3598,18 @@ def main(argv: list[str]) -> int:
         f"bands of n = 3, t outside [0, 1], the int16 range, 1080p SDR at rs 2); every (ox, oy) "
         f"in +-512 as a flow cell at rs 0, SDR and HDR), {mode3_launches_4d} launches; max "
         f"|err| {mode3_err}")
+
+    # -- 4e. K2's modes 4, 5 and 6 against their plain versions ------------------
+    # After phase 6 too, as 4d: phases 5 and 6 keep their process state.
+    viz_err, n_viz, viz_launches_4e = viz_parity(port, dev, inp)
+    torch.cuda.synchronize()
+    log(f"phase 4e K2 modes 4, 5 and 6 (one launch each): {n_viz} outputs equal to the plain "
+        f"version and to the composition they replace (K2 mode 2 + warp_viz; mode 4 "
+        f"grey_flow_frame) ({W}x{H} HDR on {', '.join(inp.flows)} flow at T = 1 and 3; the row "
+        f"bands at n = {', '.join(map(str, VIZ_BAND_SHARDS))}, each against its plain band and "
+        f"stacked against the full frame; {len(VIZ_CASES)} more geometries (rs 1-3 at 50 x 86 "
+        f"with bands of n = 3, an odd half, t outside [0, 1], the int16 range; 1080p SDR at rs "
+        f"2; rs 0 with flow cells to +-32767), {viz_launches_4e} launches; max |err| {viz_err}")
 
     # -- 7. the parallel path -----------------------------------------------------
     band_entry, parallel_flow_launches = parallel_path(port, dev, card)
@@ -3404,6 +3689,41 @@ def main(argv: list[str]) -> int:
         "batched_launches": parallel_flow_launches["batched_mode3"],
         "band_launches": parallel_flow_launches["band_mode3"],
         "mesh_launches": parallel_flow_launches["mesh_mode3"]})
+    # K2's modes 4, 5 and 6: ms, plain_ms, host_us and the bound at T = 1, the
+    # served path's one output a call (t3: at T = 3), beside the composition
+    # each replaced (composition_ms, CUDA events, with the kernel's own
+    # events_ms beside it); `launches` those of the served mode's path (5c),
+    # beside 4e's (all three modes), 7b's and 7c's. library_ms is null: no
+    # single PyTorch call computes the clamped mirror, C rounding and this
+    # composition.
+    replaces = {
+        4: "no pallas_call: hopperrender_tpu/engine/flow_engine.py:622-664 and "
+           "hopperrender_tpu/ops/warp_strip.py:318 grey_flow_frame (XLA): mode 4 as "
+           "hopperrender_tpu/ops/warp.py:196-202 computes it",
+        5: "no pallas_call: hopperrender_tpu/engine/flow_engine.py:622-664 and "
+           "hopperrender_tpu/ops/warp_viz.py:100 side_by_side_1 (XLA) over "
+           "hopperrender_tpu/ops/warp_band.py:695: mode 5 as hopperrender_tpu/ops/warp.py:158-161 "
+           "computes it",
+        6: "no pallas_call: hopperrender_tpu/engine/flow_engine.py:622-664 and "
+           "hopperrender_tpu/ops/warp_viz.py:160 side_by_side_2 (XLA) over "
+           "hopperrender_tpu/ops/warp_band.py:695: mode 6 as hopperrender_tpu/ops/warp.py:162-176 "
+           "and :205-238 compute it"}
+    for mode in VIZ_MODES:
+        t1, t3 = viz[f"mode{mode} T1"], viz[f"mode{mode} T3"]
+        kernels.append({
+            "name": VIZ_NAMES[mode], "route": "cuda",
+            "source": "hopperrender_tpu_torch/csrc/warp_frame.cu", "replaces": replaces[mode],
+            "launches": viz_launches[mode]["warp_frames_viz"],
+            "launches_path": f"5c served mode {mode}", "max_abs_err": viz_err,
+            "ms": t1["ms"], "smooth_ms": t1["smooth_ms"], "plain_ms": t1["plain_ms"],
+            "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"], "library_ms": None,
+            "host_us": t1["host_us"], "grid_ms": t1["grid_ms"], "events_ms": t1["events_ms"],
+            "composition_ms": t1["composition_ms"],
+            "composition_host_us": t1["composition_host_us"], "t3": t3,
+            "served_warp_ms_per_output": viz_warp_ms[mode],
+            "parity_launches_4e_all_modes": viz_launches_4e,
+            "batched_launches": parallel_flow_launches["batched_viz"][mode],
+            "mesh_launches": parallel_flow_launches["mesh_viz"][str(mode)]})
     # K5: ms, plain_ms, host_us and the bound at T = 1 (t3: at T = 3); off
     # the served path since K2's mode 3, so `launches` (the served mode-3
     # path's, 5b) are 0, beside 4c's (its parity) and 7a's raw_blend bands';

@@ -1,5 +1,6 @@
-// K2 — bidirectional warp + blend + levels (warpFrameKernel modes 0/1/2/3),
-// batched over T blending scalars, for the Y plane and the interleaved UV plane.
+// K2 — bidirectional warp + blend + levels (warpFrameKernel, every output
+// mode 0-6), batched over T blending scalars, for the Y plane and the
+// interleaved UV plane.
 //
 // Replaces the TPU kernel hopperrender_tpu/ops/warp_band.py::warp_frame_band
 // (pallas_call in _band_call, body _merge_cells_kernel), modes 0/1/2 with a
@@ -25,6 +26,11 @@
 //     and applies the Y levels; UV reads no source sample: its outputs are
 //     the cell's levelled U (even columns) and V (odd ones), the same for
 //     every t. See "Mode 3" below;
+//   * modes 4, 5 and 6 (the grey flow and the two side-by-side views,
+//     ops/warp.py::warp_frame_plane in those modes, which the JAX package
+//     composes in XLA outside any kernel: ops/warp_viz.py, warp_strip.py's
+//     grey_flow_frame, engine/flow_engine.py's _run_warp) are K2's too, one
+//     launch each. See "Modes 4, 5 and 6" below;
 //   * a row band (row0, rows) per plane is the TPU kernel's mesh-sharded
 //     variant (warp_frame_band with num_shards > 1, which slices its band
 //     tables and packed sources per shard): shard s of n computes rows
@@ -111,6 +117,30 @@
 // the colour (hrt_warp_mode3_probe, PERF.md), what keeps it above that is
 // K2's own Y gather (three quarters of its time) and the barrier's wait for
 // the colour; a colour made a run, without the barrier, was slower.
+//
+// Modes 4, 5 and 6. One grid for both planes, as mode 3: blocks [0, n_y)
+// take the Y plane's tiles, the rest the UV plane's. A thread takes a run of
+// up to 16 bytes of one row and stores it for every t.
+//   * Mode 4 reads no source: Y is min((|ox12| + |oy12|) << (10 HDR, 2 SDR),
+//     peak) of the run's flow cell (flow loaded once a run), UV is mid
+//     (32768 or 128, written here: no byte fill makes 0x8000), no levels.
+//     UV runs are 16 bytes whatever the flow grid.
+//   * Mode 5: columns below dim_x / 2 copy source 1 (a 16-byte span a run,
+//     no levels), the rest are mode 2's runs (warp_run, fast path and all);
+//     a run across the half takes its first outputs from the copy.
+//   * Mode 6: rows outside the centred band [vo, vo + (dim_y >> (1 + cz))),
+//     vo = (dim_y >> 2) >> cz, are filled (0 on Y, mid on UV). In the band
+//     the left half reads source 1 at (2 (cy - vo), 2 cx (+ cx & 1 on UV)),
+//     16-byte runs read as two spans, no levels; the right half is mode 2
+//     at the adjusted position (2 (cx - dim_x / 2), 2 (cy - vo)): the flow
+//     lookup, the back-projection, the mirror over the whole plane, UV's
+//     halved y offsets and the levels, but UV's sample column keeps the
+//     OUTPUT column's parity, which no mode-2 output has. Adjacent right-half
+//     outputs are two adjusted columns apart, so its runs are half as wide
+//     (a run stays inside one flow cell) and read sample by sample. A row
+//     is n_left 16-byte runs of the left half, then the right half's.
+//     Mode 6 computes only the quarter of the warp it shows.
+// A row band needs nothing outside it: sources and flow are whole.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -293,6 +323,16 @@ __device__ __forceinline__ Words gather_slow(const T* row, int x0, int n, int dx
   return pack<T, kMax>(r);
 }
 
+// The first n_front samples of front, then those of rest.
+template <typename T, int kMax>
+__device__ __forceinline__ Words merge_front(const Words& front, const Words& rest,
+                                             int n_front) {
+  uint32_t r[kMax];
+#pragma unroll
+  for (int k = 0; k < kMax; ++k) r[k] = k < n_front ? sample<T>(front, k) : sample<T>(rest, k);
+  return pack<T, kMax>(r);
+}
+
 // The n outputs of one run and t from the samples g12, g21: mode 0 or 1 takes
 // one, mode 2 blends (and, unless kRaw, applies the levels). kUnit: t in
 // [0, 1], so every blend lies in [0, 2^24) and truncates by an add rounded
@@ -351,7 +391,8 @@ __device__ __forceinline__ void warp_run(const T* __restrict__ src12,
                                          size_t t_stride, int cy, int plane_h, int x0, int n,
                                          int run, int dim_x, int ox12, int oy12, int ox21,
                                          int oy21, float black, float white, float peak,
-                                         float mid, int base = 0) {
+                                         float mid, int base = 0, Words front = Words{},
+                                         int n_front = 0) {
   const int nbytes = run * static_cast<int>(sizeof(T));
   for (int i = 0; i < n_t; ++i, dst += t_stride) {
     const float fs12 = ts[i];
@@ -395,7 +436,9 @@ __device__ __forceinline__ void warp_run(const T* __restrict__ src12,
                                                       peak, mid, base)
         : finish_run<T, kMode, kUV, kRaw, false, kMax>(g12, g21, n, fs12, fs21, black, white,
                                                        peak, mid, base);
-    store_run<T, kMax>(dst, res, n, run);
+    // Mode 5: the run's first n_front outputs are source 1's.
+    store_run<T, kMax>(dst, n_front > 0 ? merge_front<T, kMax>(front, res, n_front) : res, n,
+                       run);
   }
 }
 
@@ -586,6 +629,318 @@ cudaError_t launch_mode3(const void* s12y, const void* s21y, const int16_t* flow
   return go(warp_mode3_kernel<T, 0, kColour>);
 }
 
+// -- Modes 4, 5 and 6 (see "Modes 4, 5 and 6" above) -----------------------------
+
+// How the runs of modes 4, 5 and 6 tile one row of a plane.
+struct VizPlane {
+  int shift;     // modes 4 and 5: log2 of a run's width
+  int shift_r;   // mode 6: log2 of the right half's runs, from column dim_x / 2
+  int n_left;    // mode 6: 16-byte runs of the left half
+  int tiles_x;   // blocks of kBlockX runs across a row
+};
+
+// v in every sample of a Words.
+template <typename T>
+__device__ __forceinline__ Words splat(uint32_t v) {
+  const uint32_t w = sizeof(T) == 2 ? v * 0x00010001u : v * 0x01010101u;
+  return Words{{w, w, w, w}};
+}
+
+// The n samples at p (any alignment): the aligned chunks that hold them where
+// the run is whole, else one by one.
+template <typename T, int kMax>
+__device__ __forceinline__ Words load_run(const T* p, int n, int run) {
+  if (n == run) return extract(issue_span(p, run * static_cast<int>(sizeof(T))));
+  uint32_t r[kMax];
+#pragma unroll
+  for (int k = 0; k < kMax; ++k) r[k] = k < n ? p[k] : 0u;
+  return pack<T, kMax>(r);
+}
+
+// The same n outputs for every t.
+template <typename T, int kMax>
+__device__ __forceinline__ void store_every_t(T* dst, size_t t_stride, int n_t, const Words& v,
+                                              int n, int run) {
+  for (int i = 0; i < n_t; ++i) store_run<T, kMax>(dst + i * t_stride, v, n, run);
+}
+
+// Mode 6's left half: output column c shows sample 2c (Y) or 2c + (c & 1)
+// (UV: U from even source pairs, V from odd ones) of source row `row`. A
+// whole run (x0 even) reads its 2 kMax samples as two 16-byte spans.
+template <typename T, bool kUV, int kMax>
+__device__ __forceinline__ Words side_left(const T* row, int x0, int n, int dim_x) {
+  uint32_t r[kMax];
+  if (n == kMax) {
+    const Words a = extract(issue_span(row + 2 * x0, 16));
+    const Words b = extract(issue_span(row + 2 * x0 + kMax, 16));
+#pragma unroll
+    for (int k = 0; k < kMax; ++k) {
+      const int i = 2 * k + (kUV ? (k & 1) : 0);
+      r[k] = i < kMax ? sample<T>(a, i) : sample<T>(b, i - kMax);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kMax; ++k) {
+      const int c = x0 + k;
+      r[k] = k < n ? row[min(2 * c + (kUV ? (c & 1) : 0), dim_x - 1)] : 0u;
+    }
+  }
+  return pack<T, kMax>(r);
+}
+
+// Mode 6's right half: n outputs at columns [x0, x0 + n) of a band row, each
+// mode 2 at the adjusted position (ax0 + 2k, ay) with its levels; UV's
+// sample column keeps the OUTPUT column's parity, (x & ~1) + ((x0 + k) & 1).
+// Adjacent outputs are two adjusted columns apart, so the samples are read
+// one by one. The run lies inside one flow cell (ox12 .. oy21).
+template <typename T, bool kUV, int kMax>
+__device__ __forceinline__ void warp_run_side(const T* __restrict__ src12,
+                                              const T* __restrict__ src21,
+                                              const float* __restrict__ ts, int n_t, T* dst,
+                                              size_t t_stride, int ay, int plane_h, int ax0,
+                                              int x0, int n, int run, int dim_x, int ox12,
+                                              int oy12, int ox21, int oy21, float black,
+                                              float white, float peak, float mid) {
+  for (int i = 0; i < n_t; ++i, dst += t_stride) {
+    const float fs12 = ts[i];
+    const float fs21 = __fsub_rn(1.0f, fs12);
+    const int dx12 = round_c(__fmul_rn(static_cast<float>(ox12), fs12));
+    const int dx21 = -round_c(__fmul_rn(static_cast<float>(ox21), fs21));
+    const float dy12 = __fmul_rn(static_cast<float>(oy12), fs12);
+    const float dy21 = __fmul_rn(static_cast<float>(oy21), fs21);
+    const T* row12 = src12 + static_cast<size_t>(mirror_warp(
+        ay + round_c(kUV ? __fmul_rn(dy12, 0.5f) : dy12), plane_h)) * dim_x;
+    const T* row21 = src21 + static_cast<size_t>(mirror_warp(
+        ay - round_c(kUV ? __fmul_rn(dy21, 0.5f) : dy21), plane_h)) * dim_x;
+    uint32_t r12[kMax], r21[kMax];
+#pragma unroll
+    for (int k = 0; k < kMax; ++k) {
+      r12[k] = r21[k] = 0;
+      if (k < n) {
+        int x12 = mirror_warp(ax0 + 2 * k + dx12, dim_x);
+        int x21 = mirror_warp(ax0 + 2 * k + dx21, dim_x);
+        if (kUV) {
+          x12 = (x12 & ~1) + ((x0 + k) & 1);
+          x21 = (x21 & ~1) + ((x0 + k) & 1);
+        }
+        r12[k] = row12[x12];
+        r21[k] = row21[x21];
+      }
+    }
+    const Words g12 = pack<T, kMax>(r12), g21 = pack<T, kMax>(r21);
+    const Words res = fs12 >= 0.0f && fs12 <= 1.0f
+        ? finish_run<T, 2, kUV, false, true, kMax>(g12, g21, n, fs12, fs21, black, white, peak,
+                                                   mid, 0)
+        : finish_run<T, 2, kUV, false, false, kMax>(g12, g21, n, fs12, fs21, black, white, peak,
+                                                    mid, 0);
+    store_run<T, kMax>(dst, res, n, run);
+  }
+}
+
+// flow12 at flow cell (scx, scy) of plane coordinates, clamped, and flow21 at
+// the back-projected cell: (ox12, oy12, ox21, oy21).
+struct CellFlow {
+  int ox12, oy12, ox21, oy21;
+};
+
+template <bool kUV>
+__device__ __forceinline__ CellFlow cell_flow(const int16_t* __restrict__ flow, int x, int y,
+                                              int low_h, int low_w, int rs) {
+  int scx = x >> rs, scy = y >> rs;
+  if (kUV) {
+    scx &= ~1;
+    scy <<= 1;
+  }
+  scx = clamp_hi(scx, 0, low_w - 1);
+  scy = clamp_hi(scy, 0, low_h - 1);
+  const int16_t* flow_x = flow;
+  const int16_t* flow_y = flow + static_cast<size_t>(low_h) * low_w;
+  CellFlow f;
+  f.ox12 = flow_x[scy * low_w + scx];
+  f.oy12 = flow_y[scy * low_w + scx];
+  const int bcy = clamp_hi(scy - (f.oy12 >> rs), 0, low_h - 1);
+  const int bcx = clamp_hi(scx - (f.ox12 >> rs), 0, low_w - 1);
+  f.ox21 = flow_x[bcy * low_w + bcx];
+  f.oy21 = flow_y[bcy * low_w + bcx];
+  return f;
+}
+
+// Mode 6's run j of plane row cy (see viz_run, which calls it).
+template <typename T, bool kUV, int kMax>
+__device__ __forceinline__ void viz_run_side(const T* __restrict__ src12,
+                                             const T* __restrict__ src21,
+                                             const int16_t* __restrict__ flow,
+                                             const float* __restrict__ ts, int n_t, T* row_out,
+                                             size_t t_stride, int dim_y, int dim_x, int plane_h,
+                                             int cy, int j, const VizPlane& g, int low_h,
+                                             int low_w, int rs, float black, float white) {
+  constexpr bool kHdr = sizeof(T) == 2;
+  constexpr uint32_t kMidSample = kHdr ? 32768u : 128u;
+  const int half = dim_x >> 1;
+  const bool left = j < g.n_left;
+  const int run = left ? kMax : 1 << g.shift_r;
+  const int x0 = left ? j * kMax : half + ((j - g.n_left) << g.shift_r);
+  const int end = left ? half : dim_x;
+  if (x0 >= end) return;
+  const int n = min(run, end - x0);
+  const int vo = (dim_y >> 2) >> (kUV ? 1 : 0);
+  if (cy < vo || cy >= vo + (dim_y >> (kUV ? 2 : 1))) {
+    store_every_t<T, kMax>(row_out + x0, t_stride, n_t, splat<T>(kUV ? kMidSample : 0u), n, run);
+    return;
+  }
+  const int ay = (cy - vo) << 1;   // the adjusted (source) row
+  if (left) {
+    const T* row = src12 + static_cast<size_t>(min(ay, plane_h - 1)) * dim_x;
+    store_every_t<T, kMax>(row_out + x0, t_stride, n_t, side_left<T, kUV, kMax>(row, x0, n, dim_x),
+                           n, run);
+    return;
+  }
+  const int ax0 = (x0 - half) << 1;
+  const CellFlow f = cell_flow<kUV>(flow, ax0, ay, low_h, low_w, rs);
+  warp_run_side<T, kUV, kMax>(src12, src21, ts, n_t, row_out + x0, t_stride, ay, plane_h, ax0,
+                              x0, n, run, dim_x, f.ox12, f.oy12, f.ox21, f.oy21, black, white,
+                              kHdr ? 65535.0f : 255.0f, kHdr ? 32768.0f : 128.0f);
+}
+
+// Run j of plane row cy (band row band_y) in mode 4, 5 or 6, every t. kRun >
+// 0: mode 5's whole runs are compiled for that width.
+template <typename T, int kMode, bool kUV, int kRun>
+__device__ __forceinline__ void viz_run(const T* __restrict__ src12, const T* __restrict__ src21,
+                                        const int16_t* __restrict__ flow,
+                                        const float* __restrict__ ts, int n_t, T* out,
+                                        size_t t_stride, int dim_y, int dim_x, int plane_h,
+                                        int cy, int band_y, int j, const VizPlane& g, int low_h,
+                                        int low_w, int rs, float black, float white) {
+  constexpr bool kHdr = sizeof(T) == 2;
+  constexpr int kMax = 16 / static_cast<int>(sizeof(T));
+  constexpr int kPeak = kHdr ? 65535 : 255;
+  T* const row_out = out + static_cast<size_t>(band_y) * dim_x;
+
+  if constexpr (kMode == 4) {   // the grey of the run's flow cell on Y; mid on UV
+    const int run = 1 << g.shift;
+    const int x0 = j << g.shift;
+    if (x0 >= dim_x) return;
+    uint32_t v = kHdr ? 32768u : 128u;
+    if (!kUV) {
+      const int16_t* flow_y = flow + static_cast<size_t>(low_h) * low_w;
+      const int at = clamp_hi(cy >> rs, 0, low_h - 1) * low_w + clamp_hi(x0 >> rs, 0, low_w - 1);
+      const int mag = abs(static_cast<int>(flow[at])) + abs(static_cast<int>(flow_y[at]));
+      v = static_cast<uint32_t>(min(mag << (kHdr ? 10 : 2), kPeak));
+    }
+    store_every_t<T, kMax>(row_out + x0, t_stride, n_t, splat<T>(v), min(run, dim_x - x0), run);
+  } else if constexpr (kMode == 5) {   // source 1 left of the half, mode 2 from it on
+    const int run = kRun > 0 ? kRun : 1 << g.shift;
+    const int x0 = j * run;
+    if (x0 >= dim_x) return;
+    const int n = min(run, dim_x - x0);
+    const int n_front = clamp_hi((dim_x >> 1) - x0, 0, n);
+    const T* src_row = src12 + static_cast<size_t>(cy) * dim_x + x0;
+    const Words front = n_front > 0 ? load_run<T, kMax>(src_row, n, run) : Words{{0, 0, 0, 0}};
+    if (n_front == n) {
+      store_every_t<T, kMax>(row_out + x0, t_stride, n_t, front, n, run);
+      return;
+    }
+    const CellFlow f = cell_flow<kUV>(flow, x0, cy, low_h, low_w, rs);
+    constexpr int kWhole = kRun > 0 ? kRun : kMax;
+    if (kRun > 0 && n == kRun) {   // a whole run: n and run are compile-time
+      warp_run<T, 2, kUV, false, kWhole>(src12, src21, ts, n_t, row_out + x0, t_stride, cy,
+                                         plane_h, x0, kWhole, kWhole, dim_x, f.ox12, f.oy12,
+                                         f.ox21, f.oy21, black, white, kPeak,
+                                         kHdr ? 32768.0f : 128.0f, 0, front, n_front);
+    } else {
+      warp_run<T, 2, kUV, false, kMax>(src12, src21, ts, n_t, row_out + x0, t_stride, cy,
+                                       plane_h, x0, n, run, dim_x, f.ox12, f.oy12, f.ox21,
+                                       f.oy21, black, white, kPeak, kHdr ? 32768.0f : 128.0f, 0,
+                                       front, n_front);
+    }
+  } else {
+    // Mode 6: a centred band of rows [vo, vo + (dim_y >> (1 + cz))) shows
+    // source 1 (left) and mode 2 (right), 2x down; 0 (Y) and mid (UV) around it.
+    viz_run_side<T, kUV, kMax>(src12, src21, flow, ts, n_t, row_out, t_stride, dim_y, dim_x,
+                               plane_h, cy, j, g, low_h, low_w, rs, black, white);
+  }
+}
+
+// Modes 4, 5 and 6 in one grid: blocks [0, n_y_blocks) take the Y plane's
+// tiles of kBlockX runs x kBlockY rows (geo_y.tiles_x tiles a row), the rest
+// the UV plane's. kRunY > 0: mode 5's whole Y runs are compiled for it.
+// __launch_bounds__ asks for 4 blocks an SM (64 registers a thread), as mode
+// 3: left to itself mode 5 takes 99-116 registers and mode 6 73-80, and
+// both ran 8-16% slower, though held to 64 they spill (PERF.md, run DH).
+template <typename T, int kMode, int kRunY>
+__global__ void __launch_bounds__(kBlockX * kBlockY, 4) warp_viz_kernel(
+    const T* __restrict__ s12y, const T* __restrict__ s12uv, const T* __restrict__ s21y,
+    const T* __restrict__ s21uv, const int16_t* __restrict__ flow, const float* __restrict__ ts,
+    int n_t, T* __restrict__ out_y, T* __restrict__ out_uv, int dim_y, int dim_x, Band band,
+    int low_h, int low_w, int rs, VizPlane geo_y, VizPlane geo_uv, int n_y_blocks, float black,
+    float white) {
+  const bool uv = blockIdx.x >= static_cast<unsigned>(n_y_blocks);   // uniform in a block
+  const VizPlane g = uv ? geo_uv : geo_y;
+  const int b = uv ? blockIdx.x - n_y_blocks : blockIdx.x;
+  const int j = (b % g.tiles_x) * kBlockX + threadIdx.x;        // the run's index in its row
+  const int band_y = (b / g.tiles_x) * kBlockY + threadIdx.y;   // row within the band
+  const int plane_h = uv ? dim_y / 2 : dim_y;
+  const int rows = uv ? band.rows_uv : band.rows_y;
+  const int cy = (uv ? band.row0_uv : band.row0_y) + band_y;    // row of the plane
+  if (band_y >= rows || cy >= plane_h) return;
+  const size_t t_stride = static_cast<size_t>(rows) * dim_x;
+  if (uv) {
+    viz_run<T, kMode, true, 0>(s12uv, s21uv, flow, ts, n_t, out_uv, t_stride, dim_y, dim_x,
+                               plane_h, cy, band_y, j, g, low_h, low_w, rs, black, white);
+  } else {
+    viz_run<T, kMode, false, kRunY>(s12y, s21y, flow, ts, n_t, out_y, t_stride, dim_y, dim_x,
+                                    plane_h, cy, band_y, j, g, low_h, low_w, rs, black, white);
+  }
+}
+
+// Modes 4, 5 and 6's one launch. A run is at most 16 bytes; where it warps
+// (mode 5, mode 6's right half) it lies inside one flow cell: 1 << rs
+// columns on Y and 2 << rs on UV, and on mode 6's right half half as many
+// output columns, two adjusted columns apart. Mode 4's UV and mode 6's left
+// half take whole 16-byte runs.
+template <typename T, int kMode>
+cudaError_t launch_viz(const void* s12y, const void* s12uv, const void* s21y, const void* s21uv,
+                       const int16_t* flow, const float* ts, int n_t, void* out_y, void* out_uv,
+                       int dim_y, int dim_x, const Band& band, int low_h, int low_w, int rs,
+                       float black, float white, cudaStream_t stream) {
+  constexpr int kMaxShift = sizeof(T) == 2 ? 3 : 4;
+  const auto cap = [&](int shift) { return shift < kMaxShift ? shift : kMaxShift; };
+  const auto runs = [](int width, int shift) { return (width + (1 << shift) - 1) >> shift; };
+  const auto plane = [&](bool uv) {
+    VizPlane g{0, 0, 0, 0};
+    int n_runs;
+    if (kMode == 6) {
+      const int half = dim_x >> 1;
+      g.shift_r = uv ? cap(rs) : (rs > 0 ? cap(rs - 1) : 0);
+      g.n_left = runs(half, kMaxShift);
+      n_runs = g.n_left + runs(dim_x - half, g.shift_r);
+    } else {
+      g.shift = kMode == 4 && uv ? kMaxShift : cap(uv ? rs + 1 : rs);
+      n_runs = runs(dim_x, g.shift);
+    }
+    g.tiles_x = (n_runs + kBlockX - 1) / kBlockX;
+    return g;
+  };
+  const VizPlane geo_y = plane(false), geo_uv = plane(true);
+  const int n_y_blocks = geo_y.tiles_x * ((band.rows_y + kBlockY - 1) / kBlockY);
+  const int n_blocks = n_y_blocks + geo_uv.tiles_x * ((band.rows_uv + kBlockY - 1) / kBlockY);
+  const auto go = [&](auto kernel) {
+    kernel<<<n_blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
+        static_cast<const T*>(s12y), static_cast<const T*>(s12uv), static_cast<const T*>(s21y),
+        static_cast<const T*>(s21uv), flow, ts, n_t, static_cast<T*>(out_y),
+        static_cast<T*>(out_uv), dim_y, dim_x, band, low_h, low_w, rs, geo_y, geo_uv, n_y_blocks,
+        black, white);
+    return cudaGetLastError();
+  };
+  if constexpr (kMode == 5) {
+    if (geo_y.shift == 3) return go(warp_viz_kernel<T, 5, 8>);
+    if constexpr (sizeof(T) == 1) {
+      if (geo_y.shift == 4) return go(warp_viz_kernel<T, 5, 16>);
+    }
+  }
+  return go(warp_viz_kernel<T, kMode, 0>);
+}
+
 // One plane: runs of 1 << shift samples, compiled for 8 samples (HDR) or 8
 // and 16 (SDR), generic otherwise; a warp takes 32 neighbouring runs of one
 // row.
@@ -647,6 +1002,15 @@ cudaError_t launch_type(int mode, bool raw, const void* s12y, const void* s12uv,
     case 3:   // the HSV flow overlay: one launch for both planes; reads no UV source
       return launch_mode3<T>(s12y, s21y, flow, ts, n_t, out_y, out_uv, dim_y, dim_x, band,
                              low_h, low_w, rs, black, white, stream);
+    case 4:   // grey flow: one launch for both planes; reads no source
+      return launch_viz<T, 4>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y, out_uv, dim_y,
+                              dim_x, band, low_h, low_w, rs, black, white, stream);
+    case 5:   // side by side: one launch for both planes
+      return launch_viz<T, 5>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y, out_uv, dim_y,
+                              dim_x, band, low_h, low_w, rs, black, white, stream);
+    case 6:   // side by side, 2x down: one launch for both planes
+      return launch_viz<T, 6>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y, out_uv, dim_y,
+                              dim_x, band, low_h, low_w, rs, black, white, stream);
     case 0:
       return launch_mode<T, 0, false>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y,
                                       out_uv, dim_y, dim_x, band, low_h, low_w, rs, black,
@@ -673,9 +1037,10 @@ cudaError_t launch_type(int mode, bool raw, const void* s12y, const void* s12uv,
 // the plane are not written. The whole frame is row0 0, rows dim_y and dim_y/2;
 // a shard of the row-band split (K2's mesh-sharded variant) passes its band.
 // All contiguous, on the current device. black/white are the levels in sample
-// units (HDR pre-scaled x256). mode 0, 1, 2 or 3 (3: the HSV flow overlay,
-// one launch; the UV sources are not read). raw_blend != 0 (mode 2 only)
-// stores the blend without levels.
+// units (HDR pre-scaled x256). mode 0-6 (3: the HSV flow overlay, one
+// launch, the UV sources not read; 4: the grey flow, one launch, no source
+// read; 5 and 6: side by side, one launch each). raw_blend != 0 (mode 2
+// only) stores the blend without levels.
 extern "C" int hrt_warp_frames(const void* src12_y, const void* src12_uv,
                                const void* src21_y, const void* src21_uv,
                                const void* flow, const void* ts, int n_t,

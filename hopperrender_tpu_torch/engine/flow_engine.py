@@ -14,11 +14,12 @@ calls:
     and feed 240-frame avg/peak windows (ref: opticalFlowCalcSDR.cpp:118-138).
 
 Each pyramid step of the flow is kernels K3 (cost volume) and K4 (argmin and
-commit), the flow blur is kernel K1 and every warp of modes 0/1/2 is kernel
-K2 (one launch for all T outputs of a source interval). The visualisation modes are
-composed from them (ops/warp_viz.py): mode 3 is K2's own mode 3 (the HSV flow
-overlay in its epilogue, one launch), modes 5/6 rearrange K2's mode-2 output
-in plain PyTorch, mode 4 needs the flow only. The JAX engine's strip and
+commit), the flow blur is kernel K1 and every warp, in every output mode, is
+one launch of kernel K2 (for all T outputs of a source interval;
+ops/warp_viz.warp_outputs): mode 3 is the HSV flow overlay in its epilogue,
+mode 4 the grey flow (the flow only, one frame for every t), modes 5 and 6
+the side-by-side views, where the JAX engine composes modes 4-6 in XLA
+around its warp kernel. The JAX engine's strip and
 band machinery (contexts, tier plans, apron tiers, chain bounds) exists
 because a TPU has no fast per-lane gather; Hopper gathers natively, so none of
 it is carried over.

@@ -93,14 +93,16 @@ def run_stream_steps(mesh, jobs: list[dict]) -> list[str]:
     step warping with the previous step's flow). It writes y (B_local, F-2,
     [T,] H, W), uv, blurred (B_local, F-2, 2, low_h, low_w), delta (B_local,
     F-2), each step's ms, the job's own launches of K2's band
-    (warp_frames_band.launches: modes 0/1/2/5/6; .mode3_launches: mode 3)
+    (warp_frames_band.launches: modes 0/1/2; .mode3_launches: mode 3;
+    .viz_launches: modes 4/5/6)
     and of K3 and K4 (the flow), the rank's place and backend, and
     foreign_modules(); returns the paths."""
     paths = []
     band = warp_kernel.warp_frames_band
     k3, k4 = cost_volume_kernel.delta_sums, cost_volume_kernel.commit_winners
     for job in jobs:
-        launches_before = (band.launches, band.mode3_launches, k3.launches, k4.launches)
+        launches_before = (band.launches, band.mode3_launches, k3.launches, k4.launches,
+                           band.viz_launches)
         with np.load(job["in_path"]) as z:
             y, uv, flow, ts = z["y"], z["uv"], z["flow"], z["ts"]
         n_streams, n_frames, h, w = y.shape
@@ -131,6 +133,7 @@ def run_stream_steps(mesh, jobs: list[dict]) -> list[str]:
         np.savez(path, y=y_o, uv=uv_o, blurred=blurred, delta=delta,
                  step_ms=np.asarray(step_ms), band_launches=band.launches - launches_before[0],
                  band_mode3_launches=band.mode3_launches - launches_before[1],
+                 band_viz_launches=band.viz_launches - launches_before[4],
                  delta_sums_launches=k3.launches - launches_before[2],
                  commit_winners_launches=k4.launches - launches_before[3],
                  dp_index=mesh.dp_index, sp_index=mesh.sp_index, backend=mesh.backend,

@@ -1,5 +1,5 @@
-"""K2: the batched warp (modes 0/1/2/3, and mode 2's raw_blend variant) —
-wrapper of csrc/warp_frame.cu and its plain version.
+"""K2: the batched warp (every output mode 0-6, and mode 2's raw_blend
+variant) — wrapper of csrc/warp_frame.cu and its plain version.
 
 Replaces hopperrender_tpu/ops/warp_band.py::warp_frame_band (the TPU kernel)
 with a (T,) blending-scalar vector: all T outputs of a source interval come
@@ -7,19 +7,23 @@ from one call. raw_blend=True is that kernel's raw_blend variant: mode 2's
 blend stored without levels, which K5 colours (ops/warp_viz.hsv_flow_overlay).
 Mode 3 is the HSV flow overlay in K2's epilogue, as ops/warp.warp_frame
 computes it: one launch for both planes that warps, blends, colours and
-levels, and reads no UV source (the colour replaces it); it is how the
-engine, batched_step and the mesh serve mode 3.
+levels, and reads no UV source (the colour replaces it). Modes 4 (grey
+flow), 5 (side by side) and 6 (side by side, 2x down) are one launch each
+for both planes too, as ops/warp.warp_frame computes them; the JAX package
+composes them in XLA outside its kernel. Every mode is how the engine,
+batched_step and the mesh serve it.
 `warp_frames` launches the CUDA kernel for CUDA tensors and takes the plain
 PyTorch version `warp_frames_reference` only for CPU tensors. Its counters:
-`warp_frames.launches` (modes 0/1/2), `warp_frames.mode3_launches` (mode 3)
-and `warp_frames.raw_launches` (the raw_blend variant).
+`warp_frames.launches` (modes 0/1/2), `warp_frames.mode3_launches` (mode 3),
+`warp_frames.viz_launches` (modes 4/5/6) and `warp_frames.raw_launches`
+(the raw_blend variant).
 
 `warp_frames_band` is that kernel's mesh-sharded variant (warp_frame_band
 with num_shards > 1): one shard's row band of each plane, from the same
-kernel body, for the row split of parallel/mesh.py, in modes 0-3 and
+kernel body, for the row split of parallel/mesh.py, in every mode and
 raw_blend. Plain version `warp_frames_band_reference`; counters
-`warp_frames_band.launches` (modes 0/1/2), `.mode3_launches` (mode 3) and
-`.raw_launches` (raw_blend).
+`warp_frames_band.launches` (modes 0/1/2), `.mode3_launches` (mode 3),
+`.viz_launches` (modes 4/5/6) and `.raw_launches` (raw_blend).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 from hopperrender_tpu_torch import _build
 from hopperrender_tpu_torch.ops import warp as warp_ops
 
-KERNEL_MODES = (0, 1, 2, 3)
+KERNEL_MODES = (0, 1, 2, 3, 4, 5, 6)
 
 
 def warp_frames_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
@@ -52,8 +56,7 @@ def warp_frames_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
 
 def _check_mode(mode, raw_blend):
     if mode not in KERNEL_MODES:
-        raise ValueError(f"K2 computes modes {KERNEL_MODES}, not {mode} (modes 4-6 are "
-                         "composed from its outputs: ops/warp_viz.py)")
+        raise ValueError(f"K2 computes output modes {KERNEL_MODES}, not {mode}")
     if raw_blend and mode != 2:
         raise ValueError("raw_blend is a variant of mode 2")
 
@@ -89,7 +92,8 @@ def warp_frames(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
     """K2 wrapper: (T,) blending scalars -> ((T, H, W), (T, H/2, W)) outputs,
     bit-identical to warp_frames_reference. Sources are uint8 (SDR) or uint16
     (HDR); flow is (2, low_h, low_w) int16; levels are in sample units (HDR
-    pre-scaled x256). Mode 3 reads the UV sources' shapes only. Launches the
+    pre-scaled x256). Mode 3 reads the UV sources' shapes only, mode 4 no
+    source (its T outputs are the same; a caller may pass one t). Launches the
     CUDA kernel for CUDA tensors (on the current stream, no synchronisation);
     CPU tensors take the plain version."""
     tensors = _check(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
@@ -108,6 +112,7 @@ def warp_frames(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
 
 warp_frames.launches = 0
 warp_frames.mode3_launches = 0
+warp_frames.viz_launches = 0
 warp_frames.raw_launches = 0
 
 
@@ -117,6 +122,8 @@ def _count(wrapper, mode, raw_blend):
         wrapper.raw_launches += 1
     elif mode == 3:
         wrapper.mode3_launches += 1
+    elif mode >= 4:
+        wrapper.viz_launches += 1
     else:
         wrapper.launches += 1
 
@@ -196,4 +203,5 @@ def warp_frames_band(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
 
 warp_frames_band.launches = 0
 warp_frames_band.mode3_launches = 0
+warp_frames_band.viz_launches = 0
 warp_frames_band.raw_launches = 0

@@ -1,35 +1,36 @@
-"""The visualisation output modes composed from the warp kernel's outputs:
-mode 3 (HSV flow over the raw blend), mode 4 (grey flow), mode 5 (side by
-side, full resolution) and mode 6 (side by side, 2x downsampled).
+"""The visualisation output modes: mode 3 (HSV flow over the raw blend),
+mode 4 (grey flow), mode 5 (side by side, full resolution) and mode 6 (side
+by side, 2x downsampled).
 
-PyTorch port of hopperrender_tpu/ops/warp_viz.py and of
-hopperrender_tpu/ops/warp_strip.py::grey_flow_frame. Each function equals
-ops/warp.py::warp_frame_plane in its mode (ref: warpFrameKernelSDR.h:116-184):
+`warp_outputs` serves every output mode with ONE call of K2 (ops/warp_kernel,
+csrc/warp_frame.cu), which computes modes 3-6 itself, as the reference's one
+warp kernel does (ref: warpFrameKernelSDR.h:116-184) and as
+ops/warp.warp_frame computes them.
 
-  * mode 3 is K2's own mode 3 (warp_frames(mode=3)): one launch that warps,
-    blends, colours with the flow of each pixel's cell and applies the
-    levels, as warp_frame computes mode 3 (the JAX package's reference
-    formulation, hopperrender_tpu/ops/warp.py); hsv_flow_overlay colours a
-    raw blend it is given (kernel K5, ops/hsv_kernel.py), the counterpart
-    of the JAX function that the TPU strip route runs after its raw_blend;
-  * mode 4 needs the flow only;
-  * mode 5 is the source's left half beside K2's mode-2 right half;
-  * mode 6 puts the 2x-downsampled source and mode-2 output side by side in a
-    centred band. Y and the UV plane's U outputs are strided slices; the
-    right half's V outputs sample with chroma parity 1 at an even column,
-    which no mode-2 output does, so they are warped here (one sample per V
-    output: a quarter of the band's UV).
+The rest is the PyTorch port of hopperrender_tpu/ops/warp_viz.py and of
+hopperrender_tpu/ops/warp_strip.py::grey_flow_frame, the JAX package's
+compositions from its warp kernel's outputs (XLA, no TPU kernel). No served
+path calls them: they stay as the counterparts of the JAX functions, and
+each equals ops/warp.py::warp_frame_plane in its mode:
+
+  * hsv_flow_overlay colours a raw blend it is given (kernel K5,
+    ops/hsv_kernel.py), the counterpart of the JAX function that the TPU
+    strip route runs after its raw_blend;
+  * grey_flow_frame (mode 4) needs the flow only;
+  * side_by_side_1 (mode 5) is the source's left half beside K2's mode-2
+    right half;
+  * side_by_side_2 (mode 6) puts the 2x-downsampled source and mode-2 output
+    side by side in a centred band. Y and the UV plane's U outputs are
+    strided slices; the right half's V outputs sample with chroma parity 1
+    at an even column, which no mode-2 output does, so they are warped here
+    (one sample per V output: a quarter of the band's UV).
 
 The JAX package's versions repeat the flow over whole cells (they assume
 dim_x % (1 << res_scalar) == 0); these look the flow up per pixel as
-warp_frame_plane does, so every even geometry works. None of them is a TPU
-kernel in the JAX package. Mode 3 and its overlay are hand-written kernels
-on the card (as a chain of PyTorch operations the overlay cost some 27 ms a
-4K output); modes 4-6 are plain PyTorch. Warp outputs come batched, (T, H,
-W) and (T, H/2, W), with their (T,) blending scalars. Modes 4 and 5 and the
-overlay also take row_offsets, for the row bands of the mesh
-(parallel/mesh.py), whose mode 3 is K2's band in mode 3; mode 6 reads rows
-outside a band, so the mesh composes it after its row all-gather.
+warp_frame_plane does, so every even geometry works. Warp outputs come
+batched, (T, H, W) and (T, H/2, W), with their (T,) blending scalars.
+grey_flow_frame, side_by_side_1 and the overlay also take row_offsets, for
+row bands.
 """
 
 from __future__ import annotations
@@ -44,22 +45,16 @@ from hopperrender_tpu_torch.ops.warp import F32, from_int32, plane_coords, to_in
 def warp_outputs(src12_y, src12_uv, src21_y, src21_uv, flow, ts, black_level, white_level, *,
                  mode: int, res_scalar: int, is_hdr: bool):
     """The warp in any output mode 0-6, one output per blending scalar of the
-    (T,) vector ts: (T, H, W), (T, H/2, W). Modes 0-3 are K2 (mode 3 its
-    HSV flow overlay, one call); modes 4-6 are composed as the JAX engine
-    composes them (hopperrender_tpu/engine/flow_engine.py::_run_warp). The
-    K2 wrapper is looked up at call time, so a caller may point it at its
-    plain version."""
-    kw = dict(res_scalar=res_scalar, is_hdr=is_hdr)
-    srcs = (src12_y, src12_uv, src21_y, src21_uv)
-    if mode == 4:   # grey flow: no source sample
-        y, uv = grey_flow_frame(flow, dim_y=src12_y.shape[0], dim_x=src12_y.shape[1], **kw)
+    (T,) vector ts: (T, H, W), (T, H/2, W), from one K2 call. Mode 4 reads no
+    source and gives every t the same frame: K2 makes it for the first t and
+    the T outputs are views of it. The K2 wrapper is looked up at call time,
+    so a caller may point it at its plain version."""
+    one = mode == 4
+    y, uv = warp_kernel.warp_frames(src12_y, src12_uv, src21_y, src21_uv, flow,
+                                    ts[:1] if one else ts, black_level, white_level, mode=mode,
+                                    res_scalar=res_scalar, is_hdr=is_hdr)
+    if one:
         return y.expand(len(ts), -1, -1), uv.expand(len(ts), -1, -1)
-    y, uv = warp_kernel.warp_frames(*srcs, flow, ts, black_level, white_level,
-                                    mode=2 if mode in (5, 6) else mode, **kw)
-    if mode == 5:
-        return side_by_side_1(src12_y, src12_uv, y, uv)
-    if mode == 6:
-        return side_by_side_2(src12_y, src12_uv, src21_uv, y, uv, flow, ts, white_level, **kw)
     return y, uv
 
 

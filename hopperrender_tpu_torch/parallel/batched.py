@@ -9,8 +9,9 @@ is the single-device counterpart of the "dp" axis of parallel/mesh.py.
 The blending scalar is per stream (streams sit at different cadence phases);
 the search radius, the tunables and the levels are shared (one settings
 profile per batch). The streams run one after another through the engine's
-functions: on the card the blur is K1 and the warp K2 (modes 0-3, mode 3 its
-HSV flow overlay in one launch; modes 4-6 composed from it, ops/warp_viz.py).
+functions: on the card the blur is K1 and the warp one K2 launch a stream and
+step in every output mode (mode 3 its HSV flow overlay, modes 4-6 its grey
+flow and side-by-side views; ops/warp_viz.warp_outputs).
 """
 
 from __future__ import annotations

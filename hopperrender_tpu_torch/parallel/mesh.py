@@ -14,15 +14,13 @@ single-GPU; the scale-out maps its axes onto a 2-D mesh of ranks:
       - the warp splits output rows: the sources stay whole on every rank,
         each rank computes its row band of each plane, and an all-gather
         over the dp row's ranks joins the bands. Every output mode 0-6 is
-        composed from K2's mesh-sharded variant
-        (ops/warp_kernel.warp_frames_band), as ops/warp_viz.warp_outputs
-        composes the full frame: modes 0-3 are its own (mode 3 colours in
-        its epilogue, one launch), mode 4 is the grey flow of the band's
-        rows (no K2), mode 5 puts source 1's band rows beside its mode-2
-        band, and mode 6, whose rows read rows outside the band, is
-        composed from the gathered mode-2 frame. The plain row route
-        (warp_frame_sharded) stays as the reference the tests hold these
-        bands to; it takes CPU tensors only.
+        one launch of K2's mesh-sharded variant
+        (ops/warp_kernel.warp_frames_band) per rank and step, as
+        ops/warp_viz.warp_outputs is one K2 call on the full frame: mode 3
+        colours in its epilogue, mode 4 reads the flow only, and modes 5
+        and 6 read whatever rows of the whole sources their band shows.
+        The plain row route (warp_frame_sharded) stays as the reference
+        the tests hold these bands to; it takes CPU tensors only.
 
 Rank r of a dp x sp mesh is (dp_index, sp_index) = divmod(r, sp). Collectives
 go through the sp group of the rank's dp row, on the rank's device: gloo's
@@ -45,7 +43,7 @@ import torch.distributed as dist
 from hopperrender_tpu_torch.ops import cost_volume_kernel
 from hopperrender_tpu_torch.ops import flow as flow_ops
 from hopperrender_tpu_torch.ops import warp as warp_ops
-from hopperrender_tpu_torch.ops import warp_kernel, warp_viz
+from hopperrender_tpu_torch.ops import warp_kernel
 
 MAX_R = flow_ops.MAX_R
 
@@ -116,27 +114,17 @@ def warp_frame_band_sharded(src12_y, src12_uv, src21_y, src21_uv, flow, ts, blac
                             res_scalar: int, mode: int, is_hdr: bool, mesh: Mesh):
     """This rank's row band of each plane, (T, r_y, W) and (T, r_uv, W) for
     the (T,) blending scalars ts, r = ops/warp.band_rows(plane_h, mesh.sp),
-    in a band-local mode 0-5, composed from K2's mesh-sharded variant as
-    ops/warp_viz.warp_outputs composes the full frame. Modes 0-3 are the
-    kernel's own; mode 4 is the grey flow of the band's rows and launches
-    no K2; mode 5 is source 1's band rows beside the mode-2 band. Rows past
-    the plane are 0; the step crops them."""
-    if mode == 6:
-        raise ValueError("mode 6 reads rows outside the band: make_multichip_step composes it "
-                         "from the gathered mode-2 frame")
-    dim_y, dim_x = src12_y.shape
-    r_y, r_uv = warp_ops.band_rows(dim_y, mesh.sp), warp_ops.band_rows(dim_y // 2, mesh.sp)
-    rows = (mesh.sp_index * r_y, mesh.sp_index * r_uv)
-    if mode == 4:
-        y, uv = warp_viz.grey_flow_frame(flow, res_scalar=res_scalar, is_hdr=is_hdr, dim_y=dim_y,
-                                         dim_x=dim_x, row_offsets=rows, out_rows=(r_y, r_uv))
+    in any mode 0-6: one call of K2's mesh-sharded variant, as
+    ops/warp_viz.warp_outputs makes the full frame (mode 4 for the first t,
+    its T outputs views of it). Rows past the plane are 0; the step crops
+    them."""
+    one = mode == 4
+    y, uv = warp_kernel.warp_frames_band(
+        src12_y, src12_uv, src21_y, src21_uv, flow, ts[:1] if one else ts, black, white,
+        res_scalar=res_scalar, mode=mode, is_hdr=is_hdr, num_shards=mesh.sp,
+        shard_index=mesh.sp_index)
+    if one:
         return y.expand(len(ts), -1, -1), uv.expand(len(ts), -1, -1)
-    kw = dict(res_scalar=res_scalar, is_hdr=is_hdr, num_shards=mesh.sp,
-              shard_index=mesh.sp_index)
-    srcs = (src12_y, src12_uv, src21_y, src21_uv, flow, ts, black, white)
-    y, uv = warp_kernel.warp_frames_band(*srcs, mode=2 if mode == 5 else mode, **kw)
-    if mode == 5:
-        return warp_viz.side_by_side_1(src12_y, src12_uv, y, uv, row_offsets=rows)
     return y, uv
 
 
@@ -170,19 +158,15 @@ def make_multichip_step(mesh: Mesh, frame_height: int, frame_width: int, *, low_
     every rank; the (B, 2, low_h, low_w) int16 flow and (B,) int64 raw deltas.
 
     Every mode 0-6 warps through K2's mesh-sharded variant (the kernel on
-    the card, its plain version on the CPU): warp_frame_band_sharded
-    composes the band-local modes 0-5 on each rank. Mode 6's output row y
-    in [H/4, 3H/4) reads mode-2 and source row 2(y - H/4), outside the
-    rank's band, so each rank warps its mode-2 band, the row all-gather
-    joins them as in mode 2, and ops/warp_viz.side_by_side_2 composes the
-    gathered frame, as on one card. Every rank does mode 2's K2 work; a
-    band over the rows that mode 6's band reads would give the middle
-    ranks twice the rows and the edge ranks none."""
+    the card, its plain version on the CPU): one warp_frame_band_sharded
+    call a rank and step makes the rank's band, and the row all-gather
+    joins the bands. Mode 6's output row y in [H/4, 3H/4) reads source row
+    2(y - H/4), outside the rank's band; the sources are whole on every
+    rank, so the band needs nothing from the others."""
     if mode not in warp_ops.WARP_MODES:
         raise ValueError(f"output mode {mode} is not one of {warp_ops.WARP_MODES}")
     if t_batch < 1:
         raise ValueError(f"t_batch {t_batch} < 1")
-    band_mode = 2 if mode == 6 else mode
 
     def step(f0y, f0uv, f1y, f1uv, f2y, f2uv, flow_prev, radius, delta_scalar,
              neighbor_scalar, t, black, white):
@@ -200,13 +184,9 @@ def make_multichip_step(mesh: Mesh, frame_height: int, frame_width: int, *, low_
                 is_hdr=is_hdr, mesh=mesh)
             band_y, band_uv = warp_frame_band_sharded(
                 f0y[b], f0uv[b], f1y[b], f1uv[b], flow_prev[b], ts, float(black), float(white),
-                res_scalar=res_scalar, mode=band_mode, is_hdr=is_hdr, mesh=mesh)
+                res_scalar=res_scalar, mode=mode, is_hdr=is_hdr, mesh=mesh)
             y = mesh.all_gather_sp(band_y, dim=1)[:, :frame_height]
             uv = mesh.all_gather_sp(band_uv, dim=1)[:, :frame_height // 2]
-            if mode == 6:
-                y, uv = warp_viz.side_by_side_2(f0y[b], f0uv[b], f1uv[b], y, uv, flow_prev[b],
-                                                ts, float(white), res_scalar=res_scalar,
-                                                is_hdr=is_hdr)
             if t_batch == 1:
                 y, uv = y[0], uv[0]
             outs.append((y, uv, blurred, delta_raw))

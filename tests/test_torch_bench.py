@@ -23,21 +23,12 @@ from hopperrender_tpu.vio import nv12
 from hopperrender_tpu_torch import bench
 from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
 
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, MCR = 144, 256, 64
 LEVELS = dict(black_level=16.0, white_level=235.0)
 U32 = 0xFFFFFFFF
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread in this module: beside the other test workers,
-    PyTorch's CPU thread pool oversubscribes the cores, and a test that takes
-    2 s alone took over 100 s."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _frames(is_hdr: bool, n: int = 3) -> list:

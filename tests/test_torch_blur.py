@@ -12,6 +12,8 @@ from hopperrender_tpu.ops import pallas_kernels
 from hopperrender_tpu_torch.ops import blur_kernel
 from hopperrender_tpu_torch.ops import flow as torch_flow
 
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 @pytest.mark.parametrize("shape", [(11, 13), (34, 48), (270, 480)])
 def test_blur_matches_pallas_and_xla(rng, shape):

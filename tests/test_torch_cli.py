@@ -19,6 +19,8 @@ from hopperrender_tpu import cli as jax_cli
 from hopperrender_tpu_torch import _build, cli
 from hopperrender_tpu_torch.vio import nv12, video
 
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 16, 32
 

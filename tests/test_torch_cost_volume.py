@@ -17,19 +17,10 @@ from hopperrender_tpu_torch.ops import cost_volume_kernel as cv
 from hopperrender_tpu_torch.ops import flow as torch_flow
 
 from conftest import make_frame
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 H, W = 64, 96
 U32 = 0xFFFFFFFF
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread in this module, as tests/test_torch_bench.py: the
-    CPU thread pool oversubscribes the cores beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -1,12 +1,12 @@
 """Kernels K1 (flow blur), K2 (batched warp, its mode 3 with the HSV flow
-overlay in its epilogue, its raw_blend variant and its mesh-sharded row-band
-variant), K3 (the cost volume's window sums), K4 (the argmin and its commit)
+overlay in its epilogue, its modes 4-6 (grey flow, side by side), its
+raw_blend variant and its mesh-sharded row-band variant), K3 (the cost volume's window sums), K4 (the argmin and its commit)
 and K5 (the HSV flow overlay on a raw blend: every colour pair, the full
 frame and the mesh's bands) against their plain PyTorch versions on a CUDA
 card, exactly, across bit depths, res scalars, modes and ragged shapes (K3
 and K4 over chip_smoke.py's phase 3b matrix); the pyramid on the card
 against the CPU and replayed in a CUDA graph; the HSV colour on the card
-against the CPU; the mesh's dryrun and its mode-3 route on the card; the
+against the CPU; the mesh's dryrun and its modes 3-6 on the card; the
 probe kernels P1-P4 against their plain versions; the four pinned-digest
 streams and the threaded pipeline served on the card. Every test skips
 without a card.
@@ -174,6 +174,38 @@ def test_warp_kernel_mode3_run_cases_match_plain(dev, case):
         assert _same(ky, py) and _same(kuv, puv), f"shard {shard}"
 
 
+@pytest.mark.parametrize("case", WARP_CASES, ids=lambda c: c.name)
+def test_warp_kernel_viz_run_cases_match_plain(dev, case):
+    """K2's modes 4, 5 and 6 (one launch each, counted on viz_launches) on
+    the cases K2 splits its paths on, against their plain version
+    (ops/warp.warp_frame in each mode); with bands, every shard against the
+    plain band."""
+    args = _case_tensors(case, dev)
+    for mode in (4, 5, 6):
+        kw = dict(res_scalar=case.rs, mode=mode, is_hdr=case.is_hdr)
+        before = warp_kernel.warp_frames.launches, warp_kernel.warp_frames.viz_launches
+        ky, kuv = warp_kernel.warp_frames(*args, *case.levels, **kw)
+        assert (warp_kernel.warp_frames.launches, warp_kernel.warp_frames.viz_launches) == \
+            (before[0], before[1] + 1)
+        py, puv = warp_kernel.warp_frames_reference(*args, *case.levels, **kw)
+        assert _same(ky, py) and _same(kuv, puv), f"mode {mode}"
+        for shard in range(case.shards if case.shards > 1 else 0):
+            band = dict(num_shards=case.shards, shard_index=shard)
+            ky, kuv = warp_kernel.warp_frames_band(*args, *case.levels, **band, **kw)
+            py, puv = warp_kernel.warp_frames_band_reference(*args, *case.levels, **band, **kw)
+            assert _same(ky, py) and _same(kuv, puv), f"mode {mode} shard {shard}"
+
+
+def test_warp_kernel_modes_4_to_6_match_plain(dev):
+    """K2's modes 4, 5 and 6 over chip_smoke.py phase 4e's matrix: 4K HDR on
+    three flows at T = 1 and 3 (and equal to the compositions they replace),
+    the row bands at n = 2, 4 and 8, the small geometries (an odd half, t
+    outside [0, 1], the int16 range) and rs 0 with cells to +-32767."""
+    chip_smoke, port = _chip_smoke()
+    err, outputs, launches = chip_smoke.viz_parity(port, dev, chip_smoke.k2_inputs(port, dev))
+    assert err == 0 and outputs > 0 and launches > 0
+
+
 def test_warp_kernel_mode3_matches_plain(dev):
     """K2's mode 3 over chip_smoke.py phase 4d's matrix: 4K HDR on three
     flows at T = 1 and 3 (and equal to K2 raw_blend + K5), the row bands at
@@ -224,10 +256,11 @@ def test_visualize_flow_cuda_matches_cpu(dev, is_hdr):
 
 @pytest.mark.parametrize("is_hdr", [False, True])
 def test_engine_viz_modes_match_cpu(dev, is_hdr):
-    """Modes 3-6 through the engine on the card (K1, K2, its mode 3 and the
-    compositions of ops/warp_viz.py) equal the same stream on the CPU; K2's
-    mode 3 launches in mode 3 only, and neither K2's raw_blend variant nor
-    K5 in any mode. 86 wide: an odd half width for mode 6."""
+    """Modes 3-6 through the engine on the card (K1, K2 in each mode) equal
+    the same stream on the CPU; K2's mode 3 launches in mode 3 only, its
+    modes 4-6 in those modes only, K2's mode 2 in none of them, and neither
+    K2's raw_blend variant nor K5 in any mode. 86 wide: an odd half width
+    for modes 5 and 6."""
     from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
     from hopperrender_tpu_torch.vio import nv12
     h, w = 50, 86
@@ -243,11 +276,15 @@ def test_engine_viz_modes_match_cpu(dev, is_hdr):
                 eng.calculate_optical_flow()
     for mode in (3, 4, 5, 6):
         mode3_before = warp_kernel.warp_frames.mode3_launches
+        viz_before = warp_kernel.warp_frames.viz_launches
+        mode2_before = warp_kernel.warp_frames.launches
         raw_before = warp_kernel.warp_frames.raw_launches
         hsv_before = hsv_kernel.hsv_flow_overlay.launches
         want = engines[0].warp_frames_batch([0.4, 0.8], mode)
         got = engines[1].warp_frames_batch([0.4, 0.8], mode)
         assert (warp_kernel.warp_frames.mode3_launches > mode3_before) == (mode == 3)
+        assert (warp_kernel.warp_frames.viz_launches > viz_before) == (mode != 3)
+        assert warp_kernel.warp_frames.launches == mode2_before
         assert warp_kernel.warp_frames.raw_launches == raw_before
         assert hsv_kernel.hsv_flow_overlay.launches == hsv_before
         for (gy, guv), (wy, wuv) in zip(got, want):
@@ -645,7 +682,8 @@ def test_mesh_mode_3_on_the_card_matches_the_cpu(tmp_path):
 def test_mesh_modes_4_to_6_on_the_card_match_the_cpu(tmp_path, mode):
     """make_multichip_step in modes 4-6 on a (1, 2) mesh of ranks sharing
     the card (gloo): the same outputs as the CPU ranks, byte for byte.
-    Modes 5 and 6 launch K2's band on every rank, mode 4 none."""
+    Each mode launches K2's band in that mode once a step on every rank,
+    and no band in another mode."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from hopperrender_tpu_torch import entry
@@ -663,9 +701,9 @@ def test_mesh_modes_4_to_6_on_the_card_match_the_cpu(tmp_path, mode):
                                                  timeout=300)]
         for path in paths:
             with np.load(path) as z:
-                launched = int(z["band_launches"])
-                assert (launched > 0) == (device == "cuda" and mode != 4), (device, launched)
-                assert int(z["band_mode3_launches"]) == 0
+                launched = int(z["band_viz_launches"])
+                assert launched == (1 if device == "cuda" else 0), (device, launched)
+                assert int(z["band_launches"]) == int(z["band_mode3_launches"]) == 0
         got[device] = entry.gather_dp(paths, 2)
     for k in ("y", "uv", "blurred", "delta"):
         np.testing.assert_array_equal(got["cuda"][k], got["cpu"][k], err_msg=k)

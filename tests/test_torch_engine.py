@@ -12,6 +12,8 @@ from hopperrender_tpu.engine.flow_engine import OpticalFlowEngine as JaxEngine
 from hopperrender_tpu.vio import nv12
 from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
 
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "fixtures")
 # Every fixture: 1080p-sdr holds modes 2 and 3, live mode 4, the rest mode 2.
 PORTED_FIXTURES = ("480p-sdr", "4k-sdr", "4k-hdr", "1080p-sdr", "live")

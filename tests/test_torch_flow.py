@@ -14,6 +14,7 @@ from hopperrender_tpu.vio import nv12
 from hopperrender_tpu_torch.ops import flow as torch_flow
 
 from conftest import make_frame
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

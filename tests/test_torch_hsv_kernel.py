@@ -22,19 +22,10 @@ from hopperrender_tpu_torch.ops import warp as warp_ops
 
 from test_torch_engine import FIXTURE_DIR, replay_fixture
 from test_torch_viz import OVERLAY_FAULT
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 HSV_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "hopperrender_tpu_torch", "csrc", "hsv_colour.h")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread in this module, as tests/test_torch_bench.py: the
-    CPU thread pool oversubscribes the cores beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -30,16 +30,7 @@ from hopperrender_tpu_torch.parallel.batched import batched_step
 
 from conftest import make_flow, make_frame
 from test_torch_viz import OVERLAY_FAULT
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread in this module, as tests/test_torch_bench.py: the
-    CPU thread pool oversubscribes the cores beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -20,6 +20,8 @@ from hopperrender_tpu_torch import _build
 from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
 from hopperrender_tpu_torch.server.frame_server import FrameServer
 
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -37,6 +37,7 @@ from hopperrender_tpu_torch.parallel import launch
 from hopperrender_tpu_torch.parallel.batched import batched_step
 
 from conftest import make_flow, make_frame
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _t(a):
@@ -103,8 +104,8 @@ def test_band_reference_stacks_to_the_full_warp(rng, n, is_hdr):
     stacked and cropped, equal the full warp_frames_reference, modes 0/1/2,
     scalar and (T,) t. 50 rows (UV 25) split unevenly for every n, and at
     n = 8 the last UV shard lies wholly past the plane (all zero). On CPU
-    tensors the wrapper takes the plain version and counts no launch; mode 4,
-    which K2 does not compute, is refused."""
+    tensors the wrapper takes the plain version and counts no launch; a mode
+    outside 0-6 is refused."""
     h, w, rs = 50, 96, 2
     srcs = make_frame(rng, h, w, is_hdr) + make_frame(rng, h, w, is_hdr)
     flow = make_flow(rng, -(-h >> rs), w >> rs, max_mag=30)
@@ -130,7 +131,7 @@ def test_band_reference_stacks_to_the_full_warp(rng, n, is_hdr):
         warp_kernel.warp_frames_band(*args, ts, black, white, num_shards=n, shard_index=n, **kw)
     with pytest.raises(ValueError, match="mode"):
         warp_kernel.warp_frames_band(*args, ts, black, white, num_shards=n, shard_index=0,
-                                     res_scalar=rs, mode=4, is_hdr=is_hdr)
+                                     res_scalar=rs, mode=7, is_hdr=is_hdr)
 
 
 @pytest.mark.parametrize("n", [2, 3, 4])

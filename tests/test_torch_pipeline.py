@@ -27,6 +27,8 @@ from hopperrender_tpu_torch.server.pipeline import PipelinedServer
 from hopperrender_tpu_torch.server.status_http import StatusServer
 from hopperrender_tpu_torch.vio import nv12
 
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 def make_server(h=32, w=48, **kw):
     settings = kw.pop("settings", Settings(target_fps=60.0, use_display_fps=False))

@@ -37,6 +37,8 @@ from hopperrender_tpu_torch.probes import __main__ as probe_path
 from hopperrender_tpu_torch.probes import _timing, chain_probe, chain_probe2, gather_probe
 from hopperrender_tpu_torch.probes import mosaic_probe
 
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(ROOT, "scripts")
 NS = (0, 1, 5, 513)

@@ -14,6 +14,8 @@ from hopperrender_tpu.vio import nv12
 from hopperrender_tpu_torch.server import digests
 from hopperrender_tpu_torch.server.frame_server import FrameServer
 
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "digests.json")
 
 # The streams of tests/test_regression_digests.py:

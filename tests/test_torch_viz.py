@@ -18,6 +18,7 @@ from hopperrender_tpu_torch.ops import warp as torch_warp
 from hopperrender_tpu_torch.ops import warp_kernel, warp_viz
 
 from conftest import make_flow, make_frame
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -18,6 +18,7 @@ from hopperrender_tpu_torch.ops import warp_kernel
 
 from conftest import make_flow, make_frame
 from torch_warp_cases import BAND_CASES, WARP_CASES, make_inputs
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _levels(is_hdr):
@@ -243,8 +244,8 @@ def test_fma_is_single_rounding():
 
 
 def test_unported_modes_raise(rng):
-    """Modes outside 0-6 are refused, and K2 computes only 0-3 (with
-    raw_blend for mode 2 alone): the engine composes modes 4-6."""
+    """Modes outside 0-6 are refused, by the plain warp and by K2, which
+    computes every mode 0-6 and raw_blend for mode 2 alone."""
     y, uv = make_frame(rng, 16, 32)
     flow = make_flow(rng, 16, 32)
     args = (_t(y), _t(uv), _t(y), _t(uv), _t(flow))
@@ -252,7 +253,8 @@ def test_unported_modes_raise(rng):
         with pytest.raises(ValueError, match="mode"):
             torch_warp.warp_frame(*args, 0.5, 0.0, 255.0, res_scalar=0, mode=mode,
                                   is_hdr=False)
-    for mode, raw in ((4, False), (7, False), (-1, False), (1, True), (3, True)):
+    for mode, raw in ((7, False), (-1, False), (1, True), (3, True), (4, True), (5, True),
+                      (6, True)):
         with pytest.raises(ValueError):
             warp_kernel.warp_frames(*args, torch.tensor([0.5]), 0.0, 255.0, res_scalar=0,
                                     mode=mode, is_hdr=False, raw_blend=raw)

@@ -8,7 +8,8 @@
     python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only:
                                             # K1, K2, the band, K5, K2's mode 3 beside
                                             # K2 raw_blend + K5 and without its colour,
-                                            # K2's modes 4-6 beside their compositions,
+                                            # K2's modes 4-6 beside their compositions
+                                            # and modes 5/6 at each register budget,
                                             # K3, K4, the pyramid
                                             # step (flow_step), P1-P4 and the L2 read
                                             # rate, P1/P2 on the probe path on 1 and
@@ -20,7 +21,8 @@ Builds the hand-written CUDA kernels from hopperrender_tpu_torch/csrc (nvcc,
 sm_90a), then runs these phases, one line each:
 
   1. the device: torch's name for it and nvidia-smi's name and power limit;
-  2. the build: nvcc's time and the library's path;
+  2. the build: nvcc's time and the library's path; each kernel's registers
+     and spill bytes from ptxas (stderr), and those of K2's modes 5 and 6;
   3. K1 (flow blur) against its plain PyTorch version at the 4K flow grid
      (2, 270, 480) and at (2, 33, 65), exact;
      3b. K3 (the cost volume's window sums) and K4 (the argmin and its
@@ -239,7 +241,9 @@ beside 5d's, 4d's, 7b's, 7a's and 7c's; K2's modes 4, 5 and 6
 (`warp_frames_mode4` .. `mode6`) the same at T = 1 and 3, with
 `composition_ms` (the composition each replaced, CUDA events) beside
 `events_ms`, `launches` those of the served mode (5c) beside 4e's, 7b's
-and 7c's; K2 raw_blend's `launches` those of
+and 7c's, and for modes 5 and 6 `registers` (ptxas's, of the instance the
+4K HDR path runs) and `spill_bytes` (the most any of the mode's instances
+and its element-by-element functions spill); K2 raw_blend's `launches` those of
 5b (0) beside 4b's (`parity_launches`) and 7a's bands'; the band's
 `launches` 7c's in mode 2, and `launches_by_mode` (each mode's own
 counter); for the probes `ms`
@@ -261,6 +265,7 @@ import importlib.util
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -479,7 +484,7 @@ def device_profile(prof, wall_s: float) -> tuple[float, int, dict[str, float]]:
         kind = ("K1 blur_flow" if "blur_flow_kernel" in name else
                 "K2 warp" if "warp_plane_kernel" in name else
                 "K2 mode 3" if "warp_mode3_kernel" in name else
-                "K2 modes 4-6" if "warp_viz_kernel" in name else
+                "K2 modes 4-6" if "warp_viz_kernel" in name or "grey_flow_kernel" in name else
                 "K3 delta_sums" if "delta_sums_kernel" in name else
                 "K3's fill" if "fill_sums_kernel" in name else
                 "K4 commit_winners" if "commit_winners_kernel" in name else
@@ -1422,23 +1427,97 @@ def viz_composition(port, mode: int, args, res_scalar: int, is_hdr: bool):
     return wv.side_by_side_2(s12y, s12uv, s21uv, y, uv, flow, ts, white, **kw)
 
 
+VIZ_STREAM_RUNS = 4   # runs a thread of a stream tile takes in modes 5 and 6 (kVizStreamRuns)
+
+
 def viz_blocks(mode: int, dim_y: int, dim_x: int, res_scalar: int, is_hdr: bool) -> int:
-    """The blocks of K2's grid in mode 4, 5 or 6 (csrc/warp_frame.cu,
-    launch_viz): the Y plane's tiles of HSV_BLOCK runs, then the UV plane's."""
+    """The blocks of K2's grid in mode 4, 5 or 6 over the whole frame
+    (csrc/warp_frame.cu: launch_grey; viz_grid): per plane, the tiles of
+    HSV_BLOCK threads of each segment. Mode 4: a run a thread, on Y one flow
+    cell, on UV 16 bytes. Modes 5 and 6: a thread of a stream tile (fill,
+    copy, halve) takes VIZ_STREAM_RUNS runs of 16 bytes, of a warp tile one
+    run: mode 5's right half one flow cell from the half rounded down to it,
+    mode 6's right half 16 bytes."""
     max_shift = 3 if is_hdr else 4
-    runs = lambda width, shift: -(-width >> shift)   # noqa: E731
-    half = dim_x >> 1
     bx, by = HSV_BLOCK
+    half = dim_x >> 1
+
+    def tiles(stream: bool, shift: int, x0: int, x1: int, r0: int, r1: int) -> int:
+        if x1 <= x0 or r1 <= r0:
+            return 0
+        a_thread = (1 if mode == 4 else VIZ_STREAM_RUNS) if stream else 1
+        runs = (x1 - x0 + (1 << shift) - 1) >> shift
+        return -(-runs // (bx * a_thread)) * -(-(r1 - r0) // by)
+
     blocks = 0
-    for plane_h, uv in ((dim_y, 0), (dim_y // 2, 1)):
-        if mode == 6:
-            shift_r = min(res_scalar, max_shift) if uv else max(0, min(res_scalar - 1, max_shift))
-            n_runs = runs(half, max_shift) + runs(dim_x - half, shift_r)
+    for uv in (0, 1):
+        plane_h = dim_y // 2 if uv else dim_y
+        if mode == 4:
+            blocks += tiles(uv == 1, max_shift if uv else min(res_scalar, max_shift), 0, dim_x, 0,
+                            plane_h)
+        elif mode == 5:
+            shift = min(res_scalar + uv, 3)
+            cb = (half >> shift) << shift
+            blocks += (tiles(True, max_shift, 0, cb, 0, plane_h)
+                       + tiles(False, shift, cb, dim_x, 0, plane_h))
         else:
-            shift = max_shift if mode == 4 and uv else min(res_scalar + uv, max_shift)
-            n_runs = runs(dim_x, shift)
-        blocks += -(-n_runs // bx) * -(-plane_h // by)
+            vb = (dim_y >> 2) >> uv
+            ve = vb + (dim_y >> (1 + uv))
+            blocks += (tiles(True, max_shift, 0, dim_x, 0, vb)
+                       + tiles(True, max_shift, 0, dim_x, ve, plane_h)
+                       + tiles(True, max_shift, 0, half, vb, ve)
+                       + tiles(False, max_shift, half, dim_x, vb, ve))
     return blocks
+
+
+def ptxas_table(log: str) -> dict[str, dict]:
+    """Each function of nvcc's -Xptxas -v report (its mangled name: kernels
+    and functions that are not inlined) -> its "registers" (kernels), "stack",
+    "spill_stores" and "spill_loads" bytes."""
+    table, name = {}, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in line:
+            words = line.replace(",", " ").split()
+            table.setdefault(name, {}).update(
+                stack=int(words[0]), spill_stores=int(words[4]), spill_loads=int(words[8]))
+        elif "Used" in line and "registers" in line:
+            table.setdefault(name, {})["registers"] = int(line.split("Used")[1].split()[0])
+    return table
+
+
+# K2's modes 5 and 6 in ptxas's names (csrc/warp_frame.cu): warp_viz_kernel<T
+# (h uint8, t uint16), mode, kY, kUV, kMinBlocks>; the instance the 4K HDR
+# path runs (rs 3), and its register budget (kVizMinBlocks; the path's other
+# instances take none, hrt_warp_viz_probe's the others).
+VIZ_KERNEL = re.compile(r"warp_viz_kernelI([ht])Li(\d)ELi(\d+)ELi(\d+)ELi(\d+)EE")
+VIZ_4K = {5: ("t", 8, 8), 6: ("t", 4, 4)}
+VIZ_BUDGET = re.compile(r"constexpr int kVizMinBlocks = (\d+);")
+
+
+def viz_ptxas(table: dict[str, dict]) -> dict[int, dict]:
+    """Modes 5 and 6 from ptxas_table: the registers of the 4K HDR path's
+    instance, and the most bytes any instance of the mode that the path
+    launches, or warp_elements and stream_elements (their element-by-element
+    runs, not inlined), spills (stores)."""
+    source = os.path.join(ROOT, "hopperrender_tpu_torch", "csrc", "warp_frame.cu")
+    with open(source) as f:
+        budget = int(VIZ_BUDGET.search(f.read()).group(1))
+    slow = max((v.get("spill_stores", 0) for name, v in table.items()
+                if "warp_elements" in name or "stream_elements" in name), default=0)
+    out = {}
+    for mode in (5, 6):
+        instances = {(m[1], int(m[3]), int(m[4])): v for name, v in table.items()
+                     if (m := VIZ_KERNEL.search(name)) and int(m[2]) == mode
+                     and (int(m[5]) == budget) == ((m[1], int(m[3]), int(m[4])) == VIZ_4K[mode])}
+        out[mode] = {"registers": instances[VIZ_4K[mode]]["registers"], "budget": budget,
+                     "instances": len(instances),
+                     "spill_bytes": max([slow] + [v.get("spill_stores", 0)
+                                                  for v in instances.values()])}
+    return out
 
 
 # Operations per output element of modes 4-6, counted from csrc/warp_frame.cu:
@@ -1542,7 +1621,45 @@ def viz_parity(port, dev, inp) -> tuple[int, int, int]:
     return err, outputs, launches - launches_before
 
 
-def viz_numbers(port, inp) -> dict:
+# Timing variants of K2's modes 5 and 6 (csrc/warp_frame.cu, hrt_warp_viz_probe):
+# name -> variant, each the path's output: the register budget (64, 80 or
+# none) and the stream tiles among the warp tiles or after them.
+VIZ_VARIANTS = {"64 registers, mixed": 0, "80 registers, mixed": 1, "uncapped, mixed": 2,
+                "64 registers, in order": 3, "80 registers, in order": 4,
+                "uncapped, in order": 5}
+
+
+def viz_variants(port, inp, mode: int, ts) -> dict | None:
+    """Graph-timed device ms of each of VIZ_VARIANTS in mode 5 or 6 on 4K HDR
+    random flow at these ts, each checked equal to the path's output first;
+    timed in turns, the variants in order and then backwards, the mean of the
+    two. None where the library has no such entry point."""
+    b, wk = port._build, port.warp_kernel
+    if not hasattr(b.load().lib, "hrt_warp_viz_probe"):
+        return None
+    src, fl = inp.src, inp.flows["random +-64"]
+    index = src[0].get_device()
+    want = wk.warp_frames(*src, fl, ts, inp.black, inp.white, res_scalar=3, mode=mode,
+                          is_hdr=True)
+    out_y, out_uv = torch.empty_like(want[0]), torch.empty_like(want[1])
+    calls = {}
+    for name, variant in VIZ_VARIANTS.items():
+        def call(v=variant):
+            b.launch("hrt_warp_viz_probe", index, v, mode, *(t.data_ptr() for t in src),
+                     fl.data_ptr(), ts.data_ptr(), ts.shape[0], out_y.data_ptr(),
+                     out_uv.data_ptr(), H, W, fl.shape[1], fl.shape[2], 3, inp.black, inp.white)
+        out_y.zero_()
+        call()
+        require_equal(out_y, want[0], f"mode {mode} variant {name} Y")
+        require_equal(out_uv, want[1], f"mode {mode} variant {name} UV")
+        calls[name] = call
+    order = list(calls)
+    forward = {name: graph_ms(calls[name], 20) for name in order}
+    backward = {name: graph_ms(calls[name], 20) for name in reversed(order)}
+    return {name: (forward[name] + backward[name]) / 2 for name in order}
+
+
+def viz_numbers(port, inp, variants: bool = False) -> dict:
     """K2's modes 4, 5 and 6 at 4K HDR, T = 1 (the served path: one output a
     call) and T = 3, on random +-64 flow: graph-timed device ms in turns with
     an empty launch of its grid (kernel, grid, grid, kernel), smooth flow, host
@@ -1550,7 +1667,8 @@ def viz_numbers(port, inp) -> dict:
     replaced (viz_composition: plain PyTorch around K2's mode 2, which a CUDA
     graph cannot capture: it copies scalars to the card) beside the kernel,
     both with CUDA events over back-to-back calls in turns (kernel,
-    composition, composition, kernel), host gaps included; the bound."""
+    composition, composition, kernel), host gaps included; the bound; with
+    variants, modes 5 and 6's VIZ_VARIANTS too."""
     wk, b = port.warp_kernel, port._build
     index = inp.src[0].get_device()
     random, smooth = inp.flows["random +-64"], inp.flows["smooth"]
@@ -1586,7 +1704,9 @@ def viz_numbers(port, inp) -> dict:
                 "events_ms": (event_turns[0] + event_turns[3]) / 2,
                 "composition_ms": (event_turns[1] + event_turns[2]) / 2,
                 "composition_host_us": host_us(composition, 10),
-                "graph_turns_ms": graph_turns, "event_turns_ms": event_turns}
+                "graph_turns_ms": graph_turns, "event_turns_ms": event_turns,
+                "variants": viz_variants(port, inp, mode, ts) if variants and mode != 4
+                else None}
     return out
 
 
@@ -1600,7 +1720,9 @@ def format_viz(numbers: dict) -> str:
         f"{v['events_ms']:.5f} ms, the composition (K2 mode 2 + warp_viz) "
         f"{v['composition_ms']:.5f} ms (turns "
         f"{'/'.join(f'{t:.5f}' for t in v['event_turns_ms'])}), host "
-        f"{v['composition_host_us']:.1f} us/call"
+        f"{v['composition_host_us']:.1f} us/call" + ("" if not v.get("variants") else
+                                                    "; variants " + ", ".join(
+            f"{name} {ms:.5f}" for name, ms in v["variants"].items()))
         for label, v in numbers.items())
 
 
@@ -3208,15 +3330,15 @@ def main(argv: list[str]) -> int:
 
     # -- 2. build ---------------------------------------------------------------
     lib = _build.load()
-    ptxas, entry_name = [], ""
-    for line in lib.ptxas_log.splitlines():   # each kernel's registers and spills, by name
-        if "Compiling entry function" in line:
-            entry_name = line.split("'")[1]
-        elif "registers" in line or "spill" in line:
-            ptxas.append(f"{entry_name}: {line.strip()}")
-    print("\n".join(ptxas), file=sys.stderr)
-    log(f"phase 2 build: nvcc {lib.build_seconds:.2f} s, {len(ptxas) // 2} kernel "
-        f"instantiations, library {os.path.relpath(lib.path, ROOT)}")
+    ptxas = ptxas_table(lib.ptxas_log)
+    print("\n".join(f"{name}: {v}" for name, v in ptxas.items()), file=sys.stderr)
+    viz_regs = viz_ptxas(ptxas)
+    log(f"phase 2 build: nvcc {lib.build_seconds:.2f} s, "
+        f"{sum('registers' in v for v in ptxas.values())} kernel instantiations, library "
+        f"{os.path.relpath(lib.path, ROOT)}; K2 modes 5 and 6 (ptxas): " + ", ".join(
+            f"mode {m} {v['registers']} registers at 4K HDR (budget {v['budget']}), at most "
+            f"{v['spill_bytes']} spill bytes over its {v['instances']} instances"
+            for m, v in viz_regs.items()))
     if args.parallel_only:
         band_entry, flow_launches = parallel_path(port, dev, card)
         return finish(port, [band_entry] + [
@@ -3241,7 +3363,7 @@ def main(argv: list[str]) -> int:
             log(f"K2 mode 3 times [{card}] of {ROOT}: "
                 f"{format_mode3(numbers['warp_frames_mode3'])}")
         if 6 in getattr(warp_kernel, "KERNEL_MODES", ()):
-            numbers["warp_frames_viz"] = viz_numbers(port, inp)
+            numbers["warp_frames_viz"] = viz_numbers(port, inp, variants=True)
             log(f"K2 modes 4-6 times [{card}] of {ROOT}: {format_viz(numbers['warp_frames_viz'])}")
         numbers["wrapper_split_us"] = wrapper_split(port, dev)
         numbers["launch_anatomy_ms"] = floor_numbers(port, dev)
@@ -3723,7 +3845,9 @@ def main(argv: list[str]) -> int:
             "served_warp_ms_per_output": viz_warp_ms[mode],
             "parity_launches_4e_all_modes": viz_launches_4e,
             "batched_launches": parallel_flow_launches["batched_viz"][mode],
-            "mesh_launches": parallel_flow_launches["mesh_viz"][str(mode)]})
+            "mesh_launches": parallel_flow_launches["mesh_viz"][str(mode)],
+            **({"registers": viz_regs[mode]["registers"],
+                "spill_bytes": viz_regs[mode]["spill_bytes"]} if mode != 4 else {})})
     # K5: ms, plain_ms, host_us and the bound at T = 1 (t3: at T = 3); off
     # the served path since K2's mode 3, so `launches` (the served mode-3
     # path's, 5b) are 0, beside 4c's (its parity) and 7a's raw_blend bands';

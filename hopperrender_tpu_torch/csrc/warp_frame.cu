@@ -118,31 +118,47 @@
 // K2's own Y gather (three quarters of its time) and the barrier's wait for
 // the colour; a colour made a run, without the barrier, was slower.
 //
-// Modes 4, 5 and 6. One grid for both planes, as mode 3: blocks [0, n_y)
-// take the Y plane's tiles, the rest the UV plane's. A thread takes a run of
-// up to 16 bytes of one row and stores it for every t.
-//   * Mode 4 reads no source: Y is min((|ox12| + |oy12|) << (10 HDR, 2 SDR),
-//     peak) of the run's flow cell (flow loaded once a run), UV is mid
-//     (32768 or 128, written here: no byte fill makes 0x8000), no levels.
-//     UV runs are 16 bytes whatever the flow grid.
-//   * Mode 5: columns below dim_x / 2 copy source 1 (a 16-byte span a run,
-//     no levels), the rest are mode 2's runs (warp_run, fast path and all);
-//     a run across the half takes its first outputs from the copy.
-//   * Mode 6: rows outside the centred band [vo, vo + (dim_y >> (1 + cz))),
-//     vo = (dim_y >> 2) >> cz, are filled (0 on Y, mid on UV). In the band
-//     the left half reads source 1 at (2 (cy - vo), 2 cx (+ cx & 1 on UV)),
-//     16-byte runs read as two spans, no levels; the right half is mode 2
-//     at the adjusted position (2 (cx - dim_x / 2), 2 (cy - vo)): the flow
-//     lookup, the back-projection, the mirror over the whole plane, UV's
-//     halved y offsets and the levels, but UV's sample column keeps the
-//     OUTPUT column's parity, which no mode-2 output has. Adjacent right-half
-//     outputs are two adjusted columns apart, so its runs are half as wide
-//     (a run stays inside one flow cell) and read sample by sample. A row
-//     is n_left 16-byte runs of the left half, then the right half's.
-//     Mode 6 computes only the quarter of the warp it shows.
+// Modes 4, 5 and 6. One launch of one grid for both planes an output.
+//   * Mode 4 (grey_flow_kernel) reads no source: Y is min((|ox12| + |oy12|)
+//     << (10 HDR, 2 SDR), peak) of each run's flow cell, UV mid (32768 or 128,
+//     written here: no byte fill makes 0x8000); blocks [0, n_y) take the Y
+//     plane's tiles, the rest the UV plane's (16-byte runs).
+//   * Modes 5 and 6 (warp_viz_kernel): tiles of two kinds, one kind a block
+//     (VizGrid, viz_grid). Stream tiles move bytes only, four 16-byte runs a
+//     thread, all loaded before any is stored, every t: fill (mode 6 outside
+//     its centred band [vo, vo + (dim_y >> (1 + cz))), vo = (dim_y >> 2) >>
+//     cz: 0 on Y, mid on UV), copy (mode 5 left of the half: source 1) and
+//     halve (mode 6's left half in its band: source 1 at (2 (cy - vo), 2 cx
+//     (+ cx & 1 on UV)), two 16-byte loads and a byte permute a word). Warp
+//     tiles look flow up, a run a thread: warp (mode 5's right half: mode 2,
+//     runs of one flow cell of at most 8 samples from the half rounded down
+//     to their width) and side (mode 6's right half in its band: mode 2 at
+//     the adjusted position (2 (cx - dim_x / 2), 2 (cy - vo)), UV's sample
+//     column keeping the OUTPUT column's parity; runs of 16 bytes, flow
+//     cells of 4 outputs taken one after the other);
+//   * a warp run reads each source's samples for a flow cell as one span of
+//     the row, the aligned 16-byte chunks that hold it (at most two), both
+//     sources' requested before either is used, and takes them apart by byte
+//     permutes (pick_cell): mode 5's UV under an odd shift takes V from the
+//     next pair (one span of run + 2 samples, not two); mode 6 takes every
+//     other sample, on UV 2k + (k & 1). Mirror edges gather sample by sample,
+//     four at a time (gather_cell); ragged tails, mode 5's run across an odd
+//     half, mode 6's UV at an odd half and widths not compiled (small
+//     res_scalar) go element by element in a function that is not inlined
+//     (warp_elements); compiled widths: 4 and 8 samples.
+// The kinds split so that a copy tile carries no warp state and a warp tile
+// no copy state. The 4K HDR path's instances (rs >= 3) are held to 64
+// registers (__launch_bounds__(256, 4), 4 blocks an SM) without spilling;
+// the others take no cap, so that none spills. The stream tiles are spread
+// evenly among the warp tiles (their bytes move while the warp tiles wait on
+// their gathers). Chosen by graph-timed turns of hrt_warp_viz_probe's
+// variants (PERF.md).
 // A row band needs nothing outside it: sources and flow are whole.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <climits>
 
 #include "hsv_colour.h"
 
@@ -323,16 +339,6 @@ __device__ __forceinline__ Words gather_slow(const T* row, int x0, int n, int dx
   return pack<T, kMax>(r);
 }
 
-// The first n_front samples of front, then those of rest.
-template <typename T, int kMax>
-__device__ __forceinline__ Words merge_front(const Words& front, const Words& rest,
-                                             int n_front) {
-  uint32_t r[kMax];
-#pragma unroll
-  for (int k = 0; k < kMax; ++k) r[k] = k < n_front ? sample<T>(front, k) : sample<T>(rest, k);
-  return pack<T, kMax>(r);
-}
-
 // The n outputs of one run and t from the samples g12, g21: mode 0 or 1 takes
 // one, mode 2 blends (and, unless kRaw, applies the levels). kUnit: t in
 // [0, 1], so every blend lies in [0, 2^24) and truncates by an add rounded
@@ -391,8 +397,7 @@ __device__ __forceinline__ void warp_run(const T* __restrict__ src12,
                                          size_t t_stride, int cy, int plane_h, int x0, int n,
                                          int run, int dim_x, int ox12, int oy12, int ox21,
                                          int oy21, float black, float white, float peak,
-                                         float mid, int base = 0, Words front = Words{},
-                                         int n_front = 0) {
+                                         float mid, int base = 0) {
   const int nbytes = run * static_cast<int>(sizeof(T));
   for (int i = 0; i < n_t; ++i, dst += t_stride) {
     const float fs12 = ts[i];
@@ -436,9 +441,7 @@ __device__ __forceinline__ void warp_run(const T* __restrict__ src12,
                                                       peak, mid, base)
         : finish_run<T, kMode, kUV, kRaw, false, kMax>(g12, g21, n, fs12, fs21, black, white,
                                                        peak, mid, base);
-    // Mode 5: the run's first n_front outputs are source 1's.
-    store_run<T, kMax>(dst, n_front > 0 ? merge_front<T, kMax>(front, res, n_front) : res, n,
-                       run);
+    store_run<T, kMax>(dst, res, n, run);
   }
 }
 
@@ -631,14 +634,6 @@ cudaError_t launch_mode3(const void* s12y, const void* s21y, const int16_t* flow
 
 // -- Modes 4, 5 and 6 (see "Modes 4, 5 and 6" above) -----------------------------
 
-// How the runs of modes 4, 5 and 6 tile one row of a plane.
-struct VizPlane {
-  int shift;     // modes 4 and 5: log2 of a run's width
-  int shift_r;   // mode 6: log2 of the right half's runs, from column dim_x / 2
-  int n_left;    // mode 6: 16-byte runs of the left half
-  int tiles_x;   // blocks of kBlockX runs across a row
-};
-
 // v in every sample of a Words.
 template <typename T>
 __device__ __forceinline__ Words splat(uint32_t v) {
@@ -646,101 +641,42 @@ __device__ __forceinline__ Words splat(uint32_t v) {
   return Words{{w, w, w, w}};
 }
 
-// The n samples at p (any alignment): the aligned chunks that hold them where
-// the run is whole, else one by one.
-template <typename T, int kMax>
-__device__ __forceinline__ Words load_run(const T* p, int n, int run) {
-  if (n == run) return extract(issue_span(p, run * static_cast<int>(sizeof(T))));
-  uint32_t r[kMax];
-#pragma unroll
-  for (int k = 0; k < kMax; ++k) r[k] = k < n ? p[k] : 0u;
-  return pack<T, kMax>(r);
+// 16 bytes at p, aligned to 16.
+__device__ __forceinline__ Words load16(const void* p) {
+  const uint4 v = __ldg(static_cast<const uint4*>(p));
+  return Words{{v.x, v.y, v.z, v.w}};
 }
 
 // The same n outputs for every t.
 template <typename T, int kMax>
-__device__ __forceinline__ void store_every_t(T* dst, size_t t_stride, int n_t, const Words& v,
+__device__ __forceinline__ void store_every_t(T* dst, int t_stride, int n_t, const Words& v,
                                               int n, int run) {
-  for (int i = 0; i < n_t; ++i) store_run<T, kMax>(dst + i * t_stride, v, n, run);
-}
-
-// Mode 6's left half: output column c shows sample 2c (Y) or 2c + (c & 1)
-// (UV: U from even source pairs, V from odd ones) of source row `row`. A
-// whole run (x0 even) reads its 2 kMax samples as two 16-byte spans.
-template <typename T, bool kUV, int kMax>
-__device__ __forceinline__ Words side_left(const T* row, int x0, int n, int dim_x) {
-  uint32_t r[kMax];
-  if (n == kMax) {
-    const Words a = extract(issue_span(row + 2 * x0, 16));
-    const Words b = extract(issue_span(row + 2 * x0 + kMax, 16));
-#pragma unroll
-    for (int k = 0; k < kMax; ++k) {
-      const int i = 2 * k + (kUV ? (k & 1) : 0);
-      r[k] = i < kMax ? sample<T>(a, i) : sample<T>(b, i - kMax);
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kMax; ++k) {
-      const int c = x0 + k;
-      r[k] = k < n ? row[min(2 * c + (kUV ? (c & 1) : 0), dim_x - 1)] : 0u;
-    }
+  for (int i = 0; i < n_t; ++i) {
+    store_run<T, kMax>(dst + static_cast<size_t>(i) * t_stride, v, n, run);
   }
-  return pack<T, kMax>(r);
 }
 
-// Mode 6's right half: n outputs at columns [x0, x0 + n) of a band row, each
-// mode 2 at the adjusted position (ax0 + 2k, ay) with its levels; UV's
-// sample column keeps the OUTPUT column's parity, (x & ~1) + ((x0 + k) & 1).
-// Adjacent outputs are two adjusted columns apart, so the samples are read
-// one by one. The run lies inside one flow cell (ox12 .. oy21).
-template <typename T, bool kUV, int kMax>
-__device__ __forceinline__ void warp_run_side(const T* __restrict__ src12,
-                                              const T* __restrict__ src21,
-                                              const float* __restrict__ ts, int n_t, T* dst,
-                                              size_t t_stride, int ay, int plane_h, int ax0,
-                                              int x0, int n, int run, int dim_x, int ox12,
-                                              int oy12, int ox21, int oy21, float black,
-                                              float white, float peak, float mid) {
-  for (int i = 0; i < n_t; ++i, dst += t_stride) {
-    const float fs12 = ts[i];
-    const float fs21 = __fsub_rn(1.0f, fs12);
-    const int dx12 = round_c(__fmul_rn(static_cast<float>(ox12), fs12));
-    const int dx21 = -round_c(__fmul_rn(static_cast<float>(ox21), fs21));
-    const float dy12 = __fmul_rn(static_cast<float>(oy12), fs12);
-    const float dy21 = __fmul_rn(static_cast<float>(oy21), fs21);
-    const T* row12 = src12 + static_cast<size_t>(mirror_warp(
-        ay + round_c(kUV ? __fmul_rn(dy12, 0.5f) : dy12), plane_h)) * dim_x;
-    const T* row21 = src21 + static_cast<size_t>(mirror_warp(
-        ay - round_c(kUV ? __fmul_rn(dy21, 0.5f) : dy21), plane_h)) * dim_x;
-    uint32_t r12[kMax], r21[kMax];
-#pragma unroll
-    for (int k = 0; k < kMax; ++k) {
-      r12[k] = r21[k] = 0;
-      if (k < n) {
-        int x12 = mirror_warp(ax0 + 2 * k + dx12, dim_x);
-        int x21 = mirror_warp(ax0 + 2 * k + dx21, dim_x);
-        if (kUV) {
-          x12 = (x12 & ~1) + ((x0 + k) & 1);
-          x21 = (x21 & ~1) + ((x0 + k) & 1);
-        }
-        r12[k] = row12[x12];
-        r21[k] = row21[x21];
-      }
-    }
-    const Words g12 = pack<T, kMax>(r12), g21 = pack<T, kMax>(r21);
-    const Words res = fs12 >= 0.0f && fs12 <= 1.0f
-        ? finish_run<T, 2, kUV, false, true, kMax>(g12, g21, n, fs12, fs21, black, white, peak,
-                                                   mid, 0)
-        : finish_run<T, 2, kUV, false, false, kMax>(g12, g21, n, fs12, fs21, black, white, peak,
-                                                    mid, 0);
-    store_run<T, kMax>(dst, res, n, run);
+// A stream run element by element, every t: n outputs from column x0 of
+// fill (kStep 0), of source row `row` (kStep 1: mode 5's left half) or of its
+// sample 2c (Y) or 2c + (c & 1) (UV) at output column c (kStep 2: mode 6's
+// left half). Ragged ends and rows off 16 bytes; not inlined, as
+// warp_elements.
+template <typename T, bool kUV, int kStep>
+__device__ __noinline__ void stream_elements(const T* row, uint32_t fill, int x0, int n,
+                                             int dim_x, T* dst, int t_stride, int n_t) {
+  for (int k = 0; k < n; ++k) {
+    const int c = x0 + k;
+    const T v = kStep == 0 ? static_cast<T>(fill)
+                : kStep == 1 ? row[c] : row[min(2 * c + (kUV ? (c & 1) : 0), dim_x - 1)];
+    for (int i = 0; i < n_t; ++i) dst[static_cast<size_t>(i) * t_stride + k] = v;
   }
 }
 
 // flow12 at flow cell (scx, scy) of plane coordinates, clamped, and flow21 at
-// the back-projected cell: (ox12, oy12, ox21, oy21).
+// the back-projected cell: (ox12, oy12, ox21, oy21), as floats (exact), the
+// form the positions use: the ints need not stay live beside them.
 struct CellFlow {
-  int ox12, oy12, ox21, oy21;
+  float ox12, oy12, ox21, oy21;
 };
 
 template <bool kUV>
@@ -755,190 +691,688 @@ __device__ __forceinline__ CellFlow cell_flow(const int16_t* __restrict__ flow, 
   scy = clamp_hi(scy, 0, low_h - 1);
   const int16_t* flow_x = flow;
   const int16_t* flow_y = flow + static_cast<size_t>(low_h) * low_w;
-  CellFlow f;
-  f.ox12 = flow_x[scy * low_w + scx];
-  f.oy12 = flow_y[scy * low_w + scx];
-  const int bcy = clamp_hi(scy - (f.oy12 >> rs), 0, low_h - 1);
-  const int bcx = clamp_hi(scx - (f.ox12 >> rs), 0, low_w - 1);
-  f.ox21 = flow_x[bcy * low_w + bcx];
-  f.oy21 = flow_y[bcy * low_w + bcx];
-  return f;
+  const int ox12 = flow_x[scy * low_w + scx];
+  const int oy12 = flow_y[scy * low_w + scx];
+  const int bcy = clamp_hi(scy - (oy12 >> rs), 0, low_h - 1);
+  const int bcx = clamp_hi(scx - (ox12 >> rs), 0, low_w - 1);
+  return CellFlow{static_cast<float>(ox12), static_cast<float>(oy12),
+                  static_cast<float>(flow_x[bcy * low_w + bcx]),
+                  static_cast<float>(flow_y[bcy * low_w + bcx])};
 }
 
-// Mode 6's run j of plane row cy (see viz_run, which calls it).
-template <typename T, bool kUV, int kMax>
-__device__ __forceinline__ void viz_run_side(const T* __restrict__ src12,
-                                             const T* __restrict__ src21,
-                                             const int16_t* __restrict__ flow,
-                                             const float* __restrict__ ts, int n_t, T* row_out,
-                                             size_t t_stride, int dim_y, int dim_x, int plane_h,
-                                             int cy, int j, const VizPlane& g, int low_h,
-                                             int low_w, int rs, float black, float white) {
-  constexpr bool kHdr = sizeof(T) == 2;
-  constexpr uint32_t kMidSample = kHdr ? 32768u : 128u;
-  const int half = dim_x >> 1;
-  const bool left = j < g.n_left;
-  const int run = left ? kMax : 1 << g.shift_r;
-  const int x0 = left ? j * kMax : half + ((j - g.n_left) << g.shift_r);
-  const int end = left ? half : dim_x;
-  if (x0 >= end) return;
-  const int n = min(run, end - x0);
-  const int vo = (dim_y >> 2) >> (kUV ? 1 : 0);
-  if (cy < vo || cy >= vo + (dim_y >> (kUV ? 2 : 1))) {
-    store_every_t<T, kMax>(row_out + x0, t_stride, n_t, splat<T>(kUV ? kMidSample : 0u), n, run);
-    return;
-  }
-  const int ay = (cy - vo) << 1;   // the adjusted (source) row
-  if (left) {
-    const T* row = src12 + static_cast<size_t>(min(ay, plane_h - 1)) * dim_x;
-    store_every_t<T, kMax>(row_out + x0, t_stride, n_t, side_left<T, kUV, kMax>(row, x0, n, dim_x),
-                           n, run);
-    return;
-  }
-  const int ax0 = (x0 - half) << 1;
-  const CellFlow f = cell_flow<kUV>(flow, ax0, ay, low_h, low_w, rs);
-  warp_run_side<T, kUV, kMax>(src12, src21, ts, n_t, row_out + x0, t_stride, ay, plane_h, ax0,
-                              x0, n, run, dim_x, f.ox12, f.oy12, f.ox21, f.oy21, black, white,
-                              kHdr ? 65535.0f : 255.0f, kHdr ? 32768.0f : 128.0f);
+// One source's samples for the kSub outputs of one flow cell of a warp run
+// whose warped columns lie inside [1, dim_x - 2] (the mirror is then the
+// identity): output k at adjusted column ax + kStep k, shifted by dx. They lie
+// in one span of the row, read as the aligned 16-byte chunks that hold it
+// (issue_cell: at most two for the widths launch_viz compiles), which
+// pick_cell takes apart later, so that both sources' loads are in flight
+// together:
+//   * Y: output k is span sample kStep k, the span from ax + dx;
+//   * UV (the cell's first output column even, so output k's parity is
+//     k & 1): the span starts at the even column ax + (dx & ~1); with kStep 1
+//     output k is its sample k, or k + 2 for an odd k under an odd dx (V from
+//     the next pair); with kStep 2 its sample 2k + (k & 1).
+template <bool kUV, int kStep>
+__device__ __forceinline__ constexpr int span_sample(int k) {   // under an even dx
+  return !kUV ? kStep * k : kStep == 2 ? 2 * k + (k & 1) : k;
 }
 
-// Run j of plane row cy (band row band_y) in mode 4, 5 or 6, every t. kRun >
-// 0: mode 5's whole runs are compiled for that width.
-template <typename T, int kMode, bool kUV, int kRun>
-__device__ __forceinline__ void viz_run(const T* __restrict__ src12, const T* __restrict__ src21,
-                                        const int16_t* __restrict__ flow,
-                                        const float* __restrict__ ts, int n_t, T* out,
-                                        size_t t_stride, int dim_y, int dim_x, int plane_h,
-                                        int cy, int band_y, int j, const VizPlane& g, int low_h,
-                                        int low_w, int rs, float black, float white) {
-  constexpr bool kHdr = sizeof(T) == 2;
-  constexpr int kMax = 16 / static_cast<int>(sizeof(T));
-  constexpr int kPeak = kHdr ? 65535 : 255;
-  T* const row_out = out + static_cast<size_t>(band_y) * dim_x;
+template <typename T, bool kUV, int kStep, int kSub>
+struct CellSpan {
+  // The span's most bytes, and the alignment of its start.
+  static constexpr int kBytes =
+      (kUV ? (kStep == 1 ? kSub + 2 : 2 * kSub) : kStep * (kSub - 1) + 1) *
+      static_cast<int>(sizeof(T));
+  static constexpr int kAlign = (kUV ? 2 : 1) * static_cast<int>(sizeof(T));
+  static constexpr int kChunks = (16 - kAlign + kBytes + 15) / 16;
+  uint4 c[kChunks];
+  int off;   // the span's offset into c[0]
+};
 
-  if constexpr (kMode == 4) {   // the grey of the run's flow cell on Y; mid on UV
-    const int run = 1 << g.shift;
-    const int x0 = j << g.shift;
-    if (x0 >= dim_x) return;
-    uint32_t v = kHdr ? 32768u : 128u;
-    if (!kUV) {
-      const int16_t* flow_y = flow + static_cast<size_t>(low_h) * low_w;
-      const int at = clamp_hi(cy >> rs, 0, low_h - 1) * low_w + clamp_hi(x0 >> rs, 0, low_w - 1);
-      const int mag = abs(static_cast<int>(flow[at])) + abs(static_cast<int>(flow_y[at]));
-      v = static_cast<uint32_t>(min(mag << (kHdr ? 10 : 2), kPeak));
+template <typename T, bool kUV, int kStep, int kSub>
+__device__ __forceinline__ CellSpan<T, kUV, kStep, kSub> issue_cell(const T* row, int ax, int dx) {
+  using S = CellSpan<T, kUV, kStep, kSub>;
+  const int nbytes = kUV && kStep == 1 ? (kSub + ((dx & 1) << 1)) * static_cast<int>(sizeof(T))
+                                       : S::kBytes;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(row + (kUV ? ax + (dx & ~1) : ax + dx));
+  S s;
+  s.off = static_cast<int>(a & 15);
+  const uint4* q = reinterpret_cast<const uint4*>(a - s.off);
+#pragma unroll
+  for (int i = 0; i < S::kChunks; ++i) {
+    s.c[i] = i == 0 || s.off + nbytes > 16 * i ? __ldg(q + i) : make_uint4(0, 0, 0, 0);
+  }
+  return s;
+}
+
+// Output word m of a cell: a byte permute of the two span words (word(i):
+// the span's bytes 4i .. 4i + 3) that hold its samples.
+template <typename T, bool kUV, int kStep, typename Word>
+__device__ __forceinline__ uint32_t pick_word(int m, const Word& word) {
+  constexpr int kSize = static_cast<int>(sizeof(T)), kPer = 4 / kSize;
+  const int first = span_sample<kUV, kStep>(m * kPer) * kSize / 4;
+  uint32_t sel = 0;
+#pragma unroll
+  for (int s = 0; s < kPer; ++s) {
+    const int byte = span_sample<kUV, kStep>(m * kPer + s) * kSize - 4 * first;
+#pragma unroll
+    for (int b = 0; b < kSize; ++b) {
+      sel |= static_cast<uint32_t>(byte + b) << (4 * (s * kSize + b));
     }
-    store_every_t<T, kMax>(row_out + x0, t_stride, n_t, splat<T>(v), min(run, dim_x - x0), run);
-  } else if constexpr (kMode == 5) {   // source 1 left of the half, mode 2 from it on
-    const int run = kRun > 0 ? kRun : 1 << g.shift;
-    const int x0 = j * run;
-    if (x0 >= dim_x) return;
-    const int n = min(run, dim_x - x0);
-    const int n_front = clamp_hi((dim_x >> 1) - x0, 0, n);
-    const T* src_row = src12 + static_cast<size_t>(cy) * dim_x + x0;
-    const Words front = n_front > 0 ? load_run<T, kMax>(src_row, n, run) : Words{{0, 0, 0, 0}};
-    if (n_front == n) {
-      store_every_t<T, kMax>(row_out + x0, t_stride, n_t, front, n, run);
-      return;
-    }
-    const CellFlow f = cell_flow<kUV>(flow, x0, cy, low_h, low_w, rs);
-    constexpr int kWhole = kRun > 0 ? kRun : kMax;
-    if (kRun > 0 && n == kRun) {   // a whole run: n and run are compile-time
-      warp_run<T, 2, kUV, false, kWhole>(src12, src21, ts, n_t, row_out + x0, t_stride, cy,
-                                         plane_h, x0, kWhole, kWhole, dim_x, f.ox12, f.oy12,
-                                         f.ox21, f.oy21, black, white, kPeak,
-                                         kHdr ? 32768.0f : 128.0f, 0, front, n_front);
-    } else {
-      warp_run<T, 2, kUV, false, kMax>(src12, src21, ts, n_t, row_out + x0, t_stride, cy,
-                                       plane_h, x0, n, run, dim_x, f.ox12, f.oy12, f.ox21,
-                                       f.oy21, black, white, kPeak, kHdr ? 32768.0f : 128.0f, 0,
-                                       front, n_front);
-    }
+  }
+  return sel == 0x3210u ? word(first) : __byte_perm(word(first), word(first + 1), sel);
+}
+
+// Mode 6's left half, a whole run of 16 bytes from the 32 at p (aligned to
+// 16): output k shows sample 2k (Y) or 2k + (k & 1) (UV, the run's first
+// column even: U from even source pairs, V from odd ones), one byte permute
+// an output word.
+template <typename T, bool kUV>
+__device__ __forceinline__ Words halve16(const T* p) {
+  const Words a = load16(p), b = load16(p + 16 / static_cast<int>(sizeof(T)));
+  const auto word = [&](int i) { return i < 4 ? a.w[i] : b.w[i - 4]; };
+  Words v;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) v.w[m] = pick_word<T, kUV, 2>(m, word);
+  return v;
+}
+
+// The cell's kSub samples, packed as pack does: the span's words are the
+// chunks' words from word off / 4 on, by selects (a dynamic index would put
+// the chunks in local memory), shifted right by the byte remainder.
+template <typename T, bool kUV, int kStep, int kSub>
+__device__ __forceinline__ Words pick_cell(const CellSpan<T, kUV, kStep, kSub>& s, int dx) {
+  using S = CellSpan<T, kUV, kStep, kSub>;
+  constexpr int kN = 4 * S::kChunks;
+  constexpr int kWords = kSub * static_cast<int>(sizeof(T)) / 4;
+  uint32_t c[kN + 4];
+#pragma unroll
+  for (int i = 0; i < S::kChunks; ++i) {
+    c[4 * i] = s.c[i].x;
+    c[4 * i + 1] = s.c[i].y;
+    c[4 * i + 2] = s.c[i].z;
+    c[4 * i + 3] = s.c[i].w;
+  }
+#pragma unroll
+  for (int i = kN; i < kN + 4; ++i) c[i] = 0;
+  const int ws = s.off >> 2, bits = (s.off & 3) * 8;
+  const auto word = [&](int i) {
+    const uint32_t lo = ws == 0 ? c[i] : ws == 1 ? c[i + 1] : ws == 2 ? c[i + 2] : c[i + 3];
+    if (S::kAlign % 4 == 0) return lo;   // the span starts on a word
+    const uint32_t hi = ws == 0 ? c[i + 1] : ws == 1 ? c[i + 2] : ws == 2 ? c[i + 3] : c[i + 4];
+    return __funnelshift_r(lo, hi, bits);
+  };
+  Words v{{0, 0, 0, 0}};
+  if (kUV && kStep == 1) {   // V from the next pair under an odd dx: its selector at run time
+    constexpr uint32_t kOddSel = sizeof(T) == 2 ? 0x7610u : 0x5230u;
+    const uint32_t sel = (dx & 1) ? kOddSel : 0x3210u;
+#pragma unroll
+    for (int m = 0; m < kWords; ++m) v.w[m] = __byte_perm(word(m), word(m + 1), sel);
   } else {
-    // Mode 6: a centred band of rows [vo, vo + (dim_y >> (1 + cz))) shows
-    // source 1 (left) and mode 2 (right), 2x down; 0 (Y) and mid (UV) around it.
-    viz_run_side<T, kUV, kMax>(src12, src21, flow, ts, n_t, row_out, t_stride, dim_y, dim_x,
-                               plane_h, cy, j, g, low_h, low_w, rs, black, white);
+#pragma unroll
+    for (int m = 0; m < kWords; ++m) v.w[m] = pick_word<T, kUV, kStep>(m, word);
+  }
+  return v;
+}
+
+// The same samples one by one, through the mirror (a cell whose span crosses
+// a mirror edge), four at a time: for a cell of eight a loop not unrolled, so
+// that only four gathers are live at once (all eight, and the 4K HDR instance
+// of mode 5 spills).
+template <typename T, bool kUV, int kStep, int kSub>
+__device__ __forceinline__ Words gather_cell(const T* row, int ax, int dx, int dim_x) {
+  if constexpr (kSub <= 4) {
+    uint32_t r[kSub];
+#pragma unroll
+    for (int k = 0; k < kSub; ++k) {
+      const int x = mirror_warp(ax + kStep * k + dx, dim_x);
+      r[k] = row[kUV ? (x & ~1) + (k & 1) : x];
+    }
+    return pack<T, kSub>(r);
+  }
+  constexpr int kQuadWords = sizeof(T) == 2 ? 2 : 1;
+  constexpr int kWords = kSub / 4 * kQuadWords;
+  Words v{{0, 0, 0, 0}};
+#pragma unroll 1
+  for (int q = 0; q < kSub / 4; ++q) {
+    uint32_t r[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int x = mirror_warp(ax + kStep * (4 * q + k) + dx, dim_x);
+      r[k] = row[kUV ? (x & ~1) + (k & 1) : x];
+    }
+    const Words w = pack<T, 4>(r);
+#pragma unroll
+    for (int m = 0; m < 4 - kQuadWords; ++m) v.w[m] = v.w[m + kQuadWords];
+#pragma unroll
+    for (int m = 0; m < kQuadWords; ++m) v.w[4 - kQuadWords + m] = w.w[m];
+  }
+#pragma unroll
+  for (int m = 0; m < kWords; ++m) v.w[m] = v.w[4 - kWords + m];
+  return v;
+}
+
+// One t of one flow cell of a whole warp run: kSub outputs, output k at
+// adjusted column ax + kStep k of adjusted row ay, mode 2 there with its
+// levels (finish_run): the column shifts and mirrored rows, both sources'
+// chunks requested, then taken apart.
+template <typename T, bool kUV, int kStep, int kSub>
+__device__ __forceinline__ Words warp_cell(const T* __restrict__ src12,
+                                           const T* __restrict__ src21, float fs12, float fs21,
+                                           const CellFlow& f, int ax, int ay, int plane_h,
+                                           int dim_x, float black, float white) {
+  constexpr int kLast = kStep * (kSub - 1);
+  // y offset products in the reference's left-to-right order, as warp_run.
+  const int dx12 = round_c(__fmul_rn(f.ox12, fs12));
+  const int dx21 = -round_c(__fmul_rn(f.ox21, fs21));
+  const float dy12 = __fmul_rn(f.oy12, fs12);
+  const float dy21 = __fmul_rn(f.oy21, fs21);
+  const T* row12 = src12 + static_cast<size_t>(mirror_warp(
+      ay + round_c(kUV ? __fmul_rn(dy12, 0.5f) : dy12), plane_h)) * dim_x;
+  const T* row21 = src21 + static_cast<size_t>(mirror_warp(
+      ay - round_c(kUV ? __fmul_rn(dy21, 0.5f) : dy21), plane_h)) * dim_x;
+  const bool fast12 = ax + dx12 >= 1 && ax + kLast + dx12 <= dim_x - 2;
+  const bool fast21 = ax + dx21 >= 1 && ax + kLast + dx21 <= dim_x - 2;
+  CellSpan<T, kUV, kStep, kSub> r12, r21;
+  if (fast12) r12 = issue_cell<T, kUV, kStep, kSub>(row12, ax, dx12);
+  if (fast21) r21 = issue_cell<T, kUV, kStep, kSub>(row21, ax, dx21);
+  const Words g12 = fast12 ? pick_cell(r12, dx12)
+                           : gather_cell<T, kUV, kStep, kSub>(row12, ax, dx12, dim_x);
+  const Words g21 = fast21 ? pick_cell(r21, dx21)
+                           : gather_cell<T, kUV, kStep, kSub>(row21, ax, dx21, dim_x);
+  // Blended and levelled four samples at a time (finish_run), so that only
+  // four samples' arithmetic is live at once.
+  constexpr float kPeak = sizeof(T) == 2 ? 65535.0f : 255.0f;
+  constexpr float kMid = sizeof(T) == 2 ? 32768.0f : 128.0f;
+  constexpr int kQuadWords = sizeof(T) == 2 ? 2 : 1;
+  const bool unit = fs12 >= 0.0f && fs12 <= 1.0f;
+  Words out{{0, 0, 0, 0}};
+#pragma unroll
+  for (int q = 0; q < kSub / 4; ++q) {
+    Words a{{0, 0, 0, 0}}, b{{0, 0, 0, 0}};
+#pragma unroll
+    for (int m = 0; m < kQuadWords; ++m) {
+      a.w[m] = g12.w[q * kQuadWords + m];
+      b.w[m] = g21.w[q * kQuadWords + m];
+    }
+    const Words r = unit ? finish_run<T, 2, kUV, false, true, 4>(a, b, 4, fs12, fs21, black,
+                                                                 white, kPeak, kMid, 0)
+                         : finish_run<T, 2, kUV, false, false, 4>(a, b, 4, fs12, fs21, black,
+                                                                  white, kPeak, kMid, 0);
+#pragma unroll
+    for (int m = 0; m < kQuadWords; ++m) out.w[q * kQuadWords + m] = r.w[m];
+  }
+  return out;
+}
+
+// A whole warp run of modes 5 and 6, every t, each t stored with one store of
+// its width: kCells (mode 5: 1; mode 6: 2 or 4) flow cells of kSub outputs,
+// cell c's output k at adjusted column ax0 + kStep (kSub c + k). The cells are
+// taken one after the other (a loop not unrolled), so that one cell's state
+// is live at a time.
+template <typename T, bool kUV, int kStep, int kSub, int kCells>
+__device__ __forceinline__ void warp_cells(const T* __restrict__ src12,
+                                           const T* __restrict__ src21,
+                                           const float* __restrict__ ts, int n_t, T* dst,
+                                           int t_stride, int ax0, int ay, int plane_h,
+                                           int dim_x, const CellFlow (&f)[kCells], float black,
+                                           float white) {
+  static_assert(kCells == 1 || kCells == 2 || kCells == 4, "a run is 1, 2 or 4 flow cells");
+  constexpr int kRun = kSub * kCells;
+  constexpr int kWordsACell = kSub * static_cast<int>(sizeof(T)) / 4;
+  const auto one_t = [&](int i) {
+    const float fs12 = ts[i];
+    const float fs21 = __fsub_rn(1.0f, fs12);
+    Words out{{0, 0, 0, 0}};
+    const auto cell = [&](int c) {
+      CellFlow fc = f[0];
+#pragma unroll
+      for (int k = 1; k < kCells; ++k) {
+        if (c == k) fc = f[k];
+      }
+      const int ax = ax0 + kStep * kSub * c;
+      const Words w = warp_cell<T, kUV, kStep, kSub>(src12, src21, fs12, fs21, fc, ax, ay,
+                                                     plane_h, dim_x, black, white);
+      // the cell's words on top, the earlier cell's below them
+#pragma unroll
+      for (int m = 0; m < 4 - kWordsACell; ++m) out.w[m] = out.w[m + kWordsACell];
+#pragma unroll
+      for (int m = 0; m < kWordsACell; ++m) out.w[4 - kWordsACell + m] = w.w[m];
+    };
+#pragma unroll 1
+    for (int c = 0; c < kCells; ++c) cell(c);
+    if (kRun * static_cast<int>(sizeof(T)) < 16) {   // the run's words sit on top
+#pragma unroll
+      for (int m = 0; m < kCells * kWordsACell; ++m) {
+        out.w[m] = out.w[4 - kCells * kWordsACell + m];
+      }
+    }
+    store_run<T, kRun>(dst + static_cast<size_t>(i) * t_stride, out, kRun, kRun);
+  };
+#pragma unroll 1
+  for (int i = 0; i < n_t; ++i) one_t(i);
+}
+
+// The warp runs that take no fast path, element by element, every t: output k
+// at column x0 + k, adjusted column ax0 + step k of adjusted row ay, its own
+// flow lookup; columns below copy_end (mode 5's run across an odd half) copy
+// source 1's row ay. Ragged tails, that run, mode 6's UV at an odd half, and
+// every run of an instance without a width compiled (small res_scalar). Not
+// inlined: its registers stay out of the fast runs' budget.
+template <typename T, bool kUV>
+__device__ __noinline__ void warp_elements(const T* __restrict__ src12,
+                                           const T* __restrict__ src21,
+                                           const int16_t* __restrict__ flow,
+                                           const float* __restrict__ ts, int n_t, T* dst,
+                                           int t_stride, int x0, int n, int copy_end, int ax0,
+                                           int step, int ay, int plane_h, int dim_x, int low_h,
+                                           int low_w, int rs, float black, float white) {
+  constexpr int kOne = 4 / static_cast<int>(sizeof(T));   // finish_run's packing: a word
+  for (int k = 0; k < n; ++k) {
+    const int c = x0 + k;
+    if (c < copy_end) {
+      const T v = src12[static_cast<size_t>(ay) * dim_x + c];
+      for (int i = 0; i < n_t; ++i) dst[static_cast<size_t>(i) * t_stride + k] = v;
+      continue;
+    }
+    const int ax = ax0 + step * k;
+    const CellFlow f = cell_flow<kUV>(flow, ax, ay, low_h, low_w, rs);
+    for (int i = 0; i < n_t; ++i) {
+      const float fs12 = ts[i];
+      const float fs21 = __fsub_rn(1.0f, fs12);
+      const float dy12 = __fmul_rn(f.oy12, fs12);
+      const float dy21 = __fmul_rn(f.oy21, fs21);
+      const int y12 = mirror_warp(ay + round_c(kUV ? __fmul_rn(dy12, 0.5f) : dy12), plane_h);
+      const int y21 = mirror_warp(ay - round_c(kUV ? __fmul_rn(dy21, 0.5f) : dy21), plane_h);
+      int x12 = mirror_warp(ax + round_c(__fmul_rn(f.ox12, fs12)), dim_x);
+      int x21 = mirror_warp(ax - round_c(__fmul_rn(f.ox21, fs21)), dim_x);
+      if (kUV) {   // the output column's chroma parity
+        x12 = (x12 & ~1) + (c & 1);
+        x21 = (x21 & ~1) + (c & 1);
+      }
+      const Words g12{{src12[static_cast<size_t>(y12) * dim_x + x12], 0, 0, 0}};
+      const Words g21{{src21[static_cast<size_t>(y21) * dim_x + x21], 0, 0, 0}};
+      dst[static_cast<size_t>(i) * t_stride + k] = static_cast<T>(sample<T>(
+          finish_run<T, 2, kUV, false, false, kOne>(g12, g21, 1, fs12, fs21, black, white,
+                                                    sizeof(T) == 2 ? 65535.0f : 255.0f,
+                                                    sizeof(T) == 2 ? 32768.0f : 128.0f, 0), 0));
+    }
   }
 }
 
-// Modes 4, 5 and 6 in one grid: blocks [0, n_y_blocks) take the Y plane's
-// tiles of kBlockX runs x kBlockY rows (geo_y.tiles_x tiles a row), the rest
-// the UV plane's. kRunY > 0: mode 5's whole Y runs are compiled for it.
-// __launch_bounds__ asks for 4 blocks an SM (64 registers a thread), as mode
-// 3: left to itself mode 5 takes 99-116 registers and mode 6 73-80, and
-// both ran 8-16% slower, though held to 64 they spill (PERF.md, run DH).
-template <typename T, int kMode, int kRunY>
-__global__ void __launch_bounds__(kBlockX * kBlockY, 4) warp_viz_kernel(
+// What the threads of a tile do in modes 5 and 6; every tile of a block is of
+// one kind. The stream kinds (fill, copy, halve) only move bytes; the warp
+// kinds (warp, side) look flow up first.
+enum VizKind : int {
+  kVizFill,    // one value: mode 6 outside its band (0 on Y, mid on UV)
+  kVizCopy,    // mode 5's left half: source 1
+  kVizHalve,   // mode 6's left half: source 1, 2x down
+  kVizWarp,    // mode 5's right half: mode 2 at the output's own position
+  kVizSide,    // mode 6's right half: mode 2 at the adjusted position
+};
+
+// One kind of tile over columns [x_begin, x_end) and plane rows [row_begin,
+// row_end) of one plane, in runs of 1 << shift samples: a tile is kBlockY rows
+// of kBlockX threads, a thread of a stream kind takes kVizStreamRuns runs
+// kBlockX apart, of a warp kind one. Its blocks are [first, first +
+// tiles_x * tile rows) in the grid's order (VizGrid).
+struct VizSeg {
+  int first, kind, uv, shift, tiles_x, x_begin, x_end, row_begin, row_end;
+};
+
+// A call's tiles in mode 5 or 6: its segments in the grid's order, the
+// warp kinds first (Y, then UV), then the stream kinds; n_blocks in all; mix,
+// the number of stream blocks or 0 (see warp_viz_kernel).
+constexpr int kVizSegs = 8;
+struct VizGrid {
+  VizSeg seg[kVizSegs];
+  int n_blocks, mix;
+};
+
+// Runs a thread of a stream tile takes, and the segments a mode has (5: warp
+// and copy a plane; 6: side, halve and two fills a plane).
+constexpr int kVizStreamRuns = 4;
+__host__ __device__ constexpr int viz_segs(int mode) { return mode == 5 ? 4 : kVizSegs; }
+
+// A stream tile's runs of kMax samples, kR a thread kBlockX runs apart (a
+// warp stores 32 neighbouring runs at once), each stored for every t: fill
+// (kStep 0), source row `row` (kStep 1) or 2x down (kStep 2), as
+// stream_elements. A whole run whose source and outputs are aligned to 16
+// bytes is one 16-byte load (two for kStep 2) and a 16-byte store a t, all
+// loads issued before any store; the others go element by element.
+template <typename T, bool kUV, int kStep, int kR>
+__device__ __forceinline__ void stream_runs(T* row_out, int t_stride, int n_t, int j,
+                                            int x_begin, int x_end, const T* row, uint32_t fill,
+                                            int dim_x) {
+  constexpr int kMax = 16 / static_cast<int>(sizeof(T));
+  const bool t_aligned = ((t_stride * sizeof(T)) & 15) == 0;
+  Words v[kR];
+  bool whole[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int x0 = x_begin + (j + r * kBlockX) * kMax;
+    const int n = min(kMax, x_end - x0);
+    const T* p = row + kStep * x0;
+    whole[r] = n == kMax && t_aligned && (reinterpret_cast<uintptr_t>(row_out + x0) & 15) == 0
+               && (kStep == 0 || (reinterpret_cast<uintptr_t>(p) & 15) == 0);
+    v[r] = Words{{0, 0, 0, 0}};
+    if (whole[r]) {
+      v[r] = kStep == 0 ? splat<T>(fill) : kStep == 1 ? load16(p) : halve16<T, kUV>(p);
+    } else if (n > 0) {
+      stream_elements<T, kUV, kStep>(row, fill, x0, n, dim_x, row_out + x0, t_stride, n_t);
+    }
+  }
+  for (int i = 0; i < n_t; ++i) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (whole[r]) {
+        T* dst = row_out + static_cast<size_t>(i) * t_stride + x_begin + (j + r * kBlockX) * kMax;
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[r].w[0], v[r].w[1], v[r].w[2], v[r].w[3]);
+      }
+    }
+  }
+}
+
+// A stream tile's runs (fill, copy, halve; see stream_runs) of plane row cy.
+template <typename T, int kMode, bool kUV>
+__device__ __forceinline__ void stream_tile(const VizSeg& s, const T* __restrict__ src12, int n_t,
+                                            T* row_out, int t_stride, int cy, int j,
+                                            int dim_y, int dim_x) {
+  constexpr int kR = kVizStreamRuns;
+  if (kMode == 6 && s.kind == kVizFill) {   // 0 on Y, mid on UV
+    stream_runs<T, kUV, 0, kR>(row_out, t_stride, n_t, j, s.x_begin, s.x_end, src12,
+                               kUV ? (sizeof(T) == 2 ? 32768u : 128u) : 0u, dim_x);
+  } else if (kMode == 5) {   // source 1 left of the half
+    stream_runs<T, kUV, 1, kR>(row_out, t_stride, n_t, j, s.x_begin, s.x_end,
+                               src12 + static_cast<size_t>(cy) * dim_x, 0, dim_x);
+  } else if (kMode == 6) {   // source 1, 2x down, left of the half in mode 6's band
+    const int plane_h = kUV ? dim_y / 2 : dim_y;
+    const int ay = (cy - ((dim_y >> 2) >> (kUV ? 1 : 0))) << 1;
+    stream_runs<T, kUV, 2, kR>(row_out, t_stride, n_t, j, s.x_begin, s.x_end,
+                               src12 + static_cast<size_t>(min(ay, plane_h - 1)) * dim_x, 0,
+                               dim_x);
+  }
+}
+
+// A warp tile's run j of plane row cy (warp, side). kFast > 0: the
+// plane's whole warp runs are compiled for that width (mode 5: kFast samples,
+// one flow cell; mode 6: 16 bytes of kFast-output cells); the others go
+// element by element (warp_elements).
+template <typename T, int kMode, bool kUV, int kFast>
+__device__ __forceinline__ void warp_tile(const VizSeg& s, const T* __restrict__ src12,
+                                          const T* __restrict__ src21,
+                                          const int16_t* __restrict__ flow,
+                                          const float* __restrict__ ts, int n_t, T* row_out,
+                                          int t_stride, int cy, int j, int dim_y, int dim_x,
+                                          int low_h, int low_w, int rs, float black,
+                                          float white) {
+  constexpr int kMax = 16 / static_cast<int>(sizeof(T));
+  const int plane_h = kUV ? dim_y / 2 : dim_y;
+  const int half = dim_x >> 1;
+  if constexpr (kMode == 5) {   // mode 2 from the half on
+    const int run = kFast > 0 ? kFast : 1 << s.shift;
+    const int x0 = s.x_begin + j * run;
+    if (x0 >= s.x_end) return;
+    const int n = min(run, dim_x - x0);
+    if constexpr (kFast > 0) {
+      if (n == kFast && x0 >= half) {
+        const CellFlow f[1] = {cell_flow<kUV>(flow, x0, cy, low_h, low_w, rs)};
+        warp_cells<T, kUV, 1, kFast, 1>(src12, src21, ts, n_t, row_out + x0, t_stride, x0, cy,
+                                        plane_h, dim_x, f, black, white);
+        return;
+      }
+    }
+    warp_elements<T, kUV>(src12, src21, flow, ts, n_t, row_out + x0, t_stride, x0, n, half, x0,
+                          1, cy, plane_h, dim_x, low_h, low_w, rs, black, white);
+  } else {   // mode 6's right half: output x at adjusted (2 (x - half), 2 (cy - vo))
+    const int ay = (cy - ((dim_y >> 2) >> (kUV ? 1 : 0))) << 1;
+    const int x0 = half + j * kMax;
+    if (x0 >= dim_x) return;
+    const int n = min(kMax, dim_x - x0);
+    const int ax0 = (x0 - half) << 1;
+    if constexpr (kFast > 0) {
+      if (n == kMax && (!kUV || (x0 & 1) == 0)) {
+        constexpr int kCells = kMax / kFast;
+        CellFlow f[kCells];
+#pragma unroll
+        for (int c = 0; c < kCells; ++c) {
+          f[c] = cell_flow<kUV>(flow, ax0 + 2 * kFast * c, ay, low_h, low_w, rs);
+        }
+        warp_cells<T, kUV, 2, kFast, kCells>(src12, src21, ts, n_t, row_out + x0, t_stride, ax0,
+                                             ay, plane_h, dim_x, f, black, white);
+        return;
+      }
+    }
+    warp_elements<T, kUV>(src12, src21, flow, ts, n_t, row_out + x0, t_stride, x0, n, 0, ax0, 2,
+                          ay, plane_h, dim_x, low_h, low_w, rs, black, white);
+  }
+}
+
+// Modes 5 and 6 in one grid of tiles of kBlockX x kBlockY threads, each
+// block's tiles of one kind (VizGrid). With mix, the stream tiles are spread
+// evenly through the grid: block b is stream block floor(b * mix / n_blocks)
+// where that count steps at b, else a warp block, so that their bytes move
+// while warp tiles wait on their gathers. kY, kUV: the planes' compiled warp
+// widths (warp_tile's kFast). kMinBlocks: blocks an SM that
+// __launch_bounds__ asks for, which caps the registers (4: 64 a thread, 3:
+// 80, 1: none).
+template <typename T, int kMode, int kY, int kUV, int kMinBlocks>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) warp_viz_kernel(
     const T* __restrict__ s12y, const T* __restrict__ s12uv, const T* __restrict__ s21y,
     const T* __restrict__ s21uv, const int16_t* __restrict__ flow, const float* __restrict__ ts,
     int n_t, T* __restrict__ out_y, T* __restrict__ out_uv, int dim_y, int dim_x, Band band,
-    int low_h, int low_w, int rs, VizPlane geo_y, VizPlane geo_uv, int n_y_blocks, float black,
-    float white) {
-  const bool uv = blockIdx.x >= static_cast<unsigned>(n_y_blocks);   // uniform in a block
-  const VizPlane g = uv ? geo_uv : geo_y;
-  const int b = uv ? blockIdx.x - n_y_blocks : blockIdx.x;
-  const int j = (b % g.tiles_x) * kBlockX + threadIdx.x;        // the run's index in its row
-  const int band_y = (b / g.tiles_x) * kBlockY + threadIdx.y;   // row within the band
-  const int plane_h = uv ? dim_y / 2 : dim_y;
-  const int rows = uv ? band.rows_uv : band.rows_y;
-  const int cy = (uv ? band.row0_uv : band.row0_y) + band_y;    // row of the plane
-  if (band_y >= rows || cy >= plane_h) return;
-  const size_t t_stride = static_cast<size_t>(rows) * dim_x;
-  if (uv) {
-    viz_run<T, kMode, true, 0>(s12uv, s21uv, flow, ts, n_t, out_uv, t_stride, dim_y, dim_x,
-                               plane_h, cy, band_y, j, g, low_h, low_w, rs, black, white);
+    int low_h, int low_w, int rs, VizGrid grid, float black, float white) {
+  int v = blockIdx.x;   // the block's place in the grid's order
+  if (grid.mix > 0) {
+    const long long n = grid.n_blocks;
+    const int before = static_cast<int>(static_cast<long long>(v) * grid.mix / n);
+    const int after = static_cast<int>(static_cast<long long>(v + 1) * grid.mix / n);
+    v = after > before ? grid.n_blocks - grid.mix + before : v - before;
+  }
+  VizSeg s = grid.seg[0];
+#pragma unroll
+  for (int i = 1; i < viz_segs(kMode); ++i) {
+    if (v >= grid.seg[i].first) s = grid.seg[i];
+  }
+  const int b = v - s.first;
+  const int by = b / s.tiles_x;
+  const int cy = s.row_begin + by * kBlockY + threadIdx.y;   // row of the plane
+  if (cy >= s.row_end) return;
+  const bool stream = s.kind == kVizFill || s.kind == kVizCopy || s.kind == kVizHalve;
+  const int j = (b - by * s.tiles_x) * kBlockX * (stream ? kVizStreamRuns : 1)
+                + threadIdx.x;
+  const int t_stride = (s.uv ? band.rows_uv : band.rows_y) * dim_x;
+  T* const row_out = (s.uv ? out_uv : out_y)
+                     + static_cast<size_t>(cy - (s.uv ? band.row0_uv : band.row0_y)) * dim_x;
+  if (stream) {
+    if (s.uv) {
+      stream_tile<T, kMode, true>(s, s12uv, n_t, row_out, t_stride, cy, j, dim_y, dim_x);
+    } else {
+      stream_tile<T, kMode, false>(s, s12y, n_t, row_out, t_stride, cy, j, dim_y, dim_x);
+    }
+  } else if (s.uv) {
+    warp_tile<T, kMode, true, kUV>(s, s12uv, s21uv, flow, ts, n_t, row_out, t_stride, cy, j,
+                                   dim_y, dim_x, low_h, low_w, rs, black, white);
   } else {
-    viz_run<T, kMode, false, kRunY>(s12y, s21y, flow, ts, n_t, out_y, t_stride, dim_y, dim_x,
-                                    plane_h, cy, band_y, j, g, low_h, low_w, rs, black, white);
+    warp_tile<T, kMode, false, kY>(s, s12y, s21y, flow, ts, n_t, row_out, t_stride, cy, j, dim_y,
+                                   dim_x, low_h, low_w, rs, black, white);
   }
 }
 
-// Modes 4, 5 and 6's one launch. A run is at most 16 bytes; where it warps
-// (mode 5, mode 6's right half) it lies inside one flow cell: 1 << rs
-// columns on Y and 2 << rs on UV, and on mode 6's right half half as many
-// output columns, two adjusted columns apart. Mode 4's UV and mode 6's left
-// half take whole 16-byte runs.
+// Mode 4, the grey flow (see "Modes 4, 5 and 6" above): blocks [0,
+// n_y_blocks) take the Y plane's tiles of kBlockX
+// runs of 1 << shift_y samples (one flow cell, at most 16 bytes) x kBlockY
+// rows, tiles_y a row of tiles; the rest the UV plane's, of 16-byte runs.
+// Y is min((|ox12| + |oy12|) << (10 HDR, 2 SDR), peak) of the run's flow
+// cell, UV mid, for every t.
+template <typename T>
+__global__ void __launch_bounds__(kBlockX * kBlockY, 4) grey_flow_kernel(
+    const int16_t* __restrict__ flow, int n_t, T* __restrict__ out_y, T* __restrict__ out_uv,
+    int dim_y, int dim_x, Band band, int low_h, int low_w, int rs, int shift_y, int tiles_y,
+    int tiles_uv, int n_y_blocks) {
+  constexpr bool kHdr = sizeof(T) == 2;
+  constexpr int kMax = 16 / static_cast<int>(sizeof(T));
+  constexpr int kMaxShift = kHdr ? 3 : 4;
+  const bool uv = blockIdx.x >= static_cast<unsigned>(n_y_blocks);   // uniform in a block
+  const int b = uv ? blockIdx.x - n_y_blocks : blockIdx.x;
+  const int tiles_x = uv ? tiles_uv : tiles_y;
+  const int shift = uv ? kMaxShift : shift_y;
+  const int x0 = ((b % tiles_x) * kBlockX + threadIdx.x) << shift;
+  const int band_y = (b / tiles_x) * kBlockY + threadIdx.y;   // row within the band
+  const int rows = uv ? band.rows_uv : band.rows_y;
+  const int cy = (uv ? band.row0_uv : band.row0_y) + band_y;  // row of the plane
+  if (band_y >= rows || cy >= (uv ? dim_y / 2 : dim_y) || x0 >= dim_x) return;
+  uint32_t v = kHdr ? 32768u : 128u;
+  if (!uv) {
+    const int16_t* flow_y = flow + static_cast<size_t>(low_h) * low_w;
+    const int at = clamp_hi(cy >> rs, 0, low_h - 1) * low_w + clamp_hi(x0 >> rs, 0, low_w - 1);
+    const int mag = abs(static_cast<int>(flow[at])) + abs(static_cast<int>(flow_y[at]));
+    v = static_cast<uint32_t>(min(mag << (kHdr ? 10 : 2), kHdr ? 65535 : 255));
+  }
+  const int run = 1 << shift;
+  store_every_t<T, kMax>((uv ? out_uv : out_y) + static_cast<size_t>(band_y) * dim_x + x0,
+                         rows * dim_x, n_t, splat<T>(v), min(run, dim_x - x0), run);
+}
+
+template <typename T>
+cudaError_t launch_grey(const int16_t* flow, int n_t, void* out_y, void* out_uv, int dim_y,
+                        int dim_x, const Band& band, int low_h, int low_w, int rs,
+                        cudaStream_t stream) {
+  constexpr int kMaxShift = sizeof(T) == 2 ? 3 : 4;
+  const int shift_y = rs < kMaxShift ? rs : kMaxShift;
+  const auto tiles = [&](int shift) {
+    return (((dim_x + (1 << shift) - 1) >> shift) + kBlockX - 1) / kBlockX;
+  };
+  const int tiles_y = tiles(shift_y), tiles_uv = tiles(kMaxShift);
+  const int n_y_blocks = tiles_y * ((band.rows_y + kBlockY - 1) / kBlockY);
+  const int n_blocks = n_y_blocks + tiles_uv * ((band.rows_uv + kBlockY - 1) / kBlockY);
+  grey_flow_kernel<T><<<n_blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
+      flow, n_t, static_cast<T*>(out_y), static_cast<T*>(out_uv), dim_y, dim_x, band, low_h,
+      low_w, rs, shift_y, tiles_y, tiles_uv, n_y_blocks);
+  return cudaGetLastError();
+}
+
+// The register budget of the 4K HDR path's instances of modes 5 and 6
+// (warp_viz_kernel's kMinBlocks: 64 registers a thread), and the stream tiles
+// mixed among the warp tiles; chosen by graph-timed turns of
+// hrt_warp_viz_probe's variants (PERF.md).
+constexpr int kVizMinBlocks = 4;
+
+// The tiles of one call in mode 5 or 6 (see warp_viz_kernel): per plane,
+// rows [row0, row0 + rows) clipped to the plane,
+//   * mode 5: copy columns [0, cb), warp from cb, cb the half rounded down to
+//     the warp runs' width (one flow cell, at most 16 bytes), so that a run
+//     across an odd half is a warp run;
+//   * mode 6: fill outside the band, halve its left half, side its right
+//     half in runs of 16 bytes.
+// Stream runs are 16 bytes.
+template <typename T>
+VizGrid viz_grid(int mode, int dim_y, int dim_x, const Band& band, int rs, bool mix) {
+  constexpr int kMaxShift = sizeof(T) == 2 ? 3 : 4;
+  VizSeg warp[2], stream[6];
+  int n_warp = 0, n_stream = 0;
+  const auto add = [&](bool is_warp, int kind, int uv, int shift, int x_begin, int x_end,
+                       int row_begin, int row_end) {
+    if (x_end <= x_begin || row_end <= row_begin) return;
+    const int a_thread = is_warp ? 1 : kVizStreamRuns;
+    const int runs = (x_end - x_begin + (1 << shift) - 1) >> shift;
+    const VizSeg s{0, kind, uv, shift, (runs + kBlockX * a_thread - 1) / (kBlockX * a_thread),
+                   x_begin, x_end, row_begin, row_end};
+    if (is_warp) {
+      warp[n_warp++] = s;
+    } else {
+      stream[n_stream++] = s;
+    }
+  };
+  const int half = dim_x >> 1;
+  for (int uv = 0; uv < 2; ++uv) {
+    const int plane_h = uv ? dim_y / 2 : dim_y;
+    const int r0 = uv ? band.row0_uv : band.row0_y;
+    const int r1 = std::min(r0 + (uv ? band.rows_uv : band.rows_y), plane_h);
+    if (mode == 5) {
+      const int shift = std::min(rs + uv, 3);
+      const int cb = (half >> shift) << shift;
+      add(false, kVizCopy, uv, kMaxShift, 0, cb, r0, r1);
+      add(true, kVizWarp, uv, shift, cb, dim_x, r0, r1);
+    } else {
+      const int vb = (dim_y >> 2) >> uv, ve = vb + (dim_y >> (1 + uv));
+      const int b0 = std::max(r0, vb), b1 = std::min(r1, ve);
+      add(false, kVizFill, uv, kMaxShift, 0, dim_x, r0, std::min(r1, vb));
+      add(false, kVizFill, uv, kMaxShift, 0, dim_x, std::max(r0, ve), r1);
+      add(false, kVizHalve, uv, kMaxShift, 0, half, b0, b1);
+      add(true, kVizSide, uv, kMaxShift, half, dim_x, b0, b1);
+    }
+  }
+  VizGrid g;
+  int first = 0, i = 0;
+  const auto place = [&](VizSeg s) {
+    s.first = first;
+    first += s.tiles_x * ((s.row_end - s.row_begin + kBlockY - 1) / kBlockY);
+    g.seg[i++] = s;
+  };
+  for (int k = 0; k < n_warp; ++k) place(warp[k]);
+  const int warp_blocks = first;
+  for (int k = 0; k < n_stream; ++k) place(stream[k]);
+  for (; i < kVizSegs; ++i) g.seg[i] = VizSeg{INT_MAX, kVizFill, 0, 0, 1, 0, 0, 0, 0};
+  g.n_blocks = first;
+  g.mix = mix && warp_blocks > 0 ? first - warp_blocks : 0;
+  return g;
+}
+
+// One launch of warp_viz_kernel over grid g (none where the band lies past
+// both planes: there is nothing to write).
+template <typename T, int kMode, int kY, int kUV, int kMinBlocks>
+cudaError_t go_viz(const VizGrid& g, const void* s12y, const void* s12uv, const void* s21y,
+                   const void* s21uv, const int16_t* flow, const float* ts, int n_t, void* out_y,
+                   void* out_uv, int dim_y, int dim_x, const Band& band, int low_h, int low_w,
+                   int rs, float black, float white, cudaStream_t stream) {
+  if (g.n_blocks == 0) return cudaSuccess;
+  warp_viz_kernel<T, kMode, kY, kUV, kMinBlocks><<<g.n_blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
+      static_cast<const T*>(s12y), static_cast<const T*>(s12uv), static_cast<const T*>(s21y),
+      static_cast<const T*>(s21uv), flow, ts, n_t, static_cast<T*>(out_y),
+      static_cast<T*>(out_uv), dim_y, dim_x, band, low_h, low_w, rs, g, black, white);
+  return cudaGetLastError();
+}
+
+// Modes 5 and 6's instance for (kY, kUV), the planes' compiled warp widths
+// (0: none, every run element by element): the pairs launch_viz makes. The
+// 4K HDR path's (rs >= 3: (8, 8) in mode 5, (4, 4) in mode 6) is held to
+// kVizMinBlocks; the others, off that path, take no cap, so that none spills.
+template <typename T, int kMode, typename... Args>
+cudaError_t go_viz_fast(int fy, int fuv, Args... args) {
+  constexpr int kHdrPath = sizeof(T) == 2 ? kVizMinBlocks : 1;
+  if (fy == 0 && fuv == 0) return go_viz<T, kMode, 0, 0, 1>(args...);
+  if (fy == 0 && fuv == 4) return go_viz<T, kMode, 0, 4, 1>(args...);
+  if constexpr (kMode == 5) {
+    if (fy == 4 && fuv == 8) return go_viz<T, kMode, 4, 8, 1>(args...);
+    if (fy == 8 && fuv == 8) return go_viz<T, kMode, 8, 8, kHdrPath>(args...);
+  } else {
+    if (fy == 4 && fuv == 4) return go_viz<T, kMode, 4, 4, kHdrPath>(args...);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Modes 5 and 6's one launch. The planes' compiled warp widths: mode 5's
+// runs are one flow cell of at most 16 bytes (1 << rs columns on Y, 2 << rs
+// on UV); mode 6's right half has 1 << (rs - 1) outputs a Y flow cell and
+// 1 << rs a UV one (adjacent outputs two adjusted columns apart), read at
+// most 8 bytes of outputs at a time (a span of at most two chunks), two or
+// four to a run of 16 bytes. Widths under 4 are not compiled.
 template <typename T, int kMode>
 cudaError_t launch_viz(const void* s12y, const void* s12uv, const void* s21y, const void* s21uv,
                        const int16_t* flow, const float* ts, int n_t, void* out_y, void* out_uv,
                        int dim_y, int dim_x, const Band& band, int low_h, int low_w, int rs,
                        float black, float white, cudaStream_t stream) {
-  constexpr int kMaxShift = sizeof(T) == 2 ? 3 : 4;
-  const auto cap = [&](int shift) { return shift < kMaxShift ? shift : kMaxShift; };
-  const auto runs = [](int width, int shift) { return (width + (1 << shift) - 1) >> shift; };
-  const auto plane = [&](bool uv) {
-    VizPlane g{0, 0, 0, 0};
-    int n_runs;
-    if (kMode == 6) {
-      const int half = dim_x >> 1;
-      g.shift_r = uv ? cap(rs) : (rs > 0 ? cap(rs - 1) : 0);
-      g.n_left = runs(half, kMaxShift);
-      n_runs = g.n_left + runs(dim_x - half, g.shift_r);
-    } else {
-      g.shift = kMode == 4 && uv ? kMaxShift : cap(uv ? rs + 1 : rs);
-      n_runs = runs(dim_x, g.shift);
-    }
-    g.tiles_x = (n_runs + kBlockX - 1) / kBlockX;
-    return g;
+  const VizGrid g = viz_grid<T>(kMode, dim_y, dim_x, band, rs, true);
+  constexpr int kMax = 16 / static_cast<int>(sizeof(T));
+  const auto fast = [&](int shift) {
+    const int w = 1 << std::min(shift, 3);
+    return w < 4 ? 0 : kMode == 5 ? std::min(w, kMax) : 4;
   };
-  const VizPlane geo_y = plane(false), geo_uv = plane(true);
-  const int n_y_blocks = geo_y.tiles_x * ((band.rows_y + kBlockY - 1) / kBlockY);
-  const int n_blocks = n_y_blocks + geo_uv.tiles_x * ((band.rows_uv + kBlockY - 1) / kBlockY);
-  const auto go = [&](auto kernel) {
-    kernel<<<n_blocks, dim3(kBlockX, kBlockY), 0, stream>>>(
-        static_cast<const T*>(s12y), static_cast<const T*>(s12uv), static_cast<const T*>(s21y),
-        static_cast<const T*>(s21uv), flow, ts, n_t, static_cast<T*>(out_y),
-        static_cast<T*>(out_uv), dim_y, dim_x, band, low_h, low_w, rs, geo_y, geo_uv, n_y_blocks,
-        black, white);
-    return cudaGetLastError();
-  };
-  if constexpr (kMode == 5) {
-    if (geo_y.shift == 3) return go(warp_viz_kernel<T, 5, 8>);
-    if constexpr (sizeof(T) == 1) {
-      if (geo_y.shift == 4) return go(warp_viz_kernel<T, 5, 16>);
-    }
-  }
-  return go(warp_viz_kernel<T, kMode, 0>);
+  const int fy = fast(kMode == 5 ? rs : std::max(rs - 1, 0));
+  const int fuv = fast(kMode == 5 ? rs + 1 : rs);
+  return go_viz_fast<T, kMode>(fy, fuv, g, s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y, out_uv,
+                               dim_y, dim_x, band, low_h, low_w, rs, black, white, stream);
 }
 
 // One plane: runs of 1 << shift samples, compiled for 8 samples (HDR) or 8
@@ -1003,8 +1437,8 @@ cudaError_t launch_type(int mode, bool raw, const void* s12y, const void* s12uv,
       return launch_mode3<T>(s12y, s21y, flow, ts, n_t, out_y, out_uv, dim_y, dim_x, band,
                              low_h, low_w, rs, black, white, stream);
     case 4:   // grey flow: one launch for both planes; reads no source
-      return launch_viz<T, 4>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y, out_uv, dim_y,
-                              dim_x, band, low_h, low_w, rs, black, white, stream);
+      return launch_grey<T>(flow, n_t, out_y, out_uv, dim_y, dim_x, band, low_h, low_w, rs,
+                            stream);
     case 5:   // side by side: one launch for both planes
       return launch_viz<T, 5>(s12y, s12uv, s21y, s21uv, flow, ts, n_t, out_y, out_uv, dim_y,
                               dim_x, band, low_h, low_w, rs, black, white, stream);
@@ -1082,4 +1516,39 @@ extern "C" int hrt_warp_mode3_probe(int variant, const void* src12_y, const void
                                  static_cast<const float*>(ts), n_t, out_y, out_uv, dim_y, dim_x,
                                  band, low_h, low_w, res_scalar, black, white,
                                  static_cast<cudaStream_t>(stream)));
+}
+
+// A timing variant of K2's modes 5 and 6, HDR, the whole frame, res_scalar 3
+// (the served 4K path's instance): variant % 3 picks the register budget
+// (0: 64 registers a thread, 1: 80, 2: none), variant / 3 % 2 == 1 puts the
+// stream tiles after the warp tiles instead of among them; its output is the
+// path's. variant / 6 == 1 launches the warp tiles alone, 2 the stream tiles
+// alone. The arguments are hrt_warp_frames' without the band and raw_blend.
+extern "C" int hrt_warp_viz_probe(int variant, int mode, const void* src12_y,
+                                  const void* src12_uv, const void* src21_y,
+                                  const void* src21_uv, const void* flow, const void* ts, int n_t,
+                                  void* out_y, void* out_uv, int dim_y, int dim_x, int low_h,
+                                  int low_w, int res_scalar, float black, float white,
+                                  void* stream) {
+  if (variant < 0 || variant > 5 || (mode != 5 && mode != 6) || res_scalar != 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Band band{0, dim_y, 0, dim_y / 2};
+  const VizGrid g = viz_grid<uint16_t>(mode, dim_y, dim_x, band, res_scalar, variant < 3);
+
+  const auto go = [&](auto launch) {
+    return static_cast<int>(launch(g, src12_y, src12_uv, src21_y, src21_uv,
+                                   static_cast<const int16_t*>(flow),
+                                   static_cast<const float*>(ts), n_t, out_y, out_uv, dim_y,
+                                   dim_x, band, low_h, low_w, res_scalar, black, white,
+                                   static_cast<cudaStream_t>(stream)));
+  };
+  switch (variant % 3 + 3 * (mode == 6)) {   // rs 3: launch_viz's widths
+    case 0: return go(go_viz<uint16_t, 5, 8, 8, 4>);
+    case 1: return go(go_viz<uint16_t, 5, 8, 8, 3>);
+    case 2: return go(go_viz<uint16_t, 5, 8, 8, 1>);
+    case 3: return go(go_viz<uint16_t, 6, 4, 4, 4>);
+    case 4: return go(go_viz<uint16_t, 6, 4, 4, 3>);
+    default: return go(go_viz<uint16_t, 6, 4, 4, 1>);
+  }
 }

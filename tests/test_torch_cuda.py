@@ -28,7 +28,7 @@ from hopperrender_tpu_torch.ops import warp as warp_ops
 from hopperrender_tpu_torch.probes import chain_probe, chain_probe2, gather_probe, mosaic_probe
 from hopperrender_tpu_torch.server import digests
 
-from torch_warp_cases import BAND_CASES, WARP_CASES, make_inputs
+from torch_warp_cases import BAND_CASES, VIZ_CASES, WARP_CASES, make_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -174,12 +174,14 @@ def test_warp_kernel_mode3_run_cases_match_plain(dev, case):
         assert _same(ky, py) and _same(kuv, puv), f"shard {shard}"
 
 
-@pytest.mark.parametrize("case", WARP_CASES, ids=lambda c: c.name)
+@pytest.mark.parametrize("case", VIZ_CASES, ids=lambda c: c.name)
 def test_warp_kernel_viz_run_cases_match_plain(dev, case):
     """K2's modes 4, 5 and 6 (one launch each, counted on viz_launches) on
-    the cases K2 splits its paths on, against their plain version
-    (ops/warp.warp_frame in each mode); with bands, every shard against the
-    plain band."""
+    the cases their tiles split on (tests/torch_warp_cases.py, VIZ_CASES:
+    4K-wide strips, spans past both mirror edges at both ends of the right
+    half, odd halves, every compiled width, bands across every tile kind),
+    against their plain version (ops/warp.warp_frame in each mode); with
+    bands, every shard against the plain band."""
     args = _case_tensors(case, dev)
     for mode in (4, 5, 6):
         kw = dict(res_scalar=case.rs, mode=mode, is_hdr=case.is_hdr)

@@ -73,9 +73,12 @@ def _jax_frame(srcs, flow, t, black, white, rs, is_hdr, mode):
 # (rs, is_hdr, h, w, ts): every res scalar, both bit depths; halves 32, 43
 # (odd), 44, 43 (odd), 43 (odd) and 56; 30 rows (mode 6's bands off a
 # multiple of 4); widths that are not a multiple of the flow cell (86 at rs 2
-# and 3); T = 1 and 3, and t outside [0, 1].
+# and 3); T = 1 and 3, and t outside [0, 1]; 4K-wide strips at rs 3, HDR and
+# SDR (the geometry on which the card's kernel runs its compiled warp runs
+# and reads mode 6's right half as spans; no run straddles the half).
 CASES = [(0, False, 32, 64, T3), (1, True, 30, 86, T_OUT), (2, False, 48, 88, T1),
-         (2, True, 50, 86, T3), (3, False, 50, 86, T_OUT), (3, True, 64, 112, T3)]
+         (2, True, 50, 86, T3), (3, False, 50, 86, T_OUT), (3, True, 64, 112, T3),
+         (3, True, 16, 3840, T3), (3, False, 16, 3840, T1)]
 
 
 @pytest.mark.parametrize("mode", MODES)

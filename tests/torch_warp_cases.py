@@ -15,6 +15,16 @@ aligned) and widths that are (96, 128), T = 1 and 7, every res_scalar 0-3,
 SDR and HDR, t outside [0, 1] (K2 converts the blend without conversion
 instructions only for t in [0, 1]); and bands of n = 3 on a 50-row frame
 (Y 50 and UV 25 rows: bands of 17 and 9 rows, across flow cells).
+
+K2's modes 5 and 6 (VIZ_CASES: WARP_CASES and more) split their tiles by
+kind: copy (mode 5's left half), fill and halve (mode 6 outside its band and
+its left half), warp (the right halves: whole runs compiled for their width,
+mode 6's 16 bytes of flow cells of 4 outputs, read as spans; element by
+element at ragged tails, at small res_scalar and across an odd half). So
+they add: 4K-wide strips (16 x 3840, no run straddles the half), HDR and
+SDR, rs 3, with bands; flow that pushes the right half's first runs past
+the left mirror edge and its last runs past the right one ("spread"); odd
+halves (43, 83) with bands; rs 2, 4 and 5 (the compiled widths 4 and 8).
 """
 
 from __future__ import annotations
@@ -25,8 +35,9 @@ import numpy as np
 
 T1 = (0.4,)
 T7 = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0, 0.3)
+T3 = (0.2, 0.6, 1.0)
 T_OUT = (-0.25, 0.5, 1.5)     # t outside [0, 1]: blends below 0 and above peak
-FLOWS = ("random", "smooth", "constant", "edges")
+FLOWS = ("random", "smooth", "constant", "edges", "spread")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +78,17 @@ WARP_CASES = [
     WarpCase(50, 86, 1, False, "smooth", T_OUT),
 ]
 BAND_CASES = [c for c in WARP_CASES if c.shards > 1]
+VIZ_CASES = WARP_CASES + [
+    WarpCase(16, 3840, 3, True, "random", T3),
+    WarpCase(16, 3840, 3, False, "smooth", T1),
+    WarpCase(24, 3840, 3, True, "edges", T_OUT, shards=3),
+    WarpCase(48, 96, 3, True, "spread", T7),
+    WarpCase(48, 96, 2, False, "spread", T_OUT),
+    WarpCase(34, 166, 3, True, "edges", T7, shards=4),
+    WarpCase(48, 160, 2, True, "random", T3, shards=3),
+    WarpCase(40, 256, 4, True, "random", T3),
+    WarpCase(40, 256, 5, False, "spread", T1),
+]
 
 
 def make_flow(kind: str, low_h: int, low_w: int, rng: np.random.Generator) -> np.ndarray:
@@ -85,6 +107,11 @@ def make_flow(kind: str, low_h: int, low_w: int, rng: np.random.Generator) -> np
         noise = rng.integers(-3, 4, (2, low_h, low_w))
         fx = np.where(xx < low_w / 2, 41, -41) + noise[0]
         fy = np.where(yy < low_h / 2, 29, -29) + noise[1]
+        return np.stack([fx, fy]).astype(np.int16)
+    if kind == "spread":       # the first three quarters push left and up, the rest right and down
+        noise = rng.integers(-3, 4, (2, low_h, low_w))
+        fx = np.where(xx < 3 * low_w / 4, -70, 70) + noise[0]
+        fy = np.where(yy < 3 * low_h / 4, -40, 40) + noise[1]
         return np.stack([fx, fy]).astype(np.int16)
     raise ValueError(f"flow kind {kind!r} is not one of {FLOWS}")
 

@@ -8,8 +8,7 @@
     python3 chip_smoke.py --kernel-times    # phases 1, 2, then the kernels' times only:
                                             # K1, K2, the band, K5, K2's mode 3 beside
                                             # K2 raw_blend + K5 and without its colour,
-                                            # K2's modes 4-6 beside their compositions
-                                            # and modes 5/6 at each register budget,
+                                            # K2's modes 4-6 beside their compositions,
                                             # K3, K4, the pyramid
                                             # step (flow_step), P1-P4 and the L2 read
                                             # rate, P1/P2 on the probe path on 1 and
@@ -241,9 +240,9 @@ beside 5d's, 4d's, 7b's, 7a's and 7c's; K2's modes 4, 5 and 6
 (`warp_frames_mode4` .. `mode6`) the same at T = 1 and 3, with
 `composition_ms` (the composition each replaced, CUDA events) beside
 `events_ms`, `launches` those of the served mode (5c) beside 4e's, 7b's
-and 7c's, and for modes 5 and 6 `registers` (ptxas's, of the instance the
-4K HDR path runs) and `spill_bytes` (the most any of the mode's instances
-and its element-by-element functions spill); K2 raw_blend's `launches` those of
+and 7c's, and for modes 5 and 6 `registers` (ptxas's, the most any of the
+mode's instances takes) and `spill_bytes` (the most any of them and the
+element-by-element functions spill); K2 raw_blend's `launches` those of
 5b (0) beside 4b's (`parity_launches`) and 7a's bands'; the band's
 `launches` 7c's in mode 2, and `launches_by_mode` (each mode's own
 counter); for the probes `ms`
@@ -1489,34 +1488,24 @@ def ptxas_table(log: str) -> dict[str, dict]:
     return table
 
 
-# K2's modes 5 and 6 in ptxas's names (csrc/warp_frame.cu): warp_viz_kernel<T
-# (h uint8, t uint16), mode, kY, kUV, kMinBlocks>; the instance the 4K HDR
-# path runs (rs 3), and its register budget (kVizMinBlocks; the path's other
-# instances take none, hrt_warp_viz_probe's the others).
-VIZ_KERNEL = re.compile(r"warp_viz_kernelI([ht])Li(\d)ELi(\d+)ELi(\d+)ELi(\d+)EE")
-VIZ_4K = {5: ("t", 8, 8), 6: ("t", 4, 4)}
-VIZ_BUDGET = re.compile(r"constexpr int kVizMinBlocks = (\d+);")
+# K2's modes 5 and 6 in ptxas's names (csrc/warp_frame.cu): warp_viz_kernel<T,
+# mode, ...>.
+VIZ_KERNEL = re.compile(r"warp_viz_kernelI[ht]Li(\d)E")
 
 
 def viz_ptxas(table: dict[str, dict]) -> dict[int, dict]:
-    """Modes 5 and 6 from ptxas_table: the registers of the 4K HDR path's
-    instance, and the most bytes any instance of the mode that the path
-    launches, or warp_elements and stream_elements (their element-by-element
-    runs, not inlined), spills (stores)."""
-    source = os.path.join(ROOT, "hopperrender_tpu_torch", "csrc", "warp_frame.cu")
-    with open(source) as f:
-        budget = int(VIZ_BUDGET.search(f.read()).group(1))
+    """Modes 5 and 6 from ptxas_table: the most registers any instance of the
+    mode takes, and the most bytes it, or warp_elements and stream_elements
+    (their element-by-element runs, not inlined), spills (stores)."""
     slow = max((v.get("spill_stores", 0) for name, v in table.items()
                 if "warp_elements" in name or "stream_elements" in name), default=0)
     out = {}
     for mode in (5, 6):
-        instances = {(m[1], int(m[3]), int(m[4])): v for name, v in table.items()
-                     if (m := VIZ_KERNEL.search(name)) and int(m[2]) == mode
-                     and (int(m[5]) == budget) == ((m[1], int(m[3]), int(m[4])) == VIZ_4K[mode])}
-        out[mode] = {"registers": instances[VIZ_4K[mode]]["registers"], "budget": budget,
+        instances = [v for name, v in table.items()
+                     if (m := VIZ_KERNEL.search(name)) and int(m[1]) == mode]
+        out[mode] = {"registers": max(v["registers"] for v in instances),
                      "instances": len(instances),
-                     "spill_bytes": max([slow] + [v.get("spill_stores", 0)
-                                                  for v in instances.values()])}
+                     "spill_bytes": max([slow] + [v.get("spill_stores", 0) for v in instances])}
     return out
 
 
@@ -1621,45 +1610,7 @@ def viz_parity(port, dev, inp) -> tuple[int, int, int]:
     return err, outputs, launches - launches_before
 
 
-# Timing variants of K2's modes 5 and 6 (csrc/warp_frame.cu, hrt_warp_viz_probe):
-# name -> variant, each the path's output: the register budget (64, 80 or
-# none) and the stream tiles among the warp tiles or after them.
-VIZ_VARIANTS = {"64 registers, mixed": 0, "80 registers, mixed": 1, "uncapped, mixed": 2,
-                "64 registers, in order": 3, "80 registers, in order": 4,
-                "uncapped, in order": 5}
-
-
-def viz_variants(port, inp, mode: int, ts) -> dict | None:
-    """Graph-timed device ms of each of VIZ_VARIANTS in mode 5 or 6 on 4K HDR
-    random flow at these ts, each checked equal to the path's output first;
-    timed in turns, the variants in order and then backwards, the mean of the
-    two. None where the library has no such entry point."""
-    b, wk = port._build, port.warp_kernel
-    if not hasattr(b.load().lib, "hrt_warp_viz_probe"):
-        return None
-    src, fl = inp.src, inp.flows["random +-64"]
-    index = src[0].get_device()
-    want = wk.warp_frames(*src, fl, ts, inp.black, inp.white, res_scalar=3, mode=mode,
-                          is_hdr=True)
-    out_y, out_uv = torch.empty_like(want[0]), torch.empty_like(want[1])
-    calls = {}
-    for name, variant in VIZ_VARIANTS.items():
-        def call(v=variant):
-            b.launch("hrt_warp_viz_probe", index, v, mode, *(t.data_ptr() for t in src),
-                     fl.data_ptr(), ts.data_ptr(), ts.shape[0], out_y.data_ptr(),
-                     out_uv.data_ptr(), H, W, fl.shape[1], fl.shape[2], 3, inp.black, inp.white)
-        out_y.zero_()
-        call()
-        require_equal(out_y, want[0], f"mode {mode} variant {name} Y")
-        require_equal(out_uv, want[1], f"mode {mode} variant {name} UV")
-        calls[name] = call
-    order = list(calls)
-    forward = {name: graph_ms(calls[name], 20) for name in order}
-    backward = {name: graph_ms(calls[name], 20) for name in reversed(order)}
-    return {name: (forward[name] + backward[name]) / 2 for name in order}
-
-
-def viz_numbers(port, inp, variants: bool = False) -> dict:
+def viz_numbers(port, inp) -> dict:
     """K2's modes 4, 5 and 6 at 4K HDR, T = 1 (the served path: one output a
     call) and T = 3, on random +-64 flow: graph-timed device ms in turns with
     an empty launch of its grid (kernel, grid, grid, kernel), smooth flow, host
@@ -1667,8 +1618,7 @@ def viz_numbers(port, inp, variants: bool = False) -> dict:
     replaced (viz_composition: plain PyTorch around K2's mode 2, which a CUDA
     graph cannot capture: it copies scalars to the card) beside the kernel,
     both with CUDA events over back-to-back calls in turns (kernel,
-    composition, composition, kernel), host gaps included; the bound; with
-    variants, modes 5 and 6's VIZ_VARIANTS too."""
+    composition, composition, kernel), host gaps included; the bound."""
     wk, b = port.warp_kernel, port._build
     index = inp.src[0].get_device()
     random, smooth = inp.flows["random +-64"], inp.flows["smooth"]
@@ -1704,9 +1654,7 @@ def viz_numbers(port, inp, variants: bool = False) -> dict:
                 "events_ms": (event_turns[0] + event_turns[3]) / 2,
                 "composition_ms": (event_turns[1] + event_turns[2]) / 2,
                 "composition_host_us": host_us(composition, 10),
-                "graph_turns_ms": graph_turns, "event_turns_ms": event_turns,
-                "variants": viz_variants(port, inp, mode, ts) if variants and mode != 4
-                else None}
+                "graph_turns_ms": graph_turns, "event_turns_ms": event_turns}
     return out
 
 
@@ -1720,9 +1668,7 @@ def format_viz(numbers: dict) -> str:
         f"{v['events_ms']:.5f} ms, the composition (K2 mode 2 + warp_viz) "
         f"{v['composition_ms']:.5f} ms (turns "
         f"{'/'.join(f'{t:.5f}' for t in v['event_turns_ms'])}), host "
-        f"{v['composition_host_us']:.1f} us/call" + ("" if not v.get("variants") else
-                                                    "; variants " + ", ".join(
-            f"{name} {ms:.5f}" for name, ms in v["variants"].items()))
+        f"{v['composition_host_us']:.1f} us/call"
         for label, v in numbers.items())
 
 
@@ -3336,8 +3282,8 @@ def main(argv: list[str]) -> int:
     log(f"phase 2 build: nvcc {lib.build_seconds:.2f} s, "
         f"{sum('registers' in v for v in ptxas.values())} kernel instantiations, library "
         f"{os.path.relpath(lib.path, ROOT)}; K2 modes 5 and 6 (ptxas): " + ", ".join(
-            f"mode {m} {v['registers']} registers at 4K HDR (budget {v['budget']}), at most "
-            f"{v['spill_bytes']} spill bytes over its {v['instances']} instances"
+            f"mode {m} at most {v['registers']} registers and {v['spill_bytes']} spill bytes "
+            f"over its {v['instances']} instances"
             for m, v in viz_regs.items()))
     if args.parallel_only:
         band_entry, flow_launches = parallel_path(port, dev, card)
@@ -3363,7 +3309,7 @@ def main(argv: list[str]) -> int:
             log(f"K2 mode 3 times [{card}] of {ROOT}: "
                 f"{format_mode3(numbers['warp_frames_mode3'])}")
         if 6 in getattr(warp_kernel, "KERNEL_MODES", ()):
-            numbers["warp_frames_viz"] = viz_numbers(port, inp, variants=True)
+            numbers["warp_frames_viz"] = viz_numbers(port, inp)
             log(f"K2 modes 4-6 times [{card}] of {ROOT}: {format_viz(numbers['warp_frames_viz'])}")
         numbers["wrapper_split_us"] = wrapper_split(port, dev)
         numbers["launch_anatomy_ms"] = floor_numbers(port, dev)

@@ -72,11 +72,6 @@ SIGNATURES = {
     # K2's mode 3 in a timing variant (variant, src12_y, src21_y, flow, ts, n_t, out_y,
     #  out_uv, dim_y, dim_x, low_h, low_w, res_scalar, black, white, stream)
     "hrt_warp_mode3_probe": (_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
-    # K2's modes 5 and 6 in a timing variant (variant, mode, src12_y, src12_uv, src21_y,
-    #  src21_uv, flow, ts, n_t, out_y, out_uv, dim_y, dim_x, low_h, low_w, res_scalar, black,
-    #  white, stream)
-    "hrt_warp_viz_probe": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                           _P),
     # K5 (raw_y, flow, out_y, out_uv, n_t, rows_y, rows_uv, dim_x, row0_y, row0_uv, low_h,
     #  low_w, res_scalar, is_hdr, black, white, stream)
     "hrt_hsv_overlay": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),

@@ -151,8 +151,13 @@
 // registers (__launch_bounds__(256, 4), 4 blocks an SM) without spilling;
 // the others take no cap, so that none spills. The stream tiles are spread
 // evenly among the warp tiles (their bytes move while the warp tiles wait on
-// their gathers). Chosen by graph-timed turns of hrt_warp_viz_probe's
-// variants (PERF.md).
+// their gathers). Both were chosen by graph-timed turns at 4K HDR
+// (PERF.md): 64 registers beat 80 and no cap by 5-13%, spreading the
+// stream tiles saved 5-9% in mode 6. On an H100 at 700 W, 4K HDR, one
+// output takes 0.0355 ms in mode 5 and 0.0345 in mode 6, 1.9x and 2.3x the
+// bytes' bound; what keeps the warp tiles above it is latency, a thread
+// waiting on its flow cell, then on its sources (mode 6: then on its
+// second cell).
 // A row band needs nothing outside it: sources and flow are whole.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1021,12 +1026,12 @@ struct VizSeg {
 };
 
 // A call's tiles in mode 5 or 6: its segments in the grid's order, the
-// warp kinds first (Y, then UV), then the stream kinds; n_blocks in all; mix,
-// the number of stream blocks or 0 (see warp_viz_kernel).
+// warp kinds first (Y, then UV), then the stream kinds; n_blocks in all,
+// n_stream of them stream blocks (see warp_viz_kernel).
 constexpr int kVizSegs = 8;
 struct VizGrid {
   VizSeg seg[kVizSegs];
-  int n_blocks, mix;
+  int n_blocks, n_stream;
 };
 
 // Runs a thread of a stream tile takes, and the segments a mode has (5: warp
@@ -1149,26 +1154,25 @@ __device__ __forceinline__ void warp_tile(const VizSeg& s, const T* __restrict__
 }
 
 // Modes 5 and 6 in one grid of tiles of kBlockX x kBlockY threads, each
-// block's tiles of one kind (VizGrid). With mix, the stream tiles are spread
-// evenly through the grid: block b is stream block floor(b * mix / n_blocks)
+// block's tiles of one kind (VizGrid). The stream tiles are spread evenly
+// through the grid: block b is stream block floor(b * n_stream / n_blocks)
 // where that count steps at b, else a warp block, so that their bytes move
 // while warp tiles wait on their gathers. kY, kUV: the planes' compiled warp
 // widths (warp_tile's kFast). kMinBlocks: blocks an SM that
-// __launch_bounds__ asks for, which caps the registers (4: 64 a thread, 3:
-// 80, 1: none).
+// __launch_bounds__ asks for, which caps the registers (4: 64 a thread, 1:
+// none).
 template <typename T, int kMode, int kY, int kUV, int kMinBlocks>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) warp_viz_kernel(
     const T* __restrict__ s12y, const T* __restrict__ s12uv, const T* __restrict__ s21y,
     const T* __restrict__ s21uv, const int16_t* __restrict__ flow, const float* __restrict__ ts,
     int n_t, T* __restrict__ out_y, T* __restrict__ out_uv, int dim_y, int dim_x, Band band,
     int low_h, int low_w, int rs, VizGrid grid, float black, float white) {
-  int v = blockIdx.x;   // the block's place in the grid's order
-  if (grid.mix > 0) {
-    const long long n = grid.n_blocks;
-    const int before = static_cast<int>(static_cast<long long>(v) * grid.mix / n);
-    const int after = static_cast<int>(static_cast<long long>(v + 1) * grid.mix / n);
-    v = after > before ? grid.n_blocks - grid.mix + before : v - before;
-  }
+  const long long k = blockIdx.x;
+  const int before = static_cast<int>(k * grid.n_stream / grid.n_blocks);
+  const int after = static_cast<int>((k + 1) * grid.n_stream / grid.n_blocks);
+  // the block's place in the grid's order
+  const int v = after > before ? grid.n_blocks - grid.n_stream + before
+                               : static_cast<int>(k) - before;
   VizSeg s = grid.seg[0];
 #pragma unroll
   for (int i = 1; i < viz_segs(kMode); ++i) {
@@ -1253,9 +1257,8 @@ cudaError_t launch_grey(const int16_t* flow, int n_t, void* out_y, void* out_uv,
 }
 
 // The register budget of the 4K HDR path's instances of modes 5 and 6
-// (warp_viz_kernel's kMinBlocks: 64 registers a thread), and the stream tiles
-// mixed among the warp tiles; chosen by graph-timed turns of
-// hrt_warp_viz_probe's variants (PERF.md).
+// (warp_viz_kernel's kMinBlocks: 64 registers a thread); chosen by
+// graph-timed turns against 80 registers and no cap (PERF.md).
 constexpr int kVizMinBlocks = 4;
 
 // The tiles of one call in mode 5 or 6 (see warp_viz_kernel): per plane,
@@ -1267,7 +1270,7 @@ constexpr int kVizMinBlocks = 4;
 //     half in runs of 16 bytes.
 // Stream runs are 16 bytes.
 template <typename T>
-VizGrid viz_grid(int mode, int dim_y, int dim_x, const Band& band, int rs, bool mix) {
+VizGrid viz_grid(int mode, int dim_y, int dim_x, const Band& band, int rs) {
   constexpr int kMaxShift = sizeof(T) == 2 ? 3 : 4;
   VizSeg warp[2], stream[6];
   int n_warp = 0, n_stream = 0;
@@ -1315,7 +1318,7 @@ VizGrid viz_grid(int mode, int dim_y, int dim_x, const Band& band, int rs, bool 
   for (int k = 0; k < n_stream; ++k) place(stream[k]);
   for (; i < kVizSegs; ++i) g.seg[i] = VizSeg{INT_MAX, kVizFill, 0, 0, 1, 0, 0, 0, 0};
   g.n_blocks = first;
-  g.mix = mix && warp_blocks > 0 ? first - warp_blocks : 0;
+  g.n_stream = first - warp_blocks;
   return g;
 }
 
@@ -1363,7 +1366,7 @@ cudaError_t launch_viz(const void* s12y, const void* s12uv, const void* s21y, co
                        const int16_t* flow, const float* ts, int n_t, void* out_y, void* out_uv,
                        int dim_y, int dim_x, const Band& band, int low_h, int low_w, int rs,
                        float black, float white, cudaStream_t stream) {
-  const VizGrid g = viz_grid<T>(kMode, dim_y, dim_x, band, rs, true);
+  const VizGrid g = viz_grid<T>(kMode, dim_y, dim_x, band, rs);
   constexpr int kMax = 16 / static_cast<int>(sizeof(T));
   const auto fast = [&](int shift) {
     const int w = 1 << std::min(shift, 3);
@@ -1516,39 +1519,4 @@ extern "C" int hrt_warp_mode3_probe(int variant, const void* src12_y, const void
                                  static_cast<const float*>(ts), n_t, out_y, out_uv, dim_y, dim_x,
                                  band, low_h, low_w, res_scalar, black, white,
                                  static_cast<cudaStream_t>(stream)));
-}
-
-// A timing variant of K2's modes 5 and 6, HDR, the whole frame, res_scalar 3
-// (the served 4K path's instance): variant % 3 picks the register budget
-// (0: 64 registers a thread, 1: 80, 2: none), variant / 3 % 2 == 1 puts the
-// stream tiles after the warp tiles instead of among them; its output is the
-// path's. variant / 6 == 1 launches the warp tiles alone, 2 the stream tiles
-// alone. The arguments are hrt_warp_frames' without the band and raw_blend.
-extern "C" int hrt_warp_viz_probe(int variant, int mode, const void* src12_y,
-                                  const void* src12_uv, const void* src21_y,
-                                  const void* src21_uv, const void* flow, const void* ts, int n_t,
-                                  void* out_y, void* out_uv, int dim_y, int dim_x, int low_h,
-                                  int low_w, int res_scalar, float black, float white,
-                                  void* stream) {
-  if (variant < 0 || variant > 5 || (mode != 5 && mode != 6) || res_scalar != 3) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Band band{0, dim_y, 0, dim_y / 2};
-  const VizGrid g = viz_grid<uint16_t>(mode, dim_y, dim_x, band, res_scalar, variant < 3);
-
-  const auto go = [&](auto launch) {
-    return static_cast<int>(launch(g, src12_y, src12_uv, src21_y, src21_uv,
-                                   static_cast<const int16_t*>(flow),
-                                   static_cast<const float*>(ts), n_t, out_y, out_uv, dim_y,
-                                   dim_x, band, low_h, low_w, res_scalar, black, white,
-                                   static_cast<cudaStream_t>(stream)));
-  };
-  switch (variant % 3 + 3 * (mode == 6)) {   // rs 3: launch_viz's widths
-    case 0: return go(go_viz<uint16_t, 5, 8, 8, 4>);
-    case 1: return go(go_viz<uint16_t, 5, 8, 8, 3>);
-    case 2: return go(go_viz<uint16_t, 5, 8, 8, 1>);
-    case 3: return go(go_viz<uint16_t, 6, 4, 4, 4>);
-    case 4: return go(go_viz<uint16_t, 6, 4, 4, 3>);
-    default: return go(go_viz<uint16_t, 6, 4, 4, 1>);
-  }
 }

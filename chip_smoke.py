@@ -9,7 +9,7 @@
                                             # K1, K2, the band, K5, K2's mode 3 beside
                                             # K2 raw_blend + K5 and without its colour,
                                             # K2's modes 4-6 beside their compositions,
-                                            # K3, K4, the pyramid
+                                            # K6 (the copy), K3, K4, the pyramid
                                             # step (flow_step), P1-P4 and the L2 read
                                             # rate, P1/P2 on the probe path on 1 and
                                             # 132 blocks, the split of a wrapper call's
@@ -68,11 +68,19 @@ sm_90a), then runs these phases, one line each:
      6's V columns take the m_off path; bands of n = 3, t outside [0, 1],
      the int16 range), 1080p SDR at rs 2, and rs 0 with flow cells to
      +-32767. It runs after phase 6, as 4d does;
+     4f. K6 (the levelled copy of both planes, one launch) against its plain
+     version, exact: every SDR and HDR sample value as a frame at levels
+     0/255, 16/235, 3/250 and the degenerate 16/16, 0/0, 16/0 and 235/16;
+     random 4K HDR and 4K SDR frames and 86 x 50 (planes whose lengths are
+     not a multiple of 16 bytes) at 16/235, and 86 x 50 one sample off 16
+     bytes; one launch a call, into new planes. It runs after phase 6, as
+     4d does;
   5. the served slice: FrameServer at 3840x2160 HDR, 24 -> 60, mode 2, levels
      16/235, search radius 16, ten panning frames through the kernels; the
      output count against the cadence controller's, the kernels' launch
      counters (K1 and flow_step must each have launched, 16 flow_step calls
-     a flow and no standalone K3 or K4), every output against the
+     a flow and no standalone K3 or K4; each warmup copy one K6 launch and
+     no plain copy on the card), every output against the
      same stream run with the plain versions, and all five golden fixtures
      replayed byte for byte;
      5b. served mode 3 (HSV flow) the same way: ten frames through K1,
@@ -80,7 +88,7 @@ sm_90a), then runs these phases, one line each:
      plain-version stream launches nothing);
      5c. served modes 4, 5 and 6, six frames each: K1, flow_step and K2 in
      the mode, exactly one K2 launch an interpolated output, and no mode-2
-     (or mode-3) K2 launch;
+     (or mode-3) K2 launch; in 5b and 5c too, one K6 launch a copy;
      5d. served mode 3 at 4K HDR with the quality scaler on, 30 panning
      frames: the radius, the cadence state and the engine compute (flow +
      warps, what the scaler reads) of each source frame, and its
@@ -111,6 +119,10 @@ sm_90a), then runs these phases, one line each:
      random and smooth flow, with its host us a call, its plain version, an
      empty launch of its two grids and its bound (the raw Y plane and the
      flow read, both planes written; operations counted from its code); and
+     K6 at 4K HDR and 4K SDR, graph-timed over 8 source frames in turn
+     (more than the L2 holds) in turns with an empty launch of its grid,
+     with host us a call, its plain version and its bound (both planes read
+     and written once), beside the served copy (phase 5's median); and
      the kernels' device times, graph-timed (n
      calls captured in one CUDA graph, the replay timed with CUDA events, so
      no host time is in them) on random and on smooth flow: K1, K2 (mode 2
@@ -187,10 +199,11 @@ sm_90a), then runs these phases, one line each:
      SDR frames, mode 2, 24 -> 60, the scaler off: both Y4M outputs byte-equal
      to each other and to the stream through FrameServers in this process on
      the kernels and on the plain versions; each CLI process's K1, K2,
-     flow_step, K3 and K4 counters (set to 0 before, printed at exit; K1, K2
-     and flow_step must have moved, 16 flow_step calls a flow, no
-     standalone K3 or K4) and the native ring loaded;
-     9b. the four pinned-digest streams of tests/fixtures/digests.json;
+     flow_step, K3, K4 and K6 counters (set to 0 before, printed at exit;
+     K1, K2, flow_step and K6 must have moved, 16 flow_step calls a flow,
+     no standalone K3 or K4) and the native ring loaded;
+     9b. the four pinned-digest streams of tests/fixtures/digests.json, K6
+     launched and no plain copy on the card;
      9c. PipelinedServer with the StatusServer, 4K HDR P010 24 -> 60, mode
      2, levels 16/235, the quality scaler on, 40 panning frames, /metrics
      and /healthz polled throughout: the radius per source frame, the
@@ -199,7 +212,9 @@ sm_90a), then runs these phases, one line each:
      scaler's recorded calls differ from their replay on a fresh
      AutoQualityScaler, a kernel of the path never launched, a radius leaves [5,
      16], an output made while TOO_SLOW is not the copy of its source
-     frame, the engine thread raised, or /healthz answered other than 200;
+     frame (the plain copy on the card), a copy (warmup or TOO_SLOW) was
+     not one K6 launch or a plain copy ran on the card, the engine thread
+     raised, or /healthz answered other than 200;
  10. the bench (hopperrender_tpu_torch/bench.py, the port of the JAX
      package's bench.py):
      10a. bench.main in this process, stdout captured, for `--config 4k-hdr
@@ -245,7 +260,11 @@ mode's instances takes) and `spill_bytes` (the most any of them and the
 element-by-element functions spill); K2 raw_blend's `launches` those of
 5b (0) beside 4b's (`parity_launches`) and 7a's bands'; the band's
 `launches` 7c's in mode 2, and `launches_by_mode` (each mode's own
-counter); for the probes `ms`
+counter); K6's (`copy_frame`) `ms`, `plain_ms`, `host_us`, `grid_ms` and
+bound at 4K HDR (`sdr`: at 4K SDR), `served_copy_ms` phase 5's median
+copy, `launches` phase 5's warmup copies beside 5b/5c's (`viz_launches`),
+9a's (`cli_launches`), 9b's, 9c's and 4f's (`parity_launches`); for the
+probes `ms`
 summed over the variants, graph-timed, P1/P2's bound beside the bound
 without its L2 term (`bound_ms_without_l2`) and each variant's ms and
 bound, `host_us` and `library_host_us` the means over the variants,
@@ -262,6 +281,7 @@ import contextlib
 import importlib
 import importlib.util
 import io
+import itertools
 import json
 import os
 import re
@@ -387,9 +407,14 @@ def import_port() -> types.SimpleNamespace:
     hsv_name = "hopperrender_tpu_torch.ops.hsv_kernel"
     hsv_kernel = (importlib.import_module(hsv_name) if importlib.util.find_spec(hsv_name)
                   else None)
+    # K6; None in a tree from before it.
+    copy_name = "hopperrender_tpu_torch.ops.copy_kernel"
+    copy_kernel = (importlib.import_module(copy_name) if importlib.util.find_spec(copy_name)
+                   else None)
     return types.SimpleNamespace(
         _build=_build, blur_kernel=blur_kernel, warp_kernel=warp_kernel, warp_viz=warp_viz,
-        cost_volume_kernel=cost_volume_kernel, hsv_kernel=hsv_kernel, flow_engine=flow_engine,
+        cost_volume_kernel=cost_volume_kernel, hsv_kernel=hsv_kernel, copy_kernel=copy_kernel,
+        flow_engine=flow_engine,
         warp_ops=warp_ops, CadenceController=CadenceController, FrameServer=FrameServer,
         Settings=Settings, config=config, nv12=nv12, entry=entry, flow_ops=flow_ops,
         launch=launch, batched_step=batched_step, probe_path=probe_path,
@@ -445,24 +470,45 @@ def mode3_chain(port):
 
 @contextlib.contextmanager
 def plain_versions(port):
-    """Points the K1, K2, K3, K4 and K5 wrappers' module attributes (K2's
+    """Points the K1, K2, K3, K4, K5 and K6 wrappers' module attributes (K2's
     mesh-sharded variant and the pyramid step too) at their plain versions
     while the block runs; their callers (ops/flow.py, ops/warp_viz.py,
-    parallel/mesh.py) look them up at call time."""
-    wk, cv = port.warp_kernel, port.cost_volume_kernel
+    parallel/mesh.py, the engine) look them up at call time."""
+    wk, cv, ck = port.warp_kernel, port.cost_volume_kernel, port.copy_kernel
     kernels = (port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band, cv.delta_sums,
-               cv.commit_winners, cv.flow_step)
+               cv.commit_winners, cv.flow_step, ck.copy_frame)
     port.blur_kernel.blur_flow = port.blur_kernel.blur_flow_reference
     wk.warp_frames = wk.warp_frames_reference  # raw_blend too
     wk.warp_frames_band = wk.warp_frames_band_reference
     cv.delta_sums, cv.commit_winners = cv.delta_sums_reference, cv.commit_winners_reference
     cv.flow_step = cv.flow_step_reference
+    ck.copy_frame = ck.copy_frame_reference
     try:
         with plain_overlay(port):
             yield
     finally:
         (port.blur_kernel.blur_flow, wk.warp_frames, wk.warp_frames_band, cv.delta_sums,
-         cv.commit_winners, cv.flow_step) = kernels
+         cv.commit_winners, cv.flow_step, ck.copy_frame) = kernels
+
+
+@contextlib.contextmanager
+def plain_copies_on_the_card(port):
+    """Counts the calls of the plain copy (ops/warp.copy_frame, which K6's
+    plain version calls) on CUDA tensors while the block runs: a list with
+    one entry a call. A served stream on the card makes none."""
+    wo = port.warp_ops
+    plain, calls = wo.copy_frame, []
+
+    def counting(src_y, *args, **kw):
+        if src_y.is_cuda:
+            calls.append(tuple(src_y.shape))
+        return plain(src_y, *args, **kw)
+
+    wo.copy_frame = counting
+    try:
+        yield calls
+    finally:
+        wo.copy_frame = plain
 
 
 def device_profile(prof, wall_s: float) -> tuple[float, int, dict[str, float]]:
@@ -488,6 +534,7 @@ def device_profile(prof, wall_s: float) -> tuple[float, int, dict[str, float]]:
                 "K3's fill" if "fill_sums_kernel" in name else
                 "K4 commit_winners" if "commit_winners_kernel" in name else
                 "K5 hsv_overlay" if "hsv_overlay_kernel" in name else
+                "K6 copy_frame" if "copy_frame_kernel" in name else
                 "memcpy DtoH" if "DtoH" in name else
                 "memcpy HtoD" if "HtoD" in name else
                 "gather (index)" if "index" in name.lower() else "other")
@@ -955,7 +1002,8 @@ def launch_counters(port) -> dict:
             "flow_step": (cv.flow_step, "launches"),
             "delta_sums": (cv.delta_sums, "launches"),
             "commit_winners": (cv.commit_winners, "launches"),
-            "hsv_flow_overlay": (port.hsv_kernel.hsv_flow_overlay, "launches")}
+            "hsv_flow_overlay": (port.hsv_kernel.hsv_flow_overlay, "launches"),
+            "copy_frame": (port.copy_kernel.copy_frame, "launches")}
 
 
 def reset_launches(port) -> None:
@@ -993,6 +1041,14 @@ def require_pyramid_path(launches: dict, what: str) -> None:
             launches[k] for k in MESH_FLOW_KERNELS):
         raise AssertionError(f"{what}: not {STEPS_PER_FLOW} flow_step calls a flow and no "
                              f"standalone K3/K4: {launches}")
+
+
+def require_copies_on_k6(launches: dict, copies: int, plain_copies: list, what: str) -> None:
+    """Raise unless each of a served run's `copies` outputs was one K6 launch
+    and no plain copy ran on the card (plain_copies_on_the_card's list)."""
+    if launches["copy_frame"] != copies or plain_copies:
+        raise AssertionError(f"{what}: {launches['copy_frame']} K6 launches for {copies} "
+                             f"copies, {len(plain_copies)} plain copies on the card")
 
 
 def cadence_count(port, n_frames: int) -> int:
@@ -1669,6 +1725,140 @@ def format_viz(numbers: dict) -> str:
         f"{v['composition_ms']:.5f} ms (turns "
         f"{'/'.join(f'{t:.5f}' for t in v['event_turns_ms'])}), host "
         f"{v['composition_host_us']:.1f} us/call"
+        for label, v in numbers.items())
+
+
+# -- K6, the levelled passthrough -------------------------------------------------
+
+# 4f's level pairs (black, white) in 8-bit units, x256 for HDR: the usual
+# pairs, then the degenerate ones that Settings accepts (black == white,
+# white 0, black above white), whose divisions give infinities and NaN.
+COPY_LEVELS = ((0, 255), (16, 235), (3, 250), (16, 16), (0, 0), (16, 0), (235, 16))
+# K6's block (csrc/copy_frame.cu: kThreads) and the 16-byte runs a block takes
+# (kThreads * kRuns).
+COPY_THREADS, COPY_BLOCK_RUNS = 256, 1024
+# K6's float32 operations a sample: the subtraction, the division, the clip's
+# two and the truncation, and the product (Y) or the FMA (UV, counted two).
+COPY_OPS = {"Y": 6, "UV": 7}
+# Phase 6: source frames the timed calls take in turn, so that their reads
+# (more than the 50 MB L2 together) come from device memory, as a served
+# copy's do; calls captured in one CUDA graph.
+COPY_SOURCES, COPY_GRAPH_CALLS = 8, 48
+
+
+def copy_blocks(dim_y: int, dim_x: int, is_hdr: bool) -> int:
+    """The blocks of K6's grid (csrc/copy_frame.cu, hrt_copy_frame): each
+    plane's 16-byte runs, COPY_BLOCK_RUNS a block, the Y plane's then UV's."""
+    e = 2 if is_hdr else 1
+    runs = [-(-n * e // 16) for n in (dim_y * dim_x, dim_y // 2 * dim_x)]
+    return sum(-(-r // COPY_BLOCK_RUNS) for r in runs)
+
+
+def copy_bound(y: torch.Tensor, uv: torch.Tensor) -> tuple[float, str]:
+    """K6's bound: both planes read once and written once; its operations."""
+    return roofline(2 * nbytes(y, uv), COPY_OPS["Y"] * y.numel() + COPY_OPS["UV"] * uv.numel(),
+                    OPS_PER_S)
+
+
+def every_sample_frame(port, is_hdr: bool, dev):
+    """On the card: Y (2n/256, 256) holding every sample value twice and UV
+    (n/256, 256) once, n = 256 (SDR) or 65,536 (HDR)."""
+    n = 65536 if is_hdr else 256
+    y = port.warp_ops.from_int32(
+        (torch.arange(2 * n, dtype=torch.int32, device=dev) % n).reshape(-1, 256),
+        torch.uint16 if is_hdr else torch.uint8)
+    return y, y[:y.shape[0] // 2].clone()
+
+
+def off_16_bytes(planes):
+    """Copies of the planes that each start one sample past 16 bytes."""
+    out = []
+    for p in planes:
+        buf = torch.empty(p.numel() + 1, dtype=p.dtype, device=p.device)
+        out.append(buf[1:].view(p.shape))
+        out[-1].copy_(p)
+    return tuple(out)
+
+
+def copy_parity(port, dev) -> tuple[int, int, int]:
+    """4f: K6 against its plain version on the card, exactly: every sample
+    value as a frame at each of COPY_LEVELS, SDR and HDR; random 4K HDR and
+    4K SDR frames and 50 x 86 (planes whose lengths are not a multiple of 16
+    bytes) at 16/235, and that 50 x 86 frame one sample off 16 bytes (every
+    run element by element). Each call must launch K6 once, into planes that
+    are not its sources. Returns (max |err|, samples compared, launches)."""
+    ck = port.copy_kernel
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cases = []    # (what, y, uv, black, white, is_hdr)
+    for is_hdr in (False, True):
+        s, kind = (256.0, "HDR") if is_hdr else (1.0, "SDR")
+        y, uv = every_sample_frame(port, is_hdr, dev)
+        cases += [(f"every {kind} sample, levels {b}/{w}", y, uv, b * s, w * s, is_hdr)
+                  for b, w in COPY_LEVELS]
+        for h, w in ((H, W), (50, 86)):
+            y, uv = (p[0] for p in random_planes(gen, 1, h, w, is_hdr, dev))
+            cases.append((f"{w}x{h} {kind}", y, uv, 16 * s, 235 * s, is_hdr))
+        cases.append((f"86x50 {kind} off 16 bytes", *off_16_bytes((y, uv)), 16 * s, 235 * s,
+                      is_hdr))
+    err, samples, before = 0, 0, ck.copy_frame.launches
+    for what, y, uv, black, white, is_hdr in cases:
+        got = ck.copy_frame(y, uv, black, white, is_hdr=is_hdr)
+        want = ck.copy_frame_reference(y, uv, black, white, is_hdr=is_hdr)
+        for g, p, src, plane in zip(got, want, (y, uv), ("Y", "UV")):
+            if g.data_ptr() == src.data_ptr():
+                raise AssertionError(f"K6 {what}: the {plane} output is its source")
+            err = max(err, require_equal(g, p, f"K6 {what} {plane}"))
+            samples += g.numel()
+    launches = ck.copy_frame.launches - before
+    if launches != len(cases):
+        raise AssertionError(f"K6: {launches} launches for {len(cases)} calls")
+    return err, samples, launches
+
+
+def copy_numbers(port, dev) -> dict:
+    """Phase 6's K6 numbers at 4K HDR and 4K SDR, levels 16/235, the calls
+    taking COPY_SOURCES random source frames in turn: graph-timed device ms
+    in turns with an empty launch of its grid (kernel, grid, grid, kernel),
+    host us per wrapper call, the plain version's ms (CUDA events) and the
+    bound."""
+    ck, b = port.copy_kernel, port._build
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for label, is_hdr in (("4K HDR", True), ("4K SDR", False)):
+        planes = random_planes(gen, COPY_SOURCES, H, W, is_hdr, dev)
+        sources = [(planes[0][i], planes[1][i]) for i in range(COPY_SOURCES)]
+        black, white = hsv_levels(is_hdr)
+        blocks = copy_blocks(H, W, is_hdr)
+        turn = itertools.cycle(sources)
+
+        def call(fn=ck.copy_frame):
+            y, uv = next(turn)
+            return fn(y, uv, black, white, is_hdr=is_hdr)
+
+        def empty_grid():
+            b.launch("hrt_empty_grid", dev.index or 0, blocks, 1, COPY_THREADS, 1)
+
+        def plain():
+            return call(ck.copy_frame_reference)
+
+        turns = [graph_ms(fn, COPY_GRAPH_CALLS) for fn in (call, empty_grid, empty_grid, call)]
+        ms = (turns[0] + turns[3]) / 2
+        bound_ms, bound_by = copy_bound(*sources[0])
+        out[label] = {"ms": ms, "host_us": host_us(call, 200),
+                      "plain_ms": (time_ms(plain, 8) + time_ms(plain, 8)) / 2,
+                      "grid_ms": (turns[1] + turns[2]) / 2, "blocks": blocks,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "vs_bound": ms / bound_ms,
+                      "graph_turns_ms": turns}
+    return out
+
+
+def format_copy(numbers: dict) -> str:
+    return "; ".join(
+        f"{label}: {v['ms']:.5f} ms (turns kernel/grid/grid/kernel "
+        f"{'/'.join(f'{t:.5f}' for t in v['graph_turns_ms'])}), host {v['host_us']:.1f} "
+        f"us/call, plain {v['plain_ms']:.4f} ms, empty launch of its grid ({v['blocks']} "
+        f"blocks) {v['grid_ms']:.5f} ms, bound {v['bound_ms']:.5f} ms ({v['bound_by']}), "
+        f"{v['vs_bound']:.2f}x its bound"
         for label, v in numbers.items())
 
 
@@ -2778,21 +2968,23 @@ def probe_phase(port, dev, card: str) -> list[dict]:
 # -- 9. the serving surface ------------------------------------------------------
 
 # `python -m hopperrender_tpu_torch ARGS`, with the launch counters of K1-K4
-# set to 0 before it and printed to stderr (one line, "launches {...}")
-# after it, however it ends.
+# and K6 set to 0 before it and printed to stderr (one line, "launches
+# {...}") after it, however it ends.
 CLI_WITH_COUNTERS = """
 import json, runpy, sys
-from hopperrender_tpu_torch.ops import blur_kernel, cost_volume_kernel, warp_kernel
-k1, k2 = blur_kernel.blur_flow, warp_kernel.warp_frames
+from hopperrender_tpu_torch.ops import blur_kernel, copy_kernel, cost_volume_kernel, warp_kernel
+k1, k2, k6 = blur_kernel.blur_flow, warp_kernel.warp_frames, copy_kernel.copy_frame
 cv = cost_volume_kernel
 step, k3, k4 = cv.flow_step, cv.delta_sums, cv.commit_winners
 k1.launches = k2.launches = k2.raw_launches = step.launches = k3.launches = k4.launches = 0
+k6.launches = 0
 try:
     runpy.run_module("hopperrender_tpu_torch", run_name="__main__", alter_sys=True)
 finally:
     print("launches " + json.dumps({"blur_flow": k1.launches, "warp_frames": k2.launches,
                                     "flow_step": step.launches, "delta_sums": k3.launches,
-                                    "commit_winners": k4.launches}),
+                                    "commit_winners": k4.launches,
+                                    "copy_frame": k6.launches}),
           file=sys.stderr, flush=True)
 """
 CLI_H, CLI_W, CLI_FRAMES = 1080, 1920, 12   # 9a: the CLI's SDR stream
@@ -2824,7 +3016,7 @@ def cli_phase(port, dev, tmp: str) -> dict:
     interpolate` and `serve --status-port 0 --stats` (two processes at once),
     mode 2, 24 -> 60, the scaler off; both outputs byte-equal to each other and
     to the stream through two FrameServers in this process, on the kernels and
-    on the plain versions; each run's K1-K4 launch counters."""
+    on the plain versions; each run's K1-K4 and K6 launch counters."""
     if not port.native.is_native():
         raise AssertionError("the native frame ring did not build or load (NumPy fallback)")
     h, w, n = CLI_H, CLI_W, CLI_FRAMES
@@ -2876,7 +3068,7 @@ def cli_phase(port, dev, tmp: str) -> dict:
     counts = {"this process": launches, **{f"the CLI's {k}": v["launches"]
                                            for k, v in results.items()}}
     for run, count in counts.items():
-        require_launched(count, FLOW_KERNELS + ("warp_frames",), f"9a, {run}")
+        require_launched(count, FLOW_KERNELS + ("warp_frames", "copy_frame"), f"9a, {run}")
         require_pyramid_path(count, f"9a, {run}")
     outputs = {}
     for name in ("interpolate", "serve", "kernels", "plain"):
@@ -2896,16 +3088,19 @@ def cli_phase(port, dev, tmp: str) -> dict:
 
 def digest_phase(port, dev) -> dict:
     """9b: the four pinned-digest streams of tests/fixtures/digests.json on
-    the card, through K1-K4."""
+    the card, through K1-K4 and K6 (their warmup copies), no plain copy."""
     with open(os.path.join(ROOT, "tests", "fixtures", "digests.json")) as f:
         pinned = json.load(f)
     reset_launches(port)
-    for name in port.digests.STREAMS:
-        got = port.digests.stream_digest(name, dev)
-        if got != pinned[name]:
-            raise AssertionError(f"digest {name}: {got} != pinned {pinned[name]}")
+    with plain_copies_on_the_card(port) as plain_copies:
+        for name in port.digests.STREAMS:
+            got = port.digests.stream_digest(name, dev)
+            if got != pinned[name]:
+                raise AssertionError(f"digest {name}: {got} != pinned {pinned[name]}")
     launches = read_launches(port)
-    require_launched(launches, FLOW_KERNELS + ("warp_frames",), "9b")
+    require_launched(launches, FLOW_KERNELS + ("warp_frames", "copy_frame"), "9b")
+    if plain_copies:
+        raise AssertionError(f"9b: {len(plain_copies)} plain copies on the card")
     return launches
 
 
@@ -2925,9 +3120,10 @@ def scaler_phase(port, dev) -> dict:
     replayed on a fresh AutoQualityScaler; each source frame's state and
     outputs are recorded on the engine thread. Fails on what the control
     logic guarantees: the replay differs, a radius leaves [5, 16], an output
-    made while TOO_SLOW is not the copy of its source frame, the engine
-    thread raised, or /healthz answered other than 200. What the scaler does
-    on this card is reported, not judged."""
+    made while TOO_SLOW is not the copy of its source frame, a copy (warmup
+    or TOO_SLOW) was not one K6 launch or a plain copy ran on the card, the
+    engine thread raised, or /healthz answered other than 200. What the
+    scaler does on this card is reported, not judged."""
     config = port.config
     frames = panning_frames(port, H, W, SERVE_FRAMES, is_hdr=True)
     st = port.Settings(target_fps=60.0, use_display_fps=False, frame_output=2,
@@ -2993,10 +3189,12 @@ def scaler_phase(port, dev) -> dict:
     poller.start()
     feeder.start()
     try:
-        for out in pipe.outputs(timeout=300):   # raises if the engine thread failed
-            outs.append(out)
-            arrivals.append(time.perf_counter())
-        wall = time.perf_counter() - start
+        with plain_copies_on_the_card(port) as plain_copies:
+            for out in pipe.outputs(timeout=300):   # raises if the engine thread failed
+                outs.append(out)
+                arrivals.append(time.perf_counter())
+            wall = time.perf_counter() - start
+            pipe.join()
     finally:
         feeder.join(timeout=60)
         pipe.join()
@@ -3014,6 +3212,7 @@ def scaler_phase(port, dev) -> dict:
         raise AssertionError("the pipeline lost or added frames")
     require_launched(launches, FLOW_KERNELS + (("warp_frames",) if any(
         o.interpolated for o in outs) else ()), "9c")
+    require_copies_on_k6(launches, sum(not o.interpolated for o in outs), plain_copies, "9c")
 
     # The replay: the same calls on a fresh scaler give the same radii and flags.
     fresh = port.AutoQualityScaler(enabled=True)
@@ -3068,7 +3267,8 @@ def scaler_phase(port, dev) -> dict:
 
 def serving_phase(port, dev, card: str) -> dict:
     """Phase 9: the command line (9a), the pinned digests (9b) and the
-    quality scaler live in the threaded pipeline (9c), on the card."""
+    quality scaler live in the threaded pipeline (9c), on the card. Returns
+    9a's results with 9b's and 9c's launches and 9c's TOO_SLOW copies."""
     start = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         cli = cli_phase(port, dev, tmp)
@@ -3095,7 +3295,8 @@ def serving_phase(port, dev, card: str) -> dict:
         f"{'tripped' if tripped else 'never tripped'}"
         + (f", {'recovered' if recovered else 'never recovered'}" if tripped else "")
         + f"; {sc['outputs']} "
-        f"outputs ({sc['interpolated']} interpolated, {sc['copies']} TOO_SLOW copies checked); "
+        f"outputs ({sc['interpolated']} interpolated, {sc['copies']} TOO_SLOW copies checked, "
+        f"{sc['launches']['copy_frame']} K6 launches for the copies, no plain copy on the card); "
         f"median flow {sc['flow_ms']:.3f} ms/source frame (CUDA events), median push_frame "
         f"{sc['push_ms']:.3f} ms on the engine thread (host clock, frames 3-); output "
         f"{sc['out_fps']:.2f} fps over {sc['wall']:.3f} s (engine build included), "
@@ -3104,7 +3305,8 @@ def serving_phase(port, dev, card: str) -> dict:
         f"{sc['polls']} polls, /healthz 200 throughout, /metrics radii {sc['metrics_radii']}; "
         f"launches {sc['launches']}; equal to the replay on a fresh AutoQualityScaler; "
         f"phase 9 took {time.perf_counter() - start:.1f} s")
-    return cli
+    return dict(cli, digest_launches=launches, scaler_launches=sc["launches"],
+                too_slow_copies=sc["copies"])
 
 
 # Phase 10: the bench's runs in this process (10a), and the run as a user
@@ -3311,6 +3513,9 @@ def main(argv: list[str]) -> int:
         if 6 in getattr(warp_kernel, "KERNEL_MODES", ()):
             numbers["warp_frames_viz"] = viz_numbers(port, inp)
             log(f"K2 modes 4-6 times [{card}] of {ROOT}: {format_viz(numbers['warp_frames_viz'])}")
+        if port.copy_kernel is not None:
+            numbers["copy_frame"] = copy_numbers(port, dev)
+            log(f"K6 times [{card}] of {ROOT}: {format_copy(numbers['copy_frame'])}")
         numbers["wrapper_split_us"] = wrapper_split(port, dev)
         numbers["launch_anatomy_ms"] = floor_numbers(port, dev)
         if port.cost_volume_kernel is not None:
@@ -3474,7 +3679,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches(port)
     srv = new_server()
-    outs, wall_s, flow_s, warp_s, copy_s = serve(srv, frames[:10])
+    with plain_copies_on_the_card(port) as plain_copies:
+        outs, wall_s, flow_s, warp_s, copy_s = serve(srv, frames[:10])
     torch.cuda.synchronize()
     launches = read_launches(port)
     peak_bytes = torch.cuda.max_memory_allocated(dev)
@@ -3485,8 +3691,9 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"served {len(outs)} outputs, the cadence gives {expected}")
     if n_interp == 0:
         raise AssertionError("no interpolated output")
-    require_launched(launches, FLOW_KERNELS + ("warp_frames",), "phase 5")
+    require_launched(launches, FLOW_KERNELS + ("warp_frames", "copy_frame"), "phase 5")
     require_pyramid_path(launches, "phase 5")
+    require_copies_on_k6(launches, len(outs) - n_interp, plain_copies, "phase 5")
     for o in outs:
         if o.y.shape != (H, W) or o.uv.shape != (H // 2, W) or o.y.dtype != np.uint16:
             raise AssertionError(f"output shape/dtype {o.y.shape} {o.uv.shape} {o.y.dtype}")
@@ -3506,15 +3713,16 @@ def main(argv: list[str]) -> int:
     for path in fixtures:
         replay_fixture(path, dev)
     log(f"phase 5 served slice {W}x{H} HDR 24->60 mode 2 r16: {len(outs)} outputs "
-        f"(cadence {expected}), {n_interp} interpolated, launches {launches}, all equal to the "
+        f"(cadence {expected}), {n_interp} interpolated, {len(outs) - n_interp} copies (one K6 "
+        f"launch each, no plain copy on the card), launches {launches}, all equal to the "
         f"plain-version stream; golden {', '.join(os.path.basename(p) for p in fixtures)} "
         f"replayed byte for byte")
 
     # -- 5b / 5c. served visualisation modes --------------------------------------
     # The kernels each mode's path runs: the flow's and K2 in that mode, one
     # launch an interpolated output (modes 3-6 launch no mode-2 K2).
-    path_kernels = {3: FLOW_KERNELS + ("warp_frames_mode3",),
-                    **{m: FLOW_KERNELS + ("warp_frames_viz",) for m in VIZ_MODES}}
+    path_kernels = {3: FLOW_KERNELS + ("warp_frames_mode3", "copy_frame"),
+                    **{m: FLOW_KERNELS + ("warp_frames_viz", "copy_frame") for m in VIZ_MODES}}
     viz_warp_ms, viz_launches = {}, {}
     for mode, n_frames in ((3, 10), (4, 6), (5, 6), (6, 6)):
         viz_settings = port.Settings(**{**settings, "frame_output": mode})
@@ -3523,11 +3731,14 @@ def main(argv: list[str]) -> int:
             return port.FrameServer(W, H, source_fps=24.0, is_hdr=True, device=dev, settings=st)
 
         reset_launches(port)
-        vouts, _, _, vwarp_s, _ = serve(viz_server(), frames[:n_frames])
+        with plain_copies_on_the_card(port) as plain_copies:
+            vouts, _, _, vwarp_s, _ = serve(viz_server(), frames[:n_frames])
         torch.cuda.synchronize()
         got = read_launches(port)
         viz_launches[mode] = got
         require_launched(got, path_kernels[mode], f"mode {mode}")
+        require_copies_on_k6(got, sum(not o.interpolated for o in vouts), plain_copies,
+                             f"mode {mode}")
         off_path = [k for k in MODE3_OFF_PATH + ("warp_frames",)
                     + (("warp_frames_mode3",) if mode != 3 else ("warp_frames_viz",)) if got[k]]
         if off_path:
@@ -3592,6 +3803,7 @@ def main(argv: list[str]) -> int:
     hsv = hsv_numbers(port, inp)
     mode3 = mode3_numbers(port, inp)
     viz = viz_numbers(port, inp)
+    copy = copy_numbers(port, dev)
 
     # The served stream goes on for N_PROFILED more frames under torch.profiler.
     from torch.profiler import ProfilerActivity, profile
@@ -3629,6 +3841,10 @@ def main(argv: list[str]) -> int:
         f"flow unless marked, graph-timed device ms per call): {format_hsv(hsv)}")
     log(f"phase 6 K2 modes 4-6 [{card}] ({W}x{H} HDR, random +-64 flow unless marked, "
         f"graph-timed device ms per call unless marked): {format_viz(viz)}")
+    log(f"phase 6 K6 copy_frame [{card}] (levels 16/235, {COPY_GRAPH_CALLS} calls over "
+        f"{COPY_SOURCES} random source frames in one CUDA graph, device ms per call): "
+        f"{format_copy(copy)}; the served copy (phase 5, the engine's CUDA events, host launch "
+        f"included) {ms(copy_s):.3f} ms")
     # The flow at radius 16 and 5 in turns: phase 5's ten frames on one new
     # server, even frames at 16, odd frames at 5.
     alt, turns = new_server(), {16: [], 5: []}
@@ -3678,6 +3894,16 @@ def main(argv: list[str]) -> int:
         f"stacked against the full frame; {len(VIZ_CASES)} more geometries (rs 1-3 at 50 x 86 "
         f"with bands of n = 3, an odd half, t outside [0, 1], the int16 range; 1080p SDR at rs "
         f"2; rs 0 with flow cells to +-32767), {viz_launches_4e} launches; max |err| {viz_err}")
+
+    # -- 4f. K6 against its plain version ---------------------------------------
+    # After phase 6 too, as 4d: phases 5 and 6 keep their process state.
+    copy_err, n_copy, copy_launches_4f = copy_parity(port, dev)
+    torch.cuda.synchronize()
+    log(f"phase 4f K6 copy_frame (both planes' levels, one launch): {n_copy} samples equal to "
+        f"the plain version (every SDR and HDR sample value at levels "
+        f"{', '.join(f'{b}/{w}' for b, w in COPY_LEVELS)}; random {W}x{H} HDR and SDR and 86x50 "
+        f"at 16/235, 86x50 also one sample off 16 bytes), {copy_launches_4f} launches, each "
+        f"into new planes; max |err| {copy_err}")
 
     # -- 7. the parallel path -----------------------------------------------------
     band_entry, parallel_flow_launches = parallel_path(port, dev, card)
@@ -3813,6 +4039,27 @@ def main(argv: list[str]) -> int:
         "scaler_stream_launches": m3["launches"]["hsv_flow_overlay"],
         "chain_stream_launches": m3_chain["launches"]["hsv_flow_overlay"],
         "band_launches": parallel_flow_launches["band_hsv"]})
+    # K6: ms, plain_ms, host_us, grid_ms and the bound at 4K HDR (sdr: at 4K
+    # SDR), graph-timed over COPY_SOURCES source frames in turn; `launches`
+    # those of the served slice (phase 5's warmup copies), beside 5b/5c's,
+    # 9a's CLI processes', 9b's, 9c's (warmup and any TOO_SLOW copies) and
+    # 4f's. library_ms is null: no single PyTorch call computes the levels
+    # with their clip and truncation.
+    served_copies = {f"mode {m}": n["copy_frame"] for m, n in viz_launches.items()}
+    kernels.append({
+        "name": "copy_frame", "route": "cuda", "source": "hopperrender_tpu_torch/csrc/copy_frame.cu",
+        "replaces": "no pallas_call: hopperrender_tpu/ops/warp.py:258 copy_frame (XLA)",
+        "launches": launches["copy_frame"], "launches_path": "phase 5 served slice (warmup)",
+        "max_abs_err": copy_err, "ms": copy["4K HDR"]["ms"],
+        "plain_ms": copy["4K HDR"]["plain_ms"], "bound_ms": copy["4K HDR"]["bound_ms"],
+        "bound_by": copy["4K HDR"]["bound_by"], "library_ms": None,
+        "host_us": copy["4K HDR"]["host_us"], "grid_ms": copy["4K HDR"]["grid_ms"],
+        "vs_bound": copy["4K HDR"]["vs_bound"], "sdr": copy["4K SDR"],
+        "served_copy_ms": ms(copy_s), "viz_launches": served_copies,
+        "cli_launches": {c: r["launches"]["copy_frame"] for c, r in cli["results"].items()},
+        "digest_launches": cli["digest_launches"]["copy_frame"],
+        "scaler_launches": cli["scaler_launches"]["copy_frame"],
+        "too_slow_copies": cli["too_slow_copies"], "parity_launches": copy_launches_4f})
     # flow_step (K3 then K4, the main path's one call a pyramid step), K3 and K4
     # (the mesh's standalone calls): ms, plain_ms, host_us and the bound are a
     # call's, the mean over one 4K HDR flow's 16 calls at radius 16 (r5: at

@@ -75,6 +75,8 @@ SIGNATURES = {
     # K5 (raw_y, flow, out_y, out_uv, n_t, rows_y, rows_uv, dim_x, row0_y, row0_uv, low_h,
     #  low_w, res_scalar, is_hdr, black, white, stream)
     "hrt_hsv_overlay": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # K6 (src_y, src_uv, out_y, out_uv, dim_y, dim_x, is_hdr, black, white, stream)
+    "hrt_copy_frame": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     # (stream): an empty kernel, the floor under a launch-bound kernel's time
     "hrt_empty_launch": (_P,),
     # (grid_x, grid_y, block_x, block_y, stream): an empty launch of a kernel's grid

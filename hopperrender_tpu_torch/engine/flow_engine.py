@@ -19,7 +19,8 @@ one launch of kernel K2 (for all T outputs of a source interval;
 ops/warp_viz.warp_outputs): mode 3 is the HSV flow overlay in its epilogue,
 mode 4 the grey flow (the flow only, one frame for every t), modes 5 and 6
 the side-by-side views, where the JAX engine composes modes 4-6 in XLA
-around its warp kernel. The JAX engine's strip and
+around its warp kernel. Every copy (warmup, scene cuts, TooSlow) is one
+launch of kernel K6, the levels of both planes. The JAX engine's strip and
 band machinery (contexts, tier plans, apron tiers, chain bounds) exists
 because a TPU has no fast per-lane gather; Hopper gathers natively, so none of
 it is carried over.
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from hopperrender_tpu_torch import config
+from hopperrender_tpu_torch.ops import copy_kernel
 from hopperrender_tpu_torch.ops import flow as flow_ops
 from hopperrender_tpu_torch.ops import warp as warp_ops
 from hopperrender_tpu_torch.ops import warp_viz
@@ -276,13 +278,14 @@ class OpticalFlowEngine:
         return [(y[i], uv[i]) for i in range(len(scalars))]
 
     def copy_frame(self):
-        """Passthrough of the pipeline-latency-matched slot
+        """Passthrough of the pipeline-latency-matched slot, through the
+        levels: one K6 launch (ops/copy_kernel.py) into new planes
         (ref: opticalFlowCalcSDR.cpp:170-183)."""
         idx = 0 if self.frame_count >= 3 else (1 if self.frame_count >= 2 else 2)
         black, white = self._levels()
         start = self._clock()
-        y, uv = warp_ops.copy_frame(self._frames_y[idx], self._frames_uv[idx],
-                                    black, white, is_hdr=self.is_hdr)
+        y, uv = copy_kernel.copy_frame(self._frames_y[idx], self._frames_uv[idx],
+                                       black, white, is_hdr=self.is_hdr)
         self.warp_time.record(self._elapsed(start))
         return y, uv
 

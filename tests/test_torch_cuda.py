@@ -1,8 +1,10 @@
 """Kernels K1 (flow blur), K2 (batched warp, its mode 3 with the HSV flow
 overlay in its epilogue, its modes 4-6 (grey flow, side by side), its
 raw_blend variant and its mesh-sharded row-band variant), K3 (the cost volume's window sums), K4 (the argmin and its commit)
-and K5 (the HSV flow overlay on a raw blend: every colour pair, the full
-frame and the mesh's bands) against their plain PyTorch versions on a CUDA
+K5 (the HSV flow overlay on a raw blend: every colour pair, the full
+frame and the mesh's bands) and K6 (the levelled copy: every sample value at
+the usual and the degenerate level pairs, ragged and misaligned planes, 4K,
+the engine's warmup copies) against their plain PyTorch versions on a CUDA
 card, exactly, across bit depths, res scalars, modes and ragged shapes (K3
 and K4 over chip_smoke.py's phase 3b matrix); the pyramid on the card
 against the CPU and replayed in a CUDA graph; the HSV colour on the card
@@ -22,8 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from hopperrender_tpu_torch.ops import (blur_kernel, cost_volume_kernel, hsv_kernel, warp_kernel,
-                                        warp_viz)
+from hopperrender_tpu_torch.ops import (blur_kernel, copy_kernel, cost_volume_kernel, hsv_kernel,
+                                        warp_kernel, warp_viz)
 from hopperrender_tpu_torch.ops import warp as warp_ops
 from hopperrender_tpu_torch.probes import chain_probe, chain_probe2, gather_probe, mosaic_probe
 from hopperrender_tpu_torch.server import digests
@@ -1030,3 +1032,110 @@ def test_bench_units_on_the_card_match_the_cpu(dev, h, w, is_hdr):
     after = _launches()
     assert after[0] > before[0] and after[1] == before[1] + 6
     assert after[2] > before[2] and after[3] > before[3]
+
+
+# K6's level pairs (black, white) in 8-bit units, x256 for HDR: the usual
+# ones, then the degenerate ones that Settings accepts.
+COPY_LEVEL_PAIRS = ((0, 255), (16, 235), (3, 250), (16, 16), (0, 0), (16, 0), (235, 16))
+
+
+def _copy_levels(pair, is_hdr):
+    s = 256.0 if is_hdr else 1.0
+    return pair[0] * s, pair[1] * s
+
+
+def _copy_check(y, uv, black, white, is_hdr):
+    """One K6 call against its plain version: one launch, new planes."""
+    before = copy_kernel.copy_frame.launches
+    got = copy_kernel.copy_frame(y, uv, black, white, is_hdr=is_hdr)
+    assert copy_kernel.copy_frame.launches == before + 1
+    want = copy_kernel.copy_frame_reference(y, uv, black, white, is_hdr=is_hdr)
+    for g, w, src in zip(got, want, (y, uv)):
+        assert g.shape == src.shape and g.dtype == src.dtype and g.is_cuda
+        assert g.data_ptr() != src.data_ptr()
+        assert _same(g, w)
+
+
+@pytest.mark.parametrize("pair", COPY_LEVEL_PAIRS, ids=str)
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_copy_kernel_every_sample_value(dev, is_hdr, pair):
+    """Every sample value through K6 (Y twice, UV once) at each level pair,
+    equal to the plain version on the card."""
+    n = 65536 if is_hdr else 256
+    y = torch.tensor((np.arange(2 * n) % n).astype(np.uint16 if is_hdr else np.uint8)
+                     .reshape(-1, 256), device=dev)
+    _copy_check(y, y[:y.shape[0] // 2].clone(), *_copy_levels(pair, is_hdr), is_hdr)
+
+
+@pytest.mark.parametrize("h,w,is_hdr,off", [(50, 86, False, 0), (50, 86, True, 0),
+                                             (50, 86, False, 1), (50, 86, True, 1),
+                                             (2160, 3840, True, 0), (2160, 3840, False, 0)],
+                         ids=["50x86-sdr", "50x86-hdr", "50x86-sdr-off16", "50x86-hdr-off16",
+                              "4k-hdr", "4k-sdr"])
+def test_copy_kernel_shapes(dev, h, w, is_hdr, off):
+    """K6 on planes whose lengths are not a multiple of 16 bytes (50 x 86),
+    on planes that start off 16 bytes (off: one sample into a buffer), and
+    at 4K HDR and SDR."""
+    rng = np.random.default_rng(h + off)
+    planes = []
+    for p in _frame(rng, h, w, is_hdr, dev):
+        buf = torch.empty(p.numel() + off, dtype=p.dtype, device=dev)
+        planes.append(buf[off:].view(p.shape))
+        planes[-1].copy_(p)
+    _copy_check(*planes, *_copy_levels((16, 235), is_hdr), is_hdr)
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_engine_copy_frame_on_the_card_matches_cpu(dev, is_hdr):
+    """engine.copy_frame through warmup (the slot it copies moves as frames
+    arrive) on the card equals the CPU engine; one K6 launch a copy, new
+    planes, not the ring slot."""
+    from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
+    from hopperrender_tpu_torch.vio import nv12
+    h, w = 50, 86
+    rng = np.random.default_rng(10)
+    frames = [nv12.synthetic_frame(rng, h, w, is_hdr=is_hdr, motion_x=3 * i) for i in range(4)]
+    s = 256.0 if is_hdr else 1.0
+    engines = [OpticalFlowEngine(h, w, is_hdr=is_hdr, black_level=16.0 * s,
+                                 white_level=235.0 * s, device=d) for d in ("cpu", dev)]
+    for y, uv in frames:
+        for eng in engines:
+            eng.update_frame(y, uv)
+        want = engines[0].copy_frame()
+        before = copy_kernel.copy_frame.launches
+        got = engines[1].copy_frame()
+        assert copy_kernel.copy_frame.launches == before + 1
+        slots = {t.data_ptr() for t in engines[1]._frames_y + engines[1]._frames_uv}
+        assert not slots & {t.data_ptr() for t in got}
+        assert _same(got[0].cpu(), want[0]) and _same(got[1].cpu(), want[1])
+
+
+def test_copy_kernel_rejects_bad_input(dev):
+    y, uv = _frame(np.random.default_rng(4), 32, 64, False, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        copy_kernel.copy_frame(y.t().contiguous().t(), uv, 0.0, 255.0, is_hdr=False)
+    with pytest.raises(ValueError, match="one device"):
+        copy_kernel.copy_frame(y, uv.cpu(), 0.0, 255.0, is_hdr=False)
+    with pytest.raises(ValueError, match="uint16"):
+        copy_kernel.copy_frame(y, uv, 0.0, 255.0, is_hdr=True)
+
+
+@pytest.mark.parametrize("is_hdr", [False, True])
+def test_warp_kernel_levels_degenerate_pairs(dev, is_hdr):
+    """K2's mode 2 shares K6's clip: every sample value through its blend and
+    levels (zero flow, t = 0, 1 and 0.5) at the degenerate level pairs that
+    Settings accepts, equal to the plain version."""
+    n, w = (65536 if is_hdr else 256), 256
+    h = 2 * n // w
+    planes = [(np.arange(rows * w) % n).reshape(rows, w).astype(np.uint16 if is_hdr else np.uint8)
+              for rows in (h, h // 2)]
+    y12, uv12, y21, uv21 = (torch.tensor(np.ascontiguousarray(p), device=dev)
+                            for p in planes + [p[:, ::-1] for p in planes])
+    flow = torch.zeros((2, h, w), dtype=torch.int16, device=dev)
+    ts = torch.tensor([0.0, 1.0, 0.5], dtype=torch.float32, device=dev)
+    for pair in COPY_LEVEL_PAIRS[3:]:
+        args = (y12, uv12, y21, uv21, flow, ts, *_copy_levels(pair, is_hdr))
+        kw = dict(res_scalar=0, mode=2, is_hdr=is_hdr)
+        ky, kuv = warp_kernel.warp_frames(*args, **kw)
+        py, puv = warp_kernel.warp_frames_reference(*args, **kw)
+        assert _same(ky, py) and _same(kuv, puv), f"levels {pair}"

@@ -33,6 +33,7 @@ import time
 
 from hopperrender_tpu_torch import config
 from hopperrender_tpu_torch.config import Settings, default_settings_path
+from hopperrender_tpu_torch.utils import trace
 from hopperrender_tpu_torch.utils.logging import get_logger
 
 log = get_logger("cli")
@@ -81,6 +82,7 @@ def cmd_interpolate(args: argparse.Namespace) -> int:
                                args.target_fps, is_hdr=is_hdr)
 
     n_in = n_out = 0
+    trace.enable(args.stats, keep=False)
     t0 = time.perf_counter()
     try:
         for y, uv in reader:
@@ -92,6 +94,7 @@ def cmd_interpolate(args: argparse.Namespace) -> int:
                 break
     finally:
         writer.close()
+        trace.enable(False)
     wall = time.perf_counter() - t0
     m = server.metrics()
     log.info(
@@ -107,7 +110,7 @@ def cmd_interpolate(args: argparse.Namespace) -> int:
         print(json.dumps({
             "frames_in": n_in, "frames_out": n_out, "wall_s": round(wall, 3),
             "out_fps": round(n_out / wall, 2) if wall else 0.0,
-            "metrics": dataclasses.asdict(m),
+            "metrics": dataclasses.asdict(m), **trace.per_frame(),
         }), file=sys.stderr if args.output == "-" else sys.stdout)
     return 0
 
@@ -160,6 +163,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
     th = threading.Thread(target=feeder, name="hrt-feed", daemon=True)
     n_out = 0
+    trace.enable(args.stats, keep=False)
     t0 = time.perf_counter()
     th.start()
     try:
@@ -170,6 +174,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         writer.close()
         th.join(timeout=30)
         pipe.join()
+        trace.enable(False)
         if status is not None:
             status.close()
     if feed_err:
@@ -190,7 +195,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
             "out_fps": round(n_out / wall, 2) if wall else 0.0,
             "renegotiations": pipe.stats.renegotiations,
             "input_ring_high_water": pipe.stats.input_ring_high_water,
-            "metrics": dataclasses.asdict(m),
+            "metrics": dataclasses.asdict(m), **trace.per_frame(),
         }), file=sys.stderr if args.output == "-" else sys.stdout)
     return 0
 

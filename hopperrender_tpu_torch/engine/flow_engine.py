@@ -38,6 +38,7 @@ from hopperrender_tpu_torch.ops import copy_kernel
 from hopperrender_tpu_torch.ops import flow as flow_ops
 from hopperrender_tpu_torch.ops import warp as warp_ops
 from hopperrender_tpu_torch.ops import warp_viz
+from hopperrender_tpu_torch.utils import trace
 
 RADIUS_BUCKETS = (5, 8, 12, flow_ops.MAX_R)
 
@@ -154,13 +155,17 @@ class OpticalFlowEngine:
             return ev
         return time.perf_counter()
 
-    def _elapsed(self, start) -> float:
-        """Seconds from `start` to the end of the work queued so far (waits for it)."""
+    def _elapsed(self, start, wait: str) -> float:
+        """Seconds from `start` to the end of the work queued so far; the
+        host waits for it in the tracer's span `wait` (one host sync)."""
+        end = self._clock()
+        with trace.span(wait):
+            trace.count(trace.HOST_SYNC)
+            if self.device.type == "cuda":
+                end.synchronize()
         if self.device.type == "cuda":
-            end = self._clock()
-            end.synchronize()
             return start.elapsed_time(end) / 1e3
-        return time.perf_counter() - start
+        return end - start
 
     # -- streaming API (mirrors OpticalFlowCalc) ------------------------------
 
@@ -181,8 +186,9 @@ class OpticalFlowEngine:
     def update_frame(self, y, uv) -> None:
         """Ingest frame N and rotate the ring (ref: opticalFlowCalcSDR.cpp:19-29).
         Accepts host ndarrays or torch tensors."""
-        y_dev = self._to_device(y, (self.h, self.w))
-        uv_dev = self._to_device(uv, (self.h // 2, self.w))
+        with trace.span("engine.ingest"):
+            y_dev = self._to_device(y, (self.h, self.w))
+            uv_dev = self._to_device(uv, (self.h // 2, self.w))
         self._frames_y = [self._frames_y[1], self._frames_y[2], y_dev]
         self._frames_uv = [self._frames_uv[1], self._frames_uv[2], uv_dev]
         self.frame_count += 1
@@ -208,13 +214,14 @@ class OpticalFlowEngine:
         """Compute flow for the newest pair (slots 1, 2); swap the flow double
         buffer so warping uses the previous pair's flow
         (ref: opticalFlowCalcSDR.cpp:44-139)."""
-        blurred, delta_raw = self._run_pyramid(
-            self._frames_y[1], self._frames_uv[1], self._frames_y[2], self._frames_uv[2],
-            num_layers=self._radius_bucket())
-        self._blurred = [self._blurred[1], blurred]
-        self._pending_delta_raw = delta_raw
-        start = self._ofc_start if self._ofc_start is not None else self._clock()
-        self.ofc_time.record(self._elapsed(start))
+        with trace.span("engine.flow"):
+            blurred, delta_raw = self._run_pyramid(
+                self._frames_y[1], self._frames_uv[1], self._frames_y[2], self._frames_uv[2],
+                num_layers=self._radius_bucket())
+            self._blurred = [self._blurred[1], blurred]
+            self._pending_delta_raw = delta_raw
+            start = self._ofc_start if self._ofc_start is not None else self._clock()
+            self.ofc_time.record(self._elapsed(start, "sync.flow_timer"))
 
     def fetch_total_frame_delta(self) -> int:
         """Sync point for the scene-change scalar; normalisation is truncating
@@ -222,7 +229,10 @@ class OpticalFlowEngine:
         opticalFlowCalcHDR.cpp:93 /6)."""
         if self._pending_delta_raw is not None:
             norm = self.low_h * self.low_w * (6 if self.is_hdr else 10)
-            self.total_frame_delta = int(self._pending_delta_raw) // norm
+            with trace.span("sync.scene_delta"):
+                trace.count(trace.HOST_SYNC)
+                raw = int(self._pending_delta_raw)
+            self.total_frame_delta = raw // norm
             self._pending_delta_raw = None
         return self.total_frame_delta
 
@@ -257,9 +267,10 @@ class OpticalFlowEngine:
     def warp_frames(self, blending_scalar: float, frame_output_mode: int):
         """One output: warp slots 0, 1 with the previous pair's flow
         (ref: opticalFlowCalcSDR.cpp:141-168). Returns device (y, uv)."""
-        start = self._clock()
-        y, uv = self._warp([float(blending_scalar)], frame_output_mode)
-        self.warp_time.record(self._elapsed(start))
+        with trace.span("engine.warp"):
+            start = self._clock()
+            y, uv = self._warp([float(blending_scalar)], frame_output_mode)
+            self.warp_time.record(self._elapsed(start, "sync.warp_timer"))
         return y[0], uv[0]
 
     def warp_frames_batch(self, blending_scalars, frame_output_mode: int):
@@ -269,10 +280,11 @@ class OpticalFlowEngine:
         scalars = [float(s) for s in blending_scalars]
         if not scalars:
             return []
-        start = self._clock()
-        y, uv = self._warp(scalars, frame_output_mode)
-        # The scaler consumes per-output warp durations: share the batch evenly.
-        per = self._elapsed(start) / len(scalars)
+        with trace.span("engine.warp"):
+            start = self._clock()
+            y, uv = self._warp(scalars, frame_output_mode)
+            # The scaler consumes per-output warp durations: share the batch evenly.
+            per = self._elapsed(start, "sync.warp_timer") / len(scalars)
         for _ in scalars:
             self.warp_time.record(per)
         return [(y[i], uv[i]) for i in range(len(scalars))]
@@ -283,10 +295,11 @@ class OpticalFlowEngine:
         (ref: opticalFlowCalcSDR.cpp:170-183)."""
         idx = 0 if self.frame_count >= 3 else (1 if self.frame_count >= 2 else 2)
         black, white = self._levels()
-        start = self._clock()
-        y, uv = copy_kernel.copy_frame(self._frames_y[idx], self._frames_uv[idx],
-                                       black, white, is_hdr=self.is_hdr)
-        self.warp_time.record(self._elapsed(start))
+        with trace.span("engine.copy"):
+            start = self._clock()
+            y, uv = copy_kernel.copy_frame(self._frames_y[idx], self._frames_uv[idx],
+                                           black, white, is_hdr=self.is_hdr)
+            self.warp_time.record(self._elapsed(start, "sync.warp_timer"))
         return y, uv
 
     def reset_stream(self) -> None:

@@ -31,6 +31,7 @@ from hopperrender_tpu_torch.config import ActiveState, Settings
 from hopperrender_tpu_torch.server import sidedata as sd
 from hopperrender_tpu_torch.server.control import AutoQualityScaler, CadenceController
 from hopperrender_tpu_torch.server.display import DisplayRatePoller
+from hopperrender_tpu_torch.utils import trace
 from hopperrender_tpu_torch.utils.logging import get_logger
 from hopperrender_tpu_torch.vio import nv12
 from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
@@ -91,6 +92,7 @@ class ServerMetrics:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
+    trace.count(trace.HOST_SYNC)
     return t.cpu().numpy()
 
 
@@ -211,6 +213,10 @@ class FrameServer:
                    side_data: dict[str, bytes] | None = None) -> list[OutputFrame]:
         """Ingest one decoded source frame; return 0..N output frames
         (ref: CHopperRender::DeliverToRenderer, HopperRender.cpp:847-1211)."""
+        with trace.span(trace.FRAME):
+            return self._push_frame(y, uv, pts, side_data)
+
+    def _push_frame(self, y, uv, pts, side_data) -> list[OutputFrame]:
         h, w = y.shape
         if (h, w) != (self.height, self.width):   # (ref: HopperRender.cpp:722-791)
             log.info("Resolution change %dx%d -> %dx%d", self.width, self.height, w, h)
@@ -287,8 +293,10 @@ class FrameServer:
                 else:  # (ref: HopperRender.cpp:1179-1183)
                     oy, ouv = eng.copy_frame()
                 self.scaler.add_warp_duration(eng.warp_time.current)
+            with trace.span("server.egress"):
+                y_host, uv_host = _host(oy), _host(ouv)
             outputs.append(OutputFrame(
-                y=_host(oy), uv=_host(ouv),
+                y=y_host, uv=uv_host,
                 start_time=timing.start_time, end_time=timing.end_time,
                 blending_scalar=timing.blending_scalar,
                 interpolated=interp, scene_change=scene_change,

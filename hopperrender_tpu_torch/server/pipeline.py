@@ -35,6 +35,7 @@ import numpy as np
 
 from hopperrender_tpu_torch.native import FrameRing, pack as native_pack, unpack as native_unpack
 from hopperrender_tpu_torch.server.frame_server import FrameServer, OutputFrame
+from hopperrender_tpu_torch.utils import trace
 from hopperrender_tpu_torch.utils.logging import get_logger
 from hopperrender_tpu_torch.vio import nv12
 
@@ -151,26 +152,30 @@ class PipelinedServer:
         in_ring = self._in_ring
         try:
             while True:
-                item = in_ring.pop(timeout=None)
-                if item is None:  # closed and drained
-                    if self._in_handoff:  # raced a renegotiation-in-flight
+                with trace.span("pipe.frame"):
+                    with trace.span("pipe.wait_input"):
+                        item = in_ring.pop(timeout=None)
+                    if item is None:  # closed and drained
+                        if self._in_handoff:  # raced a renegotiation-in-flight
+                            in_ring = self._in_handoff.pop(0)
+                            continue
+                        break
+                    buf, meta = item
+                    if meta[3] == _KIND_RENEGOTIATE:
                         in_ring = self._in_handoff.pop(0)
                         continue
-                    break
-                buf, meta = item
-                if meta[3] == _KIND_RENEGOTIATE:
-                    in_ring = self._in_handoff.pop(0)
-                    continue
-                pts = meta[0] if meta[0] >= 0 else None
-                h = int(meta[1]) or self.server.height
-                w = int(meta[2]) or self.server.width
-                y, uv = native_unpack(buf, h, w, is_hdr=self.server.is_hdr)
-                self._busy_since = time.monotonic()
-                try:
-                    for out in self.server.push_frame(y, uv, pts=pts):
-                        self._emit(out)
-                finally:
-                    self._busy_since = None
+                    pts = meta[0] if meta[0] >= 0 else None
+                    h = int(meta[1]) or self.server.height
+                    w = int(meta[2]) or self.server.width
+                    with trace.span("pipe.unpack"):
+                        y, uv = native_unpack(buf, h, w, is_hdr=self.server.is_hdr)
+                    self._busy_since = time.monotonic()
+                    try:
+                        for out in self.server.push_frame(y, uv, pts=pts):
+                            with trace.span("pipe.emit"):
+                                self._emit(out)
+                    finally:
+                        self._busy_since = None
         except BaseException as e:  # surfaced to both producer and consumer
             self._error = e
             log.error("engine thread failed: %s", e)

@@ -59,8 +59,8 @@ def _stats(captured):
 def test_cli_output_matches_jax(tmp_path, capsys, is_hdr, mode):
     """interpolate from raw and from Y4M, and serve (threaded pipeline, status
     endpoint, --stats): every port output equals the JAX CLI's, byte for byte;
-    serve's stats line carries JAX's keys, and its metrics JAX's but
-    warp_apron."""
+    serve's stats line carries JAX's keys and the tracer's stages_ms and
+    host_syncs_per_frame, and its metrics JAX's but warp_apron."""
     raw, y4m, settings = _inputs(tmp_path, is_hdr)
     common = ["--target-fps", "60", "--mode", str(mode), "--settings", str(settings)]
     jax_serve = tmp_path / "jax_serve.y4m"
@@ -82,7 +82,15 @@ def test_cli_output_matches_jax(tmp_path, capsys, is_hdr, mode):
     captured = capsys.readouterr()
     stats = _stats(captured.out)
     assert "status endpoint: http://127.0.0.1:" in captured.err
-    assert set(stats) == set(jax_stats)
+    assert set(stats) == set(jax_stats) | {"stages_ms", "host_syncs_per_frame"}
+    assert {"pipe.frame", "pipe.wait_input", "pipe.unpack", "server.push_frame", "pipe.emit",
+            "engine.ingest", "engine.flow", "server.egress"} <= set(stats["stages_ms"])
+    # two warm-up pushes of three copies (3 syncs each), then four with the flow
+    # timer and the scene gate, one warp timer (mode 2) or one an output
+    # (mode 3), and two planes an output
+    late = stats["frames_out"] - 6
+    syncs = 18 + (4 * 3 + 2 * late if mode == 2 else 4 * 2 + 3 * late)
+    assert stats["host_syncs_per_frame"] == syncs / 6
     assert set(stats["metrics"]) == set(jax_stats["metrics"]) - {"warp_apron"}
     for key in ("frames_in", "frames_out", "renegotiations"):
         assert stats[key] == jax_stats[key], key

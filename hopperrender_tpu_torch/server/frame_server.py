@@ -37,13 +37,18 @@ from hopperrender_tpu_torch.vio import nv12
 from hopperrender_tpu_torch.engine.flow_engine import OpticalFlowEngine
 
 BATCHED_MODES = (0, 1, 2)   # the modes whose interval shares one warp launch
+EGRESS_PINNED = "egress.pinned"   # a plane copied from the card into a pinned block
+EGRESS_HOST_ALLOC = "egress.host_alloc"   # pinned blocks created for an output
 
 log = get_logger("server")
 
 
 @dataclasses.dataclass
 class OutputFrame:
-    """One delivered output sample (host planes)."""
+    """One delivered output sample (host planes). Served on the card, each
+    plane lives in a pinned host block from PyTorch's caching host
+    allocator that the frame owns: the block goes back to the cache when
+    the last reference to the plane is dropped."""
 
     y: np.ndarray
     uv: np.ndarray
@@ -92,8 +97,23 @@ class ServerMetrics:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
+    """Plane t on the host, after one blocking wait. A CUDA plane is copied
+    into a pinned block from PyTorch's caching host allocator (one DMA, no
+    staging copy on the CPU); the returned array's base is that pinned
+    tensor, so the block is reused only once the caller drops the array. A
+    CPU plane is returned as t's own array."""
     trace.count(trace.HOST_SYNC)
-    return t.cpu().numpy()
+    if not t.is_cuda:
+        return t.cpu().numpy()
+    trace.count(EGRESS_PINNED)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
+
+
+def _host_allocs() -> int:
+    """Pinned blocks the caching host allocator has created so far."""
+    return torch.cuda.host_memory_stats()["num_host_alloc"]
 
 
 class FrameServer:
@@ -294,7 +314,10 @@ class FrameServer:
                     oy, ouv = eng.copy_frame()
                 self.scaler.add_warp_duration(eng.warp_time.current)
             with trace.span("server.egress"):
+                allocs = _host_allocs() if trace.is_on() and oy.is_cuda else None
                 y_host, uv_host = _host(oy), _host(ouv)
+                if allocs is not None:
+                    trace.count(EGRESS_HOST_ALLOC, _host_allocs() - allocs)
             outputs.append(OutputFrame(
                 y=y_host, uv=uv_host,
                 start_time=timing.start_time, end_time=timing.end_time,

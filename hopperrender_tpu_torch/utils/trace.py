@@ -112,6 +112,11 @@ def enable(on: bool, *, keep: bool = True) -> None:
     _on, _keep = bool(on), bool(keep)
 
 
+def is_on() -> bool:
+    """Whether the tracer is on: for a reading that costs more than count()."""
+    return _on
+
+
 def span(name: str):
     """A context manager around one step of the served path."""
     if not _on:

@@ -10,8 +10,9 @@ and K4 over chip_smoke.py's phase 3b matrix); the pyramid on the card
 against the CPU and replayed in a CUDA graph; the HSV colour on the card
 against the CPU; the mesh's dryrun and its modes 3-6 on the card; the
 probe kernels P1-P4 against their plain versions; the four pinned-digest
-streams and the threaded pipeline served on the card. Every test skips
-without a card.
+streams and the threaded pipeline served on the card; the egress into
+pinned host blocks (ownership, bytes, counters). Every test skips without
+a card.
 
 On the card (whose machine may lack jax, which tests/conftest.py imports):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -996,6 +997,97 @@ def test_pipelined_server_on_the_card(dev):
         assert (got.start_time, got.interpolated) == (ref.start_time, ref.interpolated)
         np.testing.assert_array_equal(got.y, ref.y)
         np.testing.assert_array_equal(got.uv, ref.uv)
+
+
+def _pan_frames(n, h=2160, w=3840, step=3):
+    """n P010 frames of a pan over one textured canvas, step px a frame."""
+    canvas = w + step * (n - 1)
+    yy, xx = np.arange(h, dtype=np.float32)[:, None], np.arange(canvas, dtype=np.float32)[None]
+    tex = (np.sin(xx * 0.17) + np.cos(yy * 0.23) + np.sin((xx + yy) * 0.05) + 3) / 6
+    noise = np.random.default_rng(21).random((h, canvas), dtype=np.float32) * 0.1
+    full = (((tex + noise) / 1.1 * 65535).astype(np.uint16) & 0xFFC0).astype(np.uint16)
+    return [(np.ascontiguousarray(full[:, step * i:step * i + w]),
+             np.ascontiguousarray(full[::2, step * i:step * i + w])) for i in range(n)]
+
+
+def _hdr_server(dev, mode):
+    from hopperrender_tpu_torch.config import Settings
+    from hopperrender_tpu_torch.server.frame_server import FrameServer
+    settings = Settings(target_fps=60.0, use_display_fps=False, auto_quality=False,
+                        frame_output=mode)
+    return FrameServer(3840, 2160, is_hdr=True, device=dev, settings=settings)
+
+
+@pytest.mark.parametrize("mode", [2, 3])
+def test_egress_planes_are_pinned_and_owned_by_the_frame(dev, mode, monkeypatch):
+    """4K HDR served on the card: each output plane's base is a pinned CPU
+    tensor (a block of the caching host allocator); the planes of the first
+    six pushes, held while 12 more pushes reuse the blocks of the outputs
+    dropped meanwhile, still equal the copies taken when they were returned;
+    and the stream equals the same stream through a pageable .cpu() egress,
+    byte for byte."""
+    from hopperrender_tpu_torch.server import frame_server
+
+    frames = _pan_frames(18)
+    srv = _hdr_server(dev, mode)
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    held, stream, planes = [], [], 0
+    for k, (y, uv) in enumerate(frames):
+        for o in srv.push_frame(y, uv):
+            for a in (o.y, o.uv):
+                assert isinstance(a.base, torch.Tensor) and a.base.is_pinned()
+                assert a.base.device.type == "cpu" and a.ctypes.data == a.base.data_ptr()
+            stream.append((o.y.copy(), o.uv.copy(), o.start_time, o.interpolated))
+            planes += 2
+            if k < 6:
+                held.append((o, stream[-1]))
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] - allocs < planes  # blocks reused
+    for o, (y, uv, _, _) in held:
+        np.testing.assert_array_equal(o.y, y)
+        np.testing.assert_array_equal(o.uv, uv)
+    assert any(interp for *_, interp in stream)
+
+    monkeypatch.setattr(frame_server, "_host", lambda t: t.cpu().numpy())
+    pageable = _hdr_server(dev, mode)
+    want = [o for y, uv in frames for o in pageable.push_frame(y, uv)]
+    assert len(want) == len(stream)
+    for (y, uv, start, interp), ref in zip(stream, want):
+        assert (start, interp) == (ref.start_time, ref.interpolated)
+        assert y.dtype == ref.y.dtype == np.uint16 and uv.dtype == ref.uv.dtype
+        np.testing.assert_array_equal(y, ref.y)
+        np.testing.assert_array_equal(uv, ref.uv)
+
+
+def test_egress_counters_on_the_card(dev):
+    """The tracer on, the client holding its 5 newest outputs (as the
+    benchmark's closed loop does): egress.pinned counts 2 an output, and
+    after a warm-up of 10 pushes egress.host_alloc stays 0 over 20 steady
+    pushes, every block coming back from the cache."""
+    import collections
+
+    from hopperrender_tpu_torch.server import frame_server
+    from hopperrender_tpu_torch.utils import trace
+
+    frames = _pan_frames(16)
+    order = list(range(16)) + list(range(14, 0, -1))   # ping-pong, 30 pushes
+    srv = _hdr_server(dev, 2)
+    queue = collections.deque(maxlen=5)
+    trace.enable(True)
+    try:
+        trace.drain()
+        for k, i in enumerate(order):
+            outputs = srv.push_frame(*frames[i])
+            queue.extend(outputs)
+            n = len(outputs)
+            del outputs
+            egress = [r.counters for r in trace.drain() if r.name == "server.egress"]
+            assert len(egress) == n > 0
+            assert [c[frame_server.EGRESS_PINNED] for c in egress] == [2] * n, k
+            if k >= 10:
+                assert [c[frame_server.EGRESS_HOST_ALLOC] for c in egress] == [0] * n, k
+    finally:
+        trace.enable(False)
+        trace.drain()
 
 
 @pytest.mark.parametrize("h,w,is_hdr", [(1080, 1920, False), (2160, 3840, True)],

@@ -7,6 +7,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from hopperrender_tpu.config import Settings
 from hopperrender_tpu.server.frame_server import FrameServer as JaxFrameServer
@@ -115,3 +116,27 @@ def test_shared_digest_streams_are_these_streams():
     """hopperrender_tpu_torch/server/digests.py, which test_pinned_digest, the
     card's tests and chip_smoke.py replay, defines the streams of CONFIGS."""
     assert digests.STREAMS == CONFIGS
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16])
+def test_egress_on_the_cpu_hands_back_the_planes_own_array(dtype):
+    """Served on the CPU, the egress returns the engine's plane itself (no
+    copy, no pinned block) and counts one host sync and nothing else."""
+    from hopperrender_tpu_torch.server import frame_server
+    from hopperrender_tpu_torch.utils import trace
+
+    t = torch.arange(24, dtype=torch.int32).reshape(4, 6).to(dtype)
+    trace.enable(True)
+    try:
+        trace.drain()
+        assert trace.is_on()
+        with trace.span("server.egress"):
+            a = frame_server._host(t)
+        (rec,) = trace.drain()
+    finally:
+        trace.enable(False)
+        trace.drain()
+    assert not trace.is_on()
+    assert a.ctypes.data == t.data_ptr() and a.shape == (4, 6)
+    np.testing.assert_array_equal(a, np.arange(24).reshape(4, 6))
+    assert rec.counters == {trace.HOST_SYNC: 1}

@@ -190,6 +190,8 @@ def load() -> KernelLibrary:
                 fn.restype = ctypes.c_int
             lib.hrt_error_string.argtypes = [ctypes.c_int]
             lib.hrt_error_string.restype = ctypes.c_char_p
+            lib.hrt_warp_generic_launches.argtypes = []
+            lib.hrt_warp_generic_launches.restype = ctypes.c_longlong
             _loaded = KernelLibrary(lib=lib, path=so, build_seconds=seconds,
                                     ptxas_log=log)
         return _loaded

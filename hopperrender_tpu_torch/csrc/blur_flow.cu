@@ -8,9 +8,10 @@
 //   out = sign(acc) * (|acc| / 64).
 // C's `/` truncates toward zero, which is exactly sign(acc) * (|acc| // 64).
 //
-// What bounds it on an H100: the launch. At 4K the planes are 2x270x480
-// int16, 518 KB in and 518 KB out (0.3 us at 3.35 TB/s), well under the time
-// of one launch. The first port ran one thread per output with 16 mirror
+// What bounds it on an H100: the launch. At 4K and res_scalar 3 the planes
+// are 2x270x480 int16, 518 KB in and 518 KB out (0.3 us at 3.35 TB/s), well
+// under the time of one launch; at res_scalar 0, 2x2160x3840, 33 MB each way
+// (20 us): there the bytes. The first port ran one thread per output with 16 mirror
 // computations (each an integer %) and 64 loads, none shared with its
 // neighbours. Here one block takes a kTileH x kTileW tile of one plane and:
 //   1. mirrors the tile's kTileH + 7 rows and kTileW + 7 columns once each,
@@ -21,7 +22,7 @@
 //   3. sums 8 columns along each staged row (int32), then 8 rows down each
 //      column, as the TPU kernel's separable form did, and writes acc / 64.
 // Each output costs 16 adds and no %. Tiles are 16 rows by 32 columns (540
-// blocks at 4K): 32-row and 8-row tiles took longer on the card.
+// blocks at 4K and res_scalar 3): 32-row and 8-row tiles took longer on the card.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -25,8 +25,11 @@
 // What bounds K3 on an H100: the operations per candidate (two gathered
 // loads of frame 1 and ~40 integer operations), not the bytes; at radius 5
 // in step 1 the distinct sectors of frame 1's rows come close. At res_scalar
-// 3 a step reads every 8th row of frame 1 near the cells, which stays in the
-// 50 MB L2. Timed in variants (hrt_delta_sums_probe), a first, simpler
+// 3 (a 4K frame at the default MaxCalcRes, 270) a step reads every 8th row of
+// frame 1 near the cells, which stays in the 50 MB L2; at res_scalar 0 (the
+// flow at the frame's own resolution) it reads frame 1 densely, 64x the
+// cells, and a 4K HDR pair's planes (50 MB) no longer fit beside the rest.
+// Timed in variants (hrt_delta_sums_probe), a first, simpler
 // kernel lost its time to a fill launch before every call, to its
 // reduction (five shuffles and a shared-memory atomic per layer and warp)
 // and to issuing each layer's loads only after the last were used; pointing
@@ -42,7 +45,8 @@
 //     (SDR) load reads both (the wrappers refuse an odd or short UV row and
 //     a misaligned UV plane); indices are 32-bit (planes below 2**31);
 //   - a block is a tile of 8 rows x 32 cells, a warp a row, 4 blocks an SM,
-//     so a 4K flow's 510 blocks fit one wave on 132 SMs; windows are powers
+//     so a 4K flow's 510 blocks at res_scalar 3 fit one wave on 132 SMs
+//     (at res_scalar 0, 32,400 blocks: 62 waves); windows are powers
 //     of two aligned to the tile. A warp reduces its layers over a window's
 //     lanes by halving exchange (each shuffle carries one of the layers a
 //     lane still holds: 15 shuffles for 16 layers where a tree a layer takes
@@ -50,7 +54,9 @@
 //     window's rows from shared memory and shuffle-sum them;
 //   - a window of at most 8 cells a side lies in one block, which stores its
 //     sums; a larger window takes one atomic per (layer, window, block) into
-//     sums that arrive zeroed. On the pyramid path (hrt_flow_step) the step
+//     sums that arrive zeroed (at res_scalar 0 the first windows are 2048
+//     cells a side: every block of the grid adds into the same 4 windows
+//     a layer). On the pyramid path (hrt_flow_step) the step
 //     before clears them in its K4 and layers past the radius are never
 //     written (K4 does not read them); hrt_delta_sums keeps a fill launch,
 //     which also writes 0xFFFFFFFF past the radius.
@@ -58,16 +64,16 @@
 // K4. For each window, the first strict minimum (unsigned) of its sums over
 // layers [0, min(radius, num_layers)); then every cell of the window commits
 // out[step & 1] = int16(in[step & 1] + signed_square(winner - radius / 2));
-// where out is not in, the other plane is copied. It moves 0.5 MB of offsets
-// at 4K, so its bound (0.26 us) lies below a launch's floor (~1 us): its time
-// is the launch, the dispatch of its blocks and a chain of memory latencies
-// (the offsets' read-modify-write; the scan, then the barrier, then the
-// store). A thread a cell scanning its window's layers one load after
+// where out is not in, the other plane is copied. At 4K and res_scalar 3 it
+// moves 0.5 MB of offsets (33 MB at res_scalar 0), so its bound (0.26 us)
+// lies below a launch's floor (~1 us): its time there is the launch, the
+// dispatch of its blocks and a chain of memory latencies (the offsets'
+// read-modify-write; the scan, then the barrier, then the store). A thread a cell scanning its window's layers one load after
 // another would add a round trip a layer. Here a block is a tile of 8 x 128
-// cells (136 blocks at 4K, about one an SM): every thread loads its four
-// cells' offsets, then the tile's windows are scanned a thread a window with
-// the scan unrolled to 16 layers and predicated, so all of its loads are in
-// flight with the offsets'; the winners' adjustments meet the cells through
+// cells (136 blocks at 4K and res_scalar 3, about one an SM; 8,100 at
+// res_scalar 0): every thread loads its four cells' offsets, then the
+// tile's windows are scanned a thread a window with the scan unrolled to 16
+// layers and predicated, so all of its loads are in flight with the offsets'; the winners' adjustments meet the cells through
 // shared memory. On the pyramid path K4 also clears the next step's sums
 // (when that step adds with atomics) and, at iteration 0 step 0, writes the
 // raw frame delta (window (0, 0) of layer radius / 2 - 1, as Python indexes
@@ -81,7 +87,7 @@ namespace {
 
 constexpr int kTileX = 32, kTileY = 8;          // cells a block: a warp a row
 constexpr int kThreads = kTileX * kTileY;
-constexpr int kBlocksPerSM = 4;                 // a 4K flow's 510 tiles in one wave
+constexpr int kBlocksPerSM = 4;                 // a 4K flow's 510 tiles in one wave (rs 3)
 constexpr int kMaxLayers = 16;                  // MAX_SEARCH_RADIUS
 constexpr int kFillThreads = 256;
 constexpr uint32_t kFull = 0xFFFFFFFFu;

@@ -55,7 +55,8 @@
 // What bounds it on an H100: device-memory bytes. Each output element reads
 // one (modes 0/1) or two (mode 2, raw or not) source samples and writes one. At
 // 4K HDR a T=3 call must read both sources once (49.8 MB) and write 74.6 MB:
-// some 37 us at 3.35 TB/s. The flow planes (518 KB) stay in L2. The TPU
+// some 37 us at 3.35 TB/s. The flow planes (518 KB at res_scalar 3, 33 MB at
+// res_scalar 0) are read once from HBM and then hit L2. The TPU
 // kernel's machinery (u32 lane packing, band DMAs with aprons, select chains,
 // padded warp contexts built per source frame) existed because the TPU has no
 // fast per-lane gather; Hopper gathers natively, so this kernel reads the
@@ -85,7 +86,10 @@
 // picks between two exact implementations.
 // Runs of 8 samples, and SDR runs of 16, are compiled for that width, so the
 // per-sample loops of their whole runs carry no guards; narrower runs (a
-// flow cell under 8 columns: small res_scalar) take a generic instance.
+// flow cell under 8 columns: res_scalar 0-2, where a Y run is 1, 2 or 4
+// samples and every sample of a run has its own flow cell's lookups at
+// res_scalar 0) take a generic instance, which launch_plane and launch_mode3
+// count as they pick it (hrt_warp_generic_launches; the tracer's warp.narrow).
 // The blend converts samples to float and back by byte permutes and adds
 // (sample_float, and x + 2^23 rounded toward zero for t in [0, 1]) instead
 // of conversion instructions, which run at a quarter of the rate.
@@ -163,11 +167,16 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 #include <climits>
 
 #include "hsv_colour.h"
 
 namespace {
+
+// Launches of a generic (run width 0) instance of warp_plane_kernel or
+// warp_mode3_kernel since the library was loaded.
+std::atomic<long long> g_generic_launches{0};
 
 __device__ __forceinline__ int clamp_hi(int v, int lo, int hi) {
   // min(max(v, lo), hi): the jnp.clip / torch.clamp order when lo > hi.
@@ -634,6 +643,7 @@ cudaError_t launch_mode3(const void* s12y, const void* s21y, const int16_t* flow
   if constexpr (sizeof(T) == 1) {
     if (shift_y == 4) return go(warp_mode3_kernel<T, 16, kColour>);
   }
+  g_generic_launches.fetch_add(1, std::memory_order_relaxed);
   return go(warp_mode3_kernel<T, 0, kColour>);
 }
 
@@ -1399,6 +1409,7 @@ cudaError_t launch_plane(const void* s12, const void* s21, const int16_t* flow,
   if constexpr (sizeof(T) == 1) {
     if (shift == 4) return go(warp_plane_kernel<T, kMode, kUV, kRaw, 16>);
   }
+  g_generic_launches.fetch_add(1, std::memory_order_relaxed);
   return go(warp_plane_kernel<T, kMode, kUV, kRaw, 0>);
 }
 
@@ -1502,6 +1513,13 @@ extern "C" int hrt_warp_frames(const void* src12_y, const void* src12_uv,
                                     out_y, out_uv, dim_y, dim_x, band, low_h, low_w,
                                     res_scalar, black, white, 255.0f, 128.0f, s);
   return static_cast<int>(err);
+}
+
+// Launches of K2's generic instance (runs narrower than a compiled width:
+// res_scalar 0-2 in modes 0-3) since the library was loaded: one a plane in
+// modes 0-2, one a call in mode 3.
+extern "C" long long hrt_warp_generic_launches() {
+  return g_generic_launches.load(std::memory_order_relaxed);
 }
 
 // A timing variant of K2's mode 3, HDR, the whole frame, res_scalar >= 3

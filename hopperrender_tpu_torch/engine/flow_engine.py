@@ -44,18 +44,23 @@ RADIUS_BUCKETS = (5, 8, 12, flow_ops.MAX_R)
 
 
 def estimate_device_bytes(frame_height: int, frame_width: int, *, is_hdr: bool,
-                          max_calc_res: int = config.MAX_CALC_RES) -> int:
-    """Device-memory need of one engine on the card: the 3-frame ring, the
-    flow double buffer and the pyramid's offsets, K3's window sums (two live
-    (16, n_win_y, n_win_x) uint32 buffers at the smallest window, 2) and one
-    interval's warp outputs (T <= 5) with the plain versions' int32
-    temporaries. An estimate for the pre-check only; chip_smoke.py reports
-    the measured peak (torch.cuda.max_memory_allocated)."""
+                          max_calc_res: int = config.MAX_CALC_RES,
+                          num_iterations: int = config.NUM_ITERATIONS) -> int:
+    """Device-memory need of one engine on the card: the 3-frame ring, and
+    the larger of its two other moments, the flow (the two blurred flows,
+    the new one, and the pyramid's workspace: the offsets and K3's two sums
+    buffers of MAX_R layers at the schedule's finest window) and the warp
+    (the two blurred flows and one interval's outputs, T <= 5). An estimate
+    for the pre-check only; the benchmark reports the measured peak
+    (peak_mem_mib; PERF.md section 4 holds the two side by side)."""
     e = 2 if is_hdr else 1
     _, low_h, low_w = config.calc_flow_dims(frame_height, frame_width, max_calc_res)
-    frame = frame_height * frame_width * 3 // 2
-    cost_volume = 2 * flow_ops.MAX_R * -(-low_h // 2) * -(-low_w // 2) * 4
-    return 3 * frame * e + 3 * 2 * low_h * low_w * 2 + cost_volume + 5 * frame * e + 8 * frame * 4
+    frame = frame_height * frame_width * 3 // 2 * e
+    flow = 2 * low_h * low_w * 2
+    window = min((w for _, w in flow_ops.window_schedule(low_h, low_w, num_iterations)),
+                 default=1)
+    sums = 2 * flow_ops.MAX_R * -(-low_h // window) * -(-low_w // window) * 4
+    return 3 * frame + max(4 * flow + sums, 2 * flow + 5 * frame)
 
 
 class CalcTimeWindow:
@@ -112,7 +117,8 @@ class OpticalFlowEngine:
                                    "CUDA device is available (pass device='cpu' to run "
                                    "the plain PyTorch versions)")
             need = estimate_device_bytes(frame_height, frame_width, is_hdr=is_hdr,
-                                         max_calc_res=max_calc_res)
+                                         max_calc_res=max_calc_res,
+                                         num_iterations=num_iterations)
             free, _ = torch.cuda.mem_get_info(self.device)
             if need > 0.95 * free:
                 raise RuntimeError(

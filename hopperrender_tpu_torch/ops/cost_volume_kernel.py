@@ -21,7 +21,9 @@ determineLowestLayer + adjustOffsetArray (ref: opticalFlowCalcSDR.cpp:67-116).
 Each launches its CUDA kernels for CUDA tensors and takes its plain version
 only for CPU tensors; any other device raises. Counters: `flow_step.launches`,
 `delta_sums.launches` and `commit_winners.launches` (each wrapper's own
-calls).
+calls); with the port's tracer on, each flow_step call adds one to the
+tracer's `flow.steps` (one K3 + K4 pair on the card, its plain version on
+the CPU).
 
 Integer semantics follow the reference exactly: int16 offsets wrap (sums in
 int32 narrowed with .to(int16)); uint32 window sums wrap (the plain version
@@ -38,6 +40,7 @@ import torch
 
 from hopperrender_tpu_torch import _build, config
 from hopperrender_tpu_torch.ops.warp import to_int32
+from hopperrender_tpu_torch.utils import trace
 
 MAX_R = config.MAX_SEARCH_RADIUS
 UINT32_MASK = 0xFFFFFFFF
@@ -374,6 +377,7 @@ def flow_step(state: PyramidState, k: int) -> None:
     into state.offsets in place, the next step's sums cleared, the raw
     delta at iteration 0 step 0), in stream order; CPU tensors take the
     plain version. The checks were done when the state was built."""
+    trace.count(trace.FLOW_STEPS)
     if state.device.type == "cpu":
         flow_step_reference(state, k)
         return

@@ -24,6 +24,12 @@ kernel body, for the row split of parallel/mesh.py, in every mode and
 raw_blend. Plain version `warp_frames_band_reference`; counters
 `warp_frames_band.launches` (modes 0/1/2), `.mode3_launches` (mode 3),
 `.viz_launches` (modes 4/5/6) and `.raw_launches` (raw_blend).
+
+With the port's tracer on, each launch of either wrapper in which the
+library took K2's generic instance for a plane (runs narrower than a
+compiled width: res_scalar 0-2 in modes 0-3) adds one to the tracer's
+counter `warp.narrow`. The library counts those instances itself
+(`generic_launches`); the CPU's plain versions count nothing.
 """
 
 from __future__ import annotations
@@ -32,8 +38,17 @@ import torch
 
 from hopperrender_tpu_torch import _build
 from hopperrender_tpu_torch.ops import warp as warp_ops
+from hopperrender_tpu_torch.utils import trace
 
 KERNEL_MODES = (0, 1, 2, 3, 4, 5, 6)
+
+
+def generic_launches() -> int:
+    """Kernel launches of K2's generic instance (warp_plane_kernel or
+    warp_mode3_kernel with runs narrower than a compiled width) since the
+    library was loaded, as csrc/warp_frame.cu counts them where it picks the
+    instance: one a plane in modes 0-2, one a call in mode 3."""
+    return _build.entry("hrt_warp_generic_launches")()
 
 
 def warp_frames_reference(src12_y, src12_uv, src21_y, src21_uv, flow, ts,
@@ -142,12 +157,17 @@ def _launch(tensors, black_level, white_level, band, *, res_scalar, mode, is_hdr
     _, rows_y, _, rows_uv = band
     out_y = src12_y.new_empty((n_t, rows_y, dim_x))
     out_uv = src12_y.new_empty((n_t, rows_uv, dim_x))
+    counted = trace.is_on()
+    if counted:
+        generic = generic_launches()
     _build.launch("hrt_warp_frames", flow.get_device(),
                   src12_y.data_ptr(), src12_uv.data_ptr(), src21_y.data_ptr(),
                   src21_uv.data_ptr(), flow.data_ptr(), ts.data_ptr(), n_t,
                   out_y.data_ptr(), out_uv.data_ptr(), dim_y, dim_x, *band,
                   flow.shape[1], flow.shape[2], res_scalar, mode, int(raw_blend), int(is_hdr),
                   float(black_level), float(white_level))
+    if counted and generic_launches() != generic:
+        trace.count(trace.WARP_NARROW)
     return out_y, out_uv
 
 

@@ -37,6 +37,8 @@ from typing import NamedTuple
 
 HOST_SYNC = "host_sync"   # one for each host wait on work already queued on the device
 FRAME = "server.push_frame"   # the span of one source frame through FrameServer.push_frame
+FLOW_STEPS = "flow.steps"   # pyramid steps (K3 + K4) that flow_step ran, on engine.flow
+WARP_NARROW = "warp.narrow"   # K2 calls the library ran in its generic narrow-run instance
 
 
 class Record(NamedTuple):

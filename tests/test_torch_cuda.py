@@ -1231,3 +1231,109 @@ def test_warp_kernel_levels_degenerate_pairs(dev, is_hdr):
         ky, kuv = warp_kernel.warp_frames(*args, **kw)
         py, puv = warp_kernel.warp_frames_reference(*args, **kw)
         assert _same(ky, py) and _same(kuv, puv), f"levels {pair}"
+
+
+def test_4k_hdr_full_resolution_flow_matches_the_reference(dev):
+    """The benchmark's cell 4k-hdr-p010-fullflow.serve60 for five pushes on
+    the card: 4K HDR at MaxCalcRes 2160 (res_scalar 0, a 2160x3840 flow grid
+    in 11 pyramid iterations, 22 flow_step calls a flow; K2 in its generic
+    narrow-run instance), served through FrameServer.push_frame as the
+    closed loop serves it, against the benchmark's plain reference on the
+    card, exactly: every output's description and planes; the engine's
+    peak device memory within the pre-check's estimate's reach; and, with
+    the tracer on, flow.steps 22 on every flow and warp.narrow on every
+    warp, both planes of each K2 call in the library's generic instance."""
+    import json
+    from pathlib import Path
+
+    from hopperrender_tpu_torch.engine.flow_engine import estimate_device_bytes
+    from hopperrender_tpu_torch.utils import trace
+    from hrbench import harness, inputs
+    from hrbench.reference.cadence import Output, plan_stream
+    from hrbench.reference.stream import ReferenceStream
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "hrbench/configs/4k-hdr-p010-fullflow.json").read_text())
+    traffic = json.loads((root / "hrbench/traffic/serve60.json").read_text())
+    pool = inputs.make_pool(cfg, traffic, 3_022_000_000, dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    server = harness.make_server(cfg, traffic, dev)
+    steps = cost_volume_kernel.flow_step.launches
+    calls = warp_kernel.warp_frames.launches
+    generic = warp_kernel.generic_launches()
+    pushes = []
+    trace.enable(True)
+    try:
+        for k in range(1, 6):
+            outputs = server.push_frame(*pool.frames[pool.frame_index(k)])
+            if k == 1:
+                server.engine.search_radius = cfg["search_radius"]
+            pushes.append(outputs)
+        recs = trace.drain()
+    finally:
+        trace.enable(False)
+    assert server.engine.res_scalar == 0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    need = estimate_device_bytes(2160, 3840, is_hdr=True, max_calc_res=2160)
+    assert 0.9 * peak <= need <= 2 * peak, (need, peak)   # the pre-check's estimate
+    assert cost_volume_kernel.flow_step.launches - steps == 3 * 22
+    assert warp_kernel.warp_frames.launches - calls == 3
+    assert warp_kernel.generic_launches() - generic == 2 * 3   # Y and UV a call
+    assert [r.counters[trace.FLOW_STEPS] for r in recs if r.name == "engine.flow"] == [22] * 3
+    assert [r.counters.get(trace.WARP_NARROW) for r in recs
+            if r.name == "engine.warp"] == [1] * 3
+    del server
+    ref = ReferenceStream(pool.frames, pool.frame_index, cfg, radius=cfg["search_radius"],
+                          mode=traffic["frame_output"], device=dev)
+    plan = plan_stream(5, ref.frame_delta, source_fps=cfg["source_fps"],
+                       target_fps=traffic["target_fps"],
+                       scene_threshold=cfg["scene_change_threshold"],
+                       buffer_frames=cfg["buffer_frames"])
+    for k, (outputs, want) in enumerate(zip(pushes, plan), start=1):
+        assert [Output(o.start_time, o.end_time, o.blending_scalar, o.interpolated,
+                       o.scene_change) for o in outputs] == want, k
+        for o, (y, uv) in zip(outputs, ref.outputs(k, want)):
+            np.testing.assert_array_equal(o.y, y)
+            np.testing.assert_array_equal(o.uv, uv)
+    assert sum(o.interpolated for outputs in pushes for o in outputs) >= 6
+
+
+# (res_scalar, frame height, MaxCalcRes, is_hdr, K2 generic launches a call):
+# at res_scalar 0 both planes' runs are narrower than a compiled width; at
+# 3 (a 4K frame at the default 270) neither is, on HDR or SDR.
+@pytest.mark.parametrize("rs, h, max_calc_res, is_hdr, generic", [
+    (0, 48, 48, True, 2), (0, 48, 48, False, 2), (3, 256, 32, True, 0), (3, 256, 32, False, 0)])
+def test_narrow_warp_counter_on_the_card(dev, rs, h, max_calc_res, is_hdr, generic):
+    """warp.narrow, with the tracer on, on each engine.warp whose K2 call
+    the library ran in its generic instance, and the library's own count of
+    those launches; no warp.narrow where the compiled widths took it."""
+    from hopperrender_tpu_torch.config import Settings
+    from hopperrender_tpu_torch.server.frame_server import FrameServer
+    from hopperrender_tpu_torch.utils import trace
+    from hopperrender_tpu_torch.vio import nv12
+
+    w = 96
+    settings = Settings(target_fps=60.0, use_display_fps=False, frame_output=2,
+                        auto_quality=False, scene_change_threshold=10000,
+                        max_calc_res=max_calc_res)
+    server = FrameServer(w, h, source_fps=24.0, is_hdr=is_hdr, device=dev, settings=settings)
+    rng = np.random.default_rng(9)
+    frames = [nv12.synthetic_frame(rng, h, w, motion_x=3 * i) for i in range(6)]
+    if is_hdr:
+        frames = [tuple(p.astype(np.uint16) << 8 for p in f) for f in frames]
+    before = warp_kernel.generic_launches()
+    trace.enable(True)
+    try:
+        for f in frames:
+            server.push_frame(*f)
+        recs = trace.drain()
+    finally:
+        trace.enable(False)
+    assert server.engine.res_scalar == rs
+    warps = [r.counters for r in recs if r.name == "engine.warp"]
+    assert len(warps) == 4
+    assert warp_kernel.generic_launches() - before == generic * len(warps)
+    assert [c.get(trace.WARP_NARROW, 0) for c in warps] == [int(generic > 0)] * 4

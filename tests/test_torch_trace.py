@@ -184,3 +184,53 @@ def test_push_span_tree_and_host_syncs(mode, threshold, kind):
     stats = trace.per_frame()
     assert stats["host_syncs_per_frame"] == total / 7
     assert set(stats["stages_ms"]) == {r.name for _, recs in traced for r in recs}
+
+
+# (res_scalar, frame height, MaxCalcRes): the flow at the frame's resolution,
+# and a frame halved three times, as a 4K frame at the default 270.
+@pytest.mark.parametrize("rs, h, max_calc_res", [(0, 48, 48), (3, 256, 32)])
+def test_flow_steps_and_narrow_warp_counters(rs, h, max_calc_res):
+    """flow.steps on engine.flow: one a flow_step call, 2 an iteration of the
+    flow's window schedule (5 iterations at res_scalar 0 here, 4 at 3).
+    warp.narrow counts K2 launches that the kernel library ran in its
+    generic instance: on the CPU nothing launches, so none is recorded (the
+    card's count is tests/test_torch_cuda.py's). Off, the same stream
+    records nothing."""
+    from hopperrender_tpu_torch.ops import cost_volume_kernel
+
+    def stream(traced):
+        settings = Settings(target_fps=60.0, use_display_fps=False, frame_output=2,
+                            auto_quality=False, scene_change_threshold=10000,
+                            max_calc_res=max_calc_res)
+        server = FrameServer(W, h, source_fps=24.0, device="cpu", settings=settings)
+        rng = np.random.default_rng(8)
+        trace.enable(traced)
+        recs, calls = [], 0
+        real_step = cost_volume_kernel.flow_step_reference
+
+        def step(state, k):
+            nonlocal calls
+            calls += 1
+            real_step(state, k)
+
+        cost_volume_kernel.flow_step_reference = step
+        try:
+            for i in range(6):
+                server.push_frame(*nv12.synthetic_frame(rng, h, W, motion_x=3 * i))
+                recs += trace.drain()
+        finally:
+            cost_volume_kernel.flow_step_reference = real_step
+            trace.enable(False)
+        return server.engine, recs, calls
+
+    eng, recs, calls = stream(traced=True)
+    assert eng.res_scalar == rs
+    flows = [r.counters for r in recs if r.name == "engine.flow"]
+    warps = [r.counters for r in recs if r.name == "engine.warp"]
+    assert len(flows) == 4 and len(warps) == 4
+    assert [c[trace.FLOW_STEPS] for c in flows] == [{0: 10, 3: 8}[rs]] * 4
+    assert sum(c[trace.FLOW_STEPS] for c in flows) == calls
+    assert all(trace.FLOW_STEPS not in r.counters for r in recs if r.name != "engine.flow")
+    assert all(trace.WARP_NARROW not in r.counters for r in recs)
+    _, off, off_calls = stream(traced=False)
+    assert off == [] and off_calls == calls
